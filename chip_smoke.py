@@ -10,15 +10,32 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``nvcc`` per source, all at once).
 2. Kernel phase: hold each kernel against its plain PyTorch version on the
    card at the shapes the main path gives it, and time both with CUDA
-   events (median of repeated launches).
+   events (median of repeated launches); also gram at K = 130, forced
+   segment_gram group chunking and the multi_segment_gram per-column
+   fallback.
 3. Main path: ``favorita_like(1684, 54, 4100, 0.05, seed=0)`` (18,641,880
    sales rows) through ``linear_regression`` v1 (BGD) and closed form, both
    with the moments kernel, then one degree-1 aggregate batch.  Launch
    counters are zeroed just before and read just after; every kernel must
    have launched.  The degree-1 batch is checked against float64 sums of
    the fact table.
-4. Oracle: the torch engine on the card against the port's float64 numpy
-   engine on the 410-item bundle (1,864,188 sales rows).
+4. Categorical and cofactor baselines, on the same 18.6 M-row bundle:
+   ``linear_regression`` closed form with ``categorical=("store_nbr",
+   "item_nbr")`` on its factorized leg and on its materialized leg through
+   the ``multi_segment_gram`` kernel (4,158 coefficients; the two must
+   predict alike and agree in θ off the one-hot null space), the scale
+   factors through ``moments``, ``cofactors_materialized`` through ``gram``
+   (against the factorized cofactors), ``cofactors_streaming`` in 4 M-row
+   chunks (against the one-shot Gram) and ``cofactors_grouped`` by item
+   through ``segment_gram`` (its groups sum to the global cofactors).
+   Counters are zeroed before and read after; all seven kernels must have
+   launched.
+5. Oracle: the torch engine on the card against the port's float64 numpy
+   engine on the 410-item bundle (1,864,188 sales rows), for the continuous
+   and the categorical closed form; and the FD leg on ``fd_star_schema``
+   (8 categorical keys, each determining a second one): FD-reduced equals
+   full at 1e-10 on the numpy engine and predicts alike through the
+   float32 ``multi_segment_gram`` kernel.
 
 The last lines are the kernels JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -52,6 +69,26 @@ KERNEL_RTOL = 1e-4
 # largest cofactor: 1.86 M rows summed in float32 through five nodes
 ORACLE_RTOL = 1e-4
 THETA_RTOL = 1e-3
+# categorical θ in float32: the one-hot blocks and the intercept are
+# collinear, so θ along those null directions is pinned only by the 0.006
+# ridge and float32 rounding of the grouped sums moves it freely.  What the
+# data determine is compared: predictions on every join row (≤ 1e-4 of the
+# largest) and θ with its null-space components removed — the level
+# (intercept plus each block's mean), the continuous coefficients and each
+# block centred (≤ 5e-4 of the largest).  Both sit well above float32
+# rounding of 18.6 M-row sums carried through a solve whose identifiable
+# part is well conditioned; PERF.md records the observed errors.
+PRED_RTOL = 1e-4
+THETA_ID_RTOL = 5e-4
+FD_ATOL = 1e-10  # FD-reduced vs full, float64 (the reference's own bound)
+CAT = ("store_nbr", "item_nbr")
+N_CAT_PARAMS = 1 + 2 + 54 + 4_100 + 1  # intercept, date, onpromotion, blocks, label
+STREAM_ROWS = 4_000_000
+GRAM_WIDE = (1_000_000, 130)  # the reference's widest gram test, scaled up
+# the kernels each path must launch: phase 3 (the continuous main path)
+# and phase 4 (all seven)
+PHASE3_KERNELS = ("segment_view", "segment_view1", "segment_reduce", "moments")
+PHASE4_KERNELS = PHASE3_KERNELS + ("gram", "segment_gram", "multi_segment_gram")
 
 
 _T0 = time.perf_counter()
@@ -109,6 +146,12 @@ def bound_ms(nbytes: float, flops: float) -> tuple:
 
 # -- phase 2: kernels vs plain versions ---------------------------------------
 
+def library_gram(x) -> torch.Tensor:
+    """The one PyTorch call computing gram's function (cuBLAS; timed as
+    ``library_ms``, never called by the port)."""
+    return x.T @ x
+
+
 def library_segment_sum(data, seg64, g: int) -> torch.Tensor:
     """The one PyTorch call computing segment_reduce's function (timed as
     ``library_ms``; the port never calls it)."""
@@ -147,7 +190,7 @@ TIMED_VIEW_NODE = "item_nbr"
 TIMED_REGROUP_NODE = "transactions"
 
 
-def kernel_phase(ref, sv, mom) -> dict:
+def kernel_phase(ref, sv, mom, kops) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {}
 
@@ -207,6 +250,7 @@ def kernel_phase(ref, sv, mom) -> dict:
                 ms=time_ms(kern), plain_ms=time_ms(plain),
                 bound_ms=b, bound_by=by, library_ms=time_ms(lib),
             )
+    rows.update(gram_family(ref, kops, gen, check))
     # the date column: SalesF + Transactions + Oil rows
     m = N_SALES + 90_936 + 1_684
     x = torch.randint(0, 1_684, (m,), device="cuda", generator=gen).float()
@@ -235,6 +279,83 @@ def kernel_phase(ref, sv, mom) -> dict:
             f"{r['name']:15s} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
             f"bound_ms={r['bound_ms']:.4f} library_ms={r['library_ms']}"
         )
+    return rows
+
+
+def gram_family(ref, kops, gen, check) -> dict:
+    """gram, segment_gram and multi_segment_gram at the shapes phase 4 gives
+    them: the noPre design matrix (five paper columns), the grouped Gram by
+    item over u = [1, five columns], and the categorical leg's u = [1, date,
+    onpromotion, unit_sales] grouped by store and by item.  Row order is
+    the join's, in which ids are unordered."""
+    dev, m, s = "cuda", N_SALES, 4
+    rows = {}
+    x = torch.randn(m, 5, device=dev, generator=gen)
+    kern = functools.partial(kops.gram, x)
+    plain = functools.partial(ref.gram_ref, x)
+    err, tol = check("gram", "noPre K=5", (kern(),), (plain(),))
+    b, by = bound_ms(m * 5 * s + 25 * s, m * 5 * 6)
+    mw, kw = GRAM_WIDE
+    xw = torch.randn(mw, kw, device=dev, generator=gen)
+    errw, tolw = check("gram", f"K={kw}", (kops.gram(xw),), (ref.gram_ref(xw),))
+    bw, byw = bound_ms(mw * kw * s + kw * kw * s, mw * kw * (kw + 1))
+    rows["gram"] = dict(
+        name="gram", route="cuda", source="src/repro_torch/csrc/gram.cu",
+        replaces="src/repro/kernels/gram.py:56 gram_kernel_call",
+        shape=dict(rows=m, k=5), max_abs_err=err, tol=tol,
+        ms=time_ms(kern), plain_ms=time_ms(plain),
+        bound_ms=b, bound_by=by, library_ms=time_ms(functools.partial(library_gram, x)),
+        also=dict(
+            rows=mw, k=kw, max_abs_err=errw, tol=tolw,
+            ms=time_ms(functools.partial(kops.gram, xw)),
+            plain_ms=time_ms(functools.partial(ref.gram_ref, xw)),
+            bound_ms=bw, bound_by=byw,
+            library_ms=time_ms(functools.partial(library_gram, xw)),
+        ),
+    )
+    del xw
+
+    g_item, g_store = 4_100, 54
+    u = torch.cat([torch.ones(m, 1, device=dev), torch.rand(m, 5, device=dev, generator=gen)], 1)
+    item = torch.randint(0, g_item, (m,), device=dev, generator=gen, dtype=torch.int32)
+    kern = functools.partial(kops.segment_gram, u, item, g_item)
+    plain = functools.partial(ref.segment_gram_ref, u, item, g_item)
+    want = plain()
+    err, tol = check("segment_gram", "item K=6", (kern(),), (want,))
+    budget = 32 * 1024  # forces 11 chunks of at most 390 groups
+    errc, tolc = check("segment_gram", "item chunked",
+                       (kops.segment_gram(u, item, g_item, smem_budget=budget),), (want,))
+    del want
+    b, by = bound_ms(m * 6 * s + m * 4 + g_item * 36 * s, m * 21 * 2)
+    rows["segment_gram"] = dict(
+        name="segment_gram", route="cuda",
+        source="src/repro_torch/csrc/segment_gram.cu",
+        replaces="src/repro/kernels/segment_gram.py:65 segment_gram_kernel_call",
+        shape=dict(rows=m, k=6, groups=g_item), max_abs_err=max(err, errc), tol=tol,
+        ms=time_ms(kern), plain_ms=time_ms(plain, reps=3),
+        bound_ms=b, bound_by=by, library_ms=None,
+    )
+
+    u4 = u[:, :4].contiguous()
+    store = torch.randint(0, g_store, (m,), device=dev, generator=gen, dtype=torch.int32)
+    segs = torch.stack([store, item], 1).contiguous()
+    groups = [g_store, g_item]
+    kern = functools.partial(kops.multi_segment_gram, u4, segs, groups)
+    plain = functools.partial(ref.multi_segment_gram_ref, u4, segs, groups)
+    want = plain()
+    err, tol = check("multi_seg_gram", "store,item K=4", kern(), want)
+    errf, _ = check("multi_seg_gram", "fallback",
+                    kops.multi_segment_gram(u4, segs, groups, smem_budget=budget), want)
+    del want
+    b, by = bound_ms(m * 4 * s + m * 2 * 4 + (g_store + g_item) * 16 * s, m * 10 * 2 * 2)
+    rows["multi_segment_gram"] = dict(
+        name="multi_segment_gram", route="cuda",
+        source="src/repro_torch/csrc/segment_gram.cu",
+        replaces="src/repro/kernels/segment_gram.py:138 multi_segment_gram_kernel_call",
+        shape=dict(rows=m, k=4, groups=groups), max_abs_err=max(err, errf), tol=tol,
+        ms=time_ms(kern), plain_ms=time_ms(plain, reps=3),
+        bound_ms=b, bound_by=by, library_ms=None,
+    )
     return rows
 
 
@@ -290,16 +411,21 @@ def device_busy_ms(prof) -> float:
     return sum(us for _, us in device_ops(prof)) / 1e3
 
 
-def main_path(rt) -> dict:
+def favorita(rt):
     t0 = time.perf_counter()
     bundle = rt.favorita_like(1684, 54, 4100, 0.05, seed=SEED)
-    store, vorder = bundle.store, bundle.vorder
-    feats, label = bundle.features, bundle.label
-    n = store.get("SalesF").num_rows
-    log(f"data: {n} sales rows, {store.total_rows()} rows in all, "
+    n = bundle.store.get("SalesF").num_rows
+    log(f"data: {n} sales rows, {bundle.store.total_rows()} rows in all, "
           f"{time.perf_counter() - t0:.2f}s to generate")
     if n != N_SALES:
         raise AssertionError(f"expected {N_SALES} sales rows, got {n}")
+    return bundle
+
+
+def main_path(rt, bundle) -> dict:
+    store, vorder = bundle.store, bundle.vorder
+    feats, label = bundle.features, bundle.label
+    n = N_SALES
 
     rt.kops.reset_launch_counts()
     store.reset_counters()
@@ -357,7 +483,7 @@ def main_path(rt) -> dict:
           f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
     log("host seconds: " + " ".join(
         f"{k}={v:.3f}" for k, v in timers.seconds.items()))
-    missing = [k for k, v in counts.items() if v == 0]
+    missing = [k for k in PHASE3_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
 
@@ -374,7 +500,138 @@ def main_path(rt) -> dict:
     return counts
 
 
-# -- phase 4: the float64 oracle ------------------------------------------------
+# -- phase 4: categorical regression and the cofactor baselines --------------
+
+def row_predictions(theta, names, joined, label) -> np.ndarray:
+    """θ's prediction on every join row, read by name: ``intercept``, a
+    continuous column, or ``attr=g`` (a gather of the block by the row's
+    id) — the one-hot design matrix never forms."""
+    pred = np.zeros(joined.num_rows)
+    blocks = {}
+    for i, name in enumerate(names):
+        if name == "intercept":
+            pred += theta[i]
+        elif name == label:
+            continue
+        elif "=" in name:
+            attr, g = name.split("=")
+            blocks.setdefault(attr, {})[int(g)] = theta[i]
+        else:
+            pred += theta[i] * joined.column(name).astype(np.float64)
+    for attr, coef in blocks.items():
+        table = np.zeros(max(coef) + 1)
+        table[list(coef)] = list(coef.values())
+        pred += table[joined.column(attr).astype(np.int64)]
+    return pred
+
+
+def identifiable(theta, names, cat) -> np.ndarray:
+    """θ without its null-space components: the level (intercept plus each
+    categorical block's mean), the continuous coefficients, and each block
+    centred.  Two models that predict alike agree here."""
+    level = theta[0]
+    cont = [i for i, n in enumerate(names[1:-1], 1) if "=" not in n]
+    parts = [theta[cont]]
+    for c in cat:
+        blk = theta[[i for i, n in enumerate(names) if n.startswith(c + "=")]]
+        level += blk.mean()
+        parts.append(blk - blk.mean())
+    return np.concatenate([[level]] + parts)
+
+
+def compare_models(what, got, want, joined, label, cat=None) -> None:
+    """Predictions on every join row within PRED_RTOL of the largest and,
+    given ``cat``, identifiable θ within THETA_ID_RTOL of its largest."""
+    if got.names != want.names:
+        raise AssertionError(f"{what}: names differ")
+    p, q = (row_predictions(r.theta, r.names, joined, label) for r in (got, want))
+    err, scale = float(np.abs(p - q).max()), float(np.abs(q).max())
+    msg = f"{what}: prediction max_abs_err={err:.3e} (of {scale:.3e})"
+    if not np.all(np.isfinite(p)) or not err <= PRED_RTOL * scale:
+        raise AssertionError(msg)
+    if cat is not None:
+        a, b = identifiable(got.theta, got.names, cat), identifiable(want.theta, want.names, cat)
+        id_err, id_scale = float(np.abs(a - b).max()), float(np.abs(b).max())
+        raw = float(np.abs(got.theta - want.theta).max())
+        msg += (f"; identifiable theta max_abs_err={id_err:.3e} (of {id_scale:.3e}),"
+                f" raw theta {raw:.3e}")
+        if not id_err <= THETA_ID_RTOL * id_scale:
+            raise AssertionError(msg)
+    log(msg)
+
+
+def check_cofactors(what, got, want, count_exact=False) -> None:
+    a, b = got.matrix(), want.matrix()
+    err, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
+    log(f"{what}: max_abs_err={err:.3e} tol={ORACLE_RTOL * scale:.3e}")
+    if not err <= ORACLE_RTOL * scale:
+        raise AssertionError(f"{what}: {err} > {ORACLE_RTOL * scale}")
+    if count_exact and got.count != want.count:
+        raise AssertionError(f"{what}: count {got.count} != {want.count}")
+
+
+def categorical_phase(rt, bundle) -> dict:
+    store, vorder = bundle.store, bundle.vorder
+    feats, label = bundle.features, bundle.label
+    cols = feats + [label]
+    rt.kops.reset_launch_counts()
+
+    def timed(what, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        log(f"{what}: {time.perf_counter() - t:.3f}s")
+        return out
+
+    res = {}
+    for leg, fact in (("factorized", True), ("materialized", False)):
+        cfg = dataclasses.replace(
+            rt.VERSIONS["closed"], backend="torch", device="cuda",
+            categorical=CAT, factorized=fact, use_kernel=not fact,
+        )
+        r = timed(f"categorical {leg}",
+                  functools.partial(rt.linear_regression, store, vorder, feats, label, cfg))
+        log(f"  cofactor={r.seconds_cofactor:.3f}s solve={r.seconds_gd:.3f}s")
+        if r.theta.shape != (N_CAT_PARAMS,) or not np.all(np.isfinite(r.theta)):
+            raise AssertionError(f"categorical {leg}: bad theta shape {r.theta.shape}")
+        res[leg] = r
+    joined = timed("materialize_join", store.materialize_join)
+    compare_models("categorical factorized vs materialized", res["factorized"],
+                   res["materialized"], joined, label, cat=CAT)
+
+    factors = timed("scale factors (moments kernel)", functools.partial(
+        rt.compute_scale_factors, store, feats, label, use_kernel=True, device="cuda"))
+    one = timed("cofactors_materialized (gram kernel)", functools.partial(
+        rt.cofactors_materialized, store, cols, use_kernel=True, scale=factors,
+        device="cuda"))
+    fact = timed("cofactors_factorized", functools.partial(
+        rt.cofactors_factorized, store, vorder, cols, backend="torch",
+        scale=factors, device="cuda"))
+    check_cofactors("materialized vs factorized cofactors", one, fact)
+    x = timed("design_matrix", functools.partial(rt.design_matrix, joined, cols, scale=factors))
+    stream = timed(f"cofactors_streaming ({STREAM_ROWS} rows a chunk)", functools.partial(
+        rt.cofactors_streaming, x, cols, chunk_rows=STREAM_ROWS, device="cuda"))
+    check_cofactors("streaming vs one-shot", stream, one, count_exact=True)
+    n_items = store.attr_domain("item_nbr")
+    groups = timed("cofactors_grouped by item_nbr", functools.partial(
+        rt.cofactors_grouped, x, joined.column("item_nbr"), n_items, cols, device="cuda"))
+    total = groups[0]
+    for g in groups[1:]:
+        total = total + g
+    if len(groups) != n_items:
+        raise AssertionError(f"{len(groups)} groups, expected {n_items}")
+    check_cofactors("grouped sum vs one-shot", total, one, count_exact=True)
+
+    torch.cuda.synchronize()
+    counts = rt.kops.launch_counts()
+    log(f"launches={counts}")
+    missing = [k for k in PHASE4_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in phase 4: {missing}")
+    return counts
+
+
+# -- phase 5: the float64 oracle ------------------------------------------------
 
 def oracle_phase(rt) -> None:
     bundle = rt.favorita_like(1684, 54, 410, 0.05, seed=SEED)
@@ -411,6 +668,50 @@ def oracle_phase(rt) -> None:
     if not rel <= THETA_RTOL:
         raise AssertionError(f"theta off the fp64 oracle: {rel}")
 
+    # the categorical closed form: torch on the card vs the float64 engine
+    cat = {}
+    for backend in ("numpy", "torch"):
+        cfg = dataclasses.replace(
+            rt.VERSIONS["closed"], backend=backend, device="cuda", categorical=CAT
+        )
+        t = time.perf_counter()
+        cat[backend] = rt.linear_regression(store, vorder, feats, label, cfg)
+        log(f"categorical closed form, {backend}: {time.perf_counter() - t:.3f}s")
+    compare_models("categorical torch cuda vs numpy fp64", cat["torch"], cat["numpy"],
+                   store.materialize_join(), label, cat=CAT)
+
+
+def fd_oracle(rt) -> None:
+    """FD-reduced ≡ full on ``fd_star_schema`` at the sizes of the reference's
+    ``bench_categorical.run_fd``: float64 at 1e-10, and through the float32
+    ``multi_segment_gram`` kernel alike in prediction."""
+    b = rt.fd_star_schema(n_cat=8, domain=96, dep_domain=48, n_rows=4000, seed=13)
+    found = b.store.infer_fds()
+    cat = tuple(f"c{i}" for i in range(8)) + tuple(f"d{i}" for i in range(8))
+    feats = ["x"] + list(cat)
+    red = b.store.fd_reduction(list(cat))
+    log(f"FDs inferred: {len(found)}; reduction keeps {red.kept}")
+    if sorted(red.dropped) != sorted(cat[8:]):
+        raise AssertionError(f"expected every d_i dropped, got {sorted(red.dropped)}")
+    out = {}
+    for leg, fact in (("numpy", True), ("kernel", False)):
+        for fds in (True, False):
+            cfg = dataclasses.replace(
+                rt.VERSIONS["closed"], backend="numpy", device="cuda", categorical=cat,
+                factorized=fact, use_kernel=not fact, use_fds=fds,
+            )
+            out[leg, fds] = rt.linear_regression(b.store, b.vorder, feats, b.label, cfg)
+    exact, full = out["numpy", True], out["numpy", False]
+    err = float(np.abs(exact.theta - full.theta).max())
+    log(f"FD-reduced vs full, float64: max_abs_err={err:.3e} over {len(exact.theta)} "
+        f"coefficients (tol {FD_ATOL})")
+    if exact.names != full.names or not err <= FD_ATOL:
+        raise AssertionError(f"FD-reduced theta off the full solve: {err}")
+    joined = b.store.materialize_join()
+    for fds in (True, False):
+        compare_models(f"FD kernel leg use_fds={fds} vs float64", out["kernel", fds],
+                       exact, joined, b.label)
+
 
 def main() -> None:
     if not torch.cuda.is_available():
@@ -421,12 +722,16 @@ def main() -> None:
         VERSIONS,
         AggregateQuery,
         FactorizedEngine,
-        compute_scale_factors,
         cofactors_factorized,
+        cofactors_grouped,
+        cofactors_materialized,
+        cofactors_streaming,
+        compute_scale_factors,
+        design_matrix,
         linear_regression,
     )
     from repro_torch.core import factorize as fz
-    from repro_torch.data import favorita_like
+    from repro_torch.data import favorita_like, fd_star_schema
     from repro_torch.kernels import _build, ops as kops, ref
     from repro_torch.kernels import moments as mom
     from repro_torch.kernels import segment_view as sv
@@ -436,8 +741,11 @@ def main() -> None:
         FactorizedEngine=FactorizedEngine,
         compute_scale_factors=compute_scale_factors,
         cofactors_factorized=cofactors_factorized,
+        cofactors_grouped=cofactors_grouped,
+        cofactors_materialized=cofactors_materialized,
+        cofactors_streaming=cofactors_streaming, design_matrix=design_matrix,
         linear_regression=linear_regression, fz=fz,
-        favorita_like=favorita_like, kops=kops,
+        favorita_like=favorita_like, fd_star_schema=fd_star_schema, kops=kops,
     )
     card = card_line()
     print(f"card: {card}")
@@ -455,18 +763,25 @@ def main() -> None:
                     print(f"  {name}: {line.strip()}")
 
     log("phase 2: kernels vs plain versions")
-    rows = kernel_phase(ref, sv, mom)
+    rows = kernel_phase(ref, sv, mom, kops)
 
+    bundle = favorita(rt)
     log("phase 3: main path")
-    counts = main_path(rt)
-    for name, row in rows.items():
-        row["launches"] = counts[name]
+    counts = main_path(rt, bundle)
+    for name in PHASE3_KERNELS:
+        rows[name]["launches"] = counts[name]
 
-    log("phase 4: float64 oracle")
+    log("phase 4: categorical regression and cofactor baselines")
+    counts = categorical_phase(rt, bundle)
+    for name in PHASE4_KERNELS[len(PHASE3_KERNELS):]:
+        rows[name]["launches"] = counts[name]
+    del bundle
+
+    log("phase 5: float64 oracle")
     oracle_phase(rt)
+    fd_oracle(rt)
 
-    order = ("segment_view", "segment_view1", "segment_reduce", "moments")
-    print(json.dumps({"kernels": [rows[n] for n in order]}))
+    print(json.dumps({"kernels": [rows[n] for n in PHASE4_KERNELS]}))
     print(card)
     print(json.dumps({
         "ok": True,

@@ -2,9 +2,9 @@
 
 ``Store`` and ``StoreSnapshot`` duck-type the same read surface; every
 ``FactorizedEngine`` runs against either interchangeably.  This port's
-store carries the catalog, dictionary and statistics reads; the result
-caches, functional-dependency catalog and pending-delta log of the JAX
-package are not part of it yet, so they are absent here.
+store carries the catalog, dictionary, statistics and functional-dependency
+reads; the result caches and pending-delta log of the JAX package are not
+part of it yet, so they are absent here.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from typing import (
 import numpy as np
 
 if TYPE_CHECKING:  # typing-only: avoid import cycles at runtime
+    from .fd import FDReduction, FunctionalDependency
     from .relation import Relation
 
 __all__ = ["StoreReads"]
@@ -69,6 +70,15 @@ class StoreReads(Protocol):
     # -- statistics ------------------------------------------------------------
     def column_moments(self, col: str) -> Tuple[float, float, int]:
         """(sum, max|x|, count) of ``col`` over the relations holding it."""
+        ...
+
+    # -- functional dependencies -----------------------------------------------
+    def fds(self) -> List["FunctionalDependency"]:
+        """The FD catalog."""
+        ...
+
+    def fd_reduction(self, cat: Sequence[str]) -> "FDReduction":
+        """FD reduction plan of a categorical attribute list."""
         ...
 
     def materialize_join(

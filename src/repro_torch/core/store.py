@@ -18,18 +18,25 @@ This is the store's read surface:
 * ``snapshot`` — an O(1) frozen read view (catalog maps are replaced on
   ``put``, never mutated);
 * the cumulative traversal counters ``passes`` / ``node_visits`` that
-  every engine traversal against the store increments.
+  every engine traversal against the store increments;
+* the **functional-dependency catalog** (``add_fd`` / ``infer_fds`` /
+  ``fds`` / ``drop_fd``) and the memoized ``fd_reduction`` planner that
+  the categorical solve reads; ``put`` re-verifies every FD touching the
+  replaced relation.
 
-Appends, the pending-delta log, functional dependencies, the result caches
-and the persistent view cache belong to later parts of the port.
+Appends (and with them the FD re-check of each appended delta), the
+pending-delta log, the result caches and the persistent view cache belong
+to later parts of the port.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .fd import FDReduction, FunctionalDependency, reduction_plan, witnessed_mapping
 from .relation import Relation, join_keys, sort_merge_join
 
 __all__ = ["Store", "StoreSnapshot"]
@@ -106,6 +113,22 @@ def _column_moments(
     return float(allv.sum()), float(np.abs(allv).max()), len(allv)
 
 
+def _fd_reduction(
+    relations: Dict[str, Relation],
+    fds: Dict[Tuple[str, str], FunctionalDependency],
+    memo: Dict[tuple, FDReduction],
+    cat: Sequence[str],
+) -> FDReduction:
+    """The FD reduction plan of ``cat``, memoized per (cat list, domains)
+    in ``memo`` until the FD catalog changes."""
+    domains = {a: _attr_domain(relations, a) for a in cat}
+    key = (tuple(cat), tuple(sorted(domains.items())))
+    plan = memo.get(key)
+    if plan is None:
+        plan = memo[key] = reduction_plan(fds, list(cat), domains)
+    return plan
+
+
 class Store:
     """Catalog of named relations with natural-join materialization."""
 
@@ -116,6 +139,12 @@ class Store:
         self._enc_cols: Dict[Tuple[str, str], np.ndarray] = {}
         # col -> (sum, max|x|, count) over the union of relations with col
         self._moments: Dict[str, Tuple[float, float, int]] = {}
+        # functional-dependency catalog: (lhs, rhs) -> FD with its witnessed
+        # id mapping.  Declared FDs are contracts; inferred ones are dropped
+        # when a put falsifies them.  The reduction-plan memo is cleared
+        # whenever the catalog changes (``_set_fds``).
+        self._fds: Dict[Tuple[str, str], FunctionalDependency] = {}
+        self._red_cache: Dict[tuple, FDReduction] = {}
         # cumulative counters over EVERY engine traversal of this store
         self.passes = 0
         self.node_visits = 0
@@ -150,12 +179,46 @@ class Store:
 
     # -- catalog -------------------------------------------------------------
     def put(self, rel: Relation) -> None:
-        """Insert or replace a relation.  Copy-on-write: the catalog,
+        """Insert or replace a relation.  Copy-on-write: the catalog, FD,
         moments and encoded-column maps are *replaced*, never mutated, so a
         :class:`StoreSnapshot` taken before the call keeps the old state.
-        The global dictionaries are never rebuilt (append-only forever)."""
+        The global dictionaries are never rebuilt (append-only forever).
+
+        Every FD touching the relation's attributes is re-verified from
+        scratch: a declared FD that no longer holds raises (and the catalog
+        is left as it was); an inferred one is dropped."""
         old = self._relations.get(rel.name)
-        self._relations = {**self._relations, rel.name: rel}
+        old_relations = self._relations
+        touched = set(rel.keys) | set(old.keys if old else ())
+        stale_fds = [
+            key for key in self._fds if key[0] in touched or key[1] in touched
+        ]
+        # install the new catalog map first so re-verification sees the
+        # post-put data; a declared-FD violation restores the old map
+        self._relations = {**old_relations, rel.name: rel}
+        new_fds = dict(self._fds)
+        for key in stale_fds:
+            try:
+                dom = self.attr_domain(key[0])
+            except ValueError:  # lhs attribute vanished from the catalog
+                dom = 0
+            mapping = (
+                witnessed_mapping(self.relations(), key[0], key[1], dom)
+                if dom
+                else None
+            )
+            if mapping is not None:
+                new_fds[key] = dataclasses.replace(new_fds[key], mapping=mapping)
+            elif self._fds[key].source == "declared":
+                self._relations = old_relations
+                raise ValueError(
+                    f"put({rel.name!r}) violates declared FD "
+                    f"{key[0]} → {key[1]}"
+                )
+            else:
+                del new_fds[key]
+        if stale_fds:
+            self._set_fds(new_fds)
         self.version += 1
         stale_attrs = set(rel.attributes) | set(old.attributes if old else ())
         self._moments = {
@@ -193,6 +256,85 @@ class Store:
             out = self._moments[col] = _column_moments(self._relations, col)
         return out
 
+    # -- functional dependencies ----------------------------------------------
+    def add_fd(self, lhs: str, rhs: str) -> FunctionalDependency:
+        """Declare the functional dependency ``lhs → rhs`` between two
+        dictionary-encoded key attributes.  Verified against the data now
+        (raises if no relation witnesses the pair or any witness violates
+        functionality) and re-checked on every ``put``."""
+        mapping = witnessed_mapping(
+            self.relations(), lhs, rhs, self.attr_domain(lhs)
+        )
+        if mapping is None:
+            raise ValueError(
+                f"functional dependency {lhs} → {rhs} does not hold (or no "
+                "relation contains both attributes as keys)"
+            )
+        fd = FunctionalDependency(lhs, rhs, mapping, "declared")
+        self._set_fds({**self._fds, (lhs, rhs): fd})
+        return fd
+
+    def infer_fds(
+        self, attrs: Optional[Sequence[str]] = None
+    ) -> List[Tuple[str, str]]:
+        """Scan the catalog for candidate FDs ``f → g`` and register every
+        verified one as *inferred*.
+
+        Candidates are ordered pairs of key attributes co-located in at
+        least one relation — the only pairs whose FD status is decidable
+        without computing the join (and, by the projection argument in
+        ``repro_torch.core.fd``, exactly the witnesses that make the FD
+        sound on the join result).  ``attrs`` restricts the candidate
+        universe.  Returns the newly registered (lhs, rhs) pairs.
+        """
+        universe = set(attrs) if attrs is not None else None
+        pairs: Dict[Tuple[str, str], None] = {}
+        for rel in self._relations.values():
+            keys = [a for a in rel.keys if universe is None or a in universe]
+            for lhs in keys:
+                for rhs in keys:
+                    if lhs != rhs:
+                        pairs.setdefault((lhs, rhs))
+        found: List[Tuple[str, str]] = []
+        new_fds = dict(self._fds)
+        for lhs, rhs in pairs:
+            if (lhs, rhs) in new_fds:
+                continue
+            mapping = witnessed_mapping(
+                self.relations(), lhs, rhs, self.attr_domain(lhs)
+            )
+            if mapping is not None:
+                new_fds[(lhs, rhs)] = FunctionalDependency(
+                    lhs, rhs, mapping, "inferred"
+                )
+                found.append((lhs, rhs))
+        if found:
+            self._set_fds(new_fds)
+        return found
+
+    def fds(self) -> List[FunctionalDependency]:
+        return list(self._fds.values())
+
+    def drop_fd(self, lhs: str, rhs: str) -> None:
+        if (lhs, rhs) in self._fds:
+            self._set_fds(
+                {k: v for k, v in self._fds.items() if k != (lhs, rhs)}
+            )
+
+    def _set_fds(self, fds: Dict[Tuple[str, str], FunctionalDependency]) -> None:
+        """Install a new FD catalog map (copy-on-write); memoized reduction
+        plans are stale."""
+        self._fds = fds
+        self._red_cache = {}
+
+    def fd_reduction(self, cat: Sequence[str]) -> FDReduction:
+        """The FD reduction of a categorical attribute list under the
+        current catalog: which attributes a solver can drop (they are
+        functionally determined by an earlier one) and the id maps needed
+        to recover their coefficients in closed form.  Memoized per
+        (cat list, domains) until the FD catalog changes."""
+        return _fd_reduction(self._relations, self._fds, self._red_cache, cat)
+
     # -- snapshots -------------------------------------------------------------
     def snapshot(self) -> "StoreSnapshot":
         """An immutable read view of the catalog at the current version."""
@@ -223,6 +365,8 @@ class StoreSnapshot:
         self._relations = store._relations
         self._enc_cols = store._enc_cols
         self._moments = store._moments
+        self._fds_map = store._fds
+        self._red_cache: Dict[tuple, FDReduction] = {}
 
     @property
     def is_current(self) -> bool:
@@ -287,6 +431,13 @@ class StoreSnapshot:
         if out is None:
             out = self._moments[col] = _column_moments(self._relations, col)
         return out
+
+    # -- FD catalog (frozen) ---------------------------------------------------
+    def fds(self) -> List[FunctionalDependency]:
+        return list(self._fds_map.values())
+
+    def fd_reduction(self, cat: Sequence[str]) -> FDReduction:
+        return _fd_reduction(self._relations, self._fds_map, self._red_cache, cat)
 
     def materialize_join(
         self, names: Optional[Sequence[str]] = None

@@ -8,6 +8,10 @@
                              dimensions; label ``unit_sales`` derived from
                              ``date, store_nbr, item_nbr, onpromotion`` plus
                              noise.
+* ``many_cat_schema``      — a star of dictionary-encoded categorical keys
+                             (the |cat| sweep axis of the categorical path).
+* ``fd_star_schema``       — ``many_cat_schema`` with planted functional
+                             dependencies ``c_i → d_i``.
 * ``random_acyclic_schema``— randomized star/snowflake schemas for property
                              tests.
 
@@ -25,11 +29,13 @@ import numpy as np
 
 from ..core.relation import Relation
 from ..core.store import Store
-from ..core.variable_order import VariableOrder
+from ..core.variable_order import VariableOrder, variable_order_from_store
 
 __all__ = [
     "figure1_schema",
     "favorita_like",
+    "fd_star_schema",
+    "many_cat_schema",
     "random_acyclic_schema",
     "SchemaBundle",
 ]
@@ -227,6 +233,135 @@ def favorita_like(
         vorder=root,
         features=["date", "store_nbr", "item_nbr", "onpromotion"],
         label="unit_sales",
+    )
+
+
+# ---------------------------------------------------------------------------
+# Many-categorical star schema (the |cat| sweep axis)
+# ---------------------------------------------------------------------------
+
+def many_cat_schema(
+    n_cat: int = 4,
+    domain: int = 16,
+    n_rows: int = 2000,
+    seed: int = 0,
+) -> SchemaBundle:
+    """Fact(c0..c{n-1}, x, y) ⋈ Dim_i(c_i, w_i) for i < n_cat.
+
+    Every c_i is a dictionary-encoded key with ``domain`` categories and
+    its own dimension relation, so a categorical cofactor batch over all
+    of them issues 1 + n_cat + C(n_cat, 2) aggregate outputs — the regime
+    where the fused single-pass plan's shared traversal beats the
+    per-attribute/per-pair passes quadratically.  The label ``y`` depends
+    on a per-category effect of every attribute plus ``x`` and noise, so
+    the swept models stay learnable.
+    """
+    rng = np.random.default_rng(seed)
+    keys = {
+        f"c{i}": rng.integers(0, domain, n_rows).astype(np.int32)
+        for i in range(n_cat)
+    }
+    effects = [rng.normal(0, 1.0, domain) for _ in range(n_cat)]
+    x = rng.normal(0, 2.0, n_rows)
+    y = 0.5 * x + rng.normal(0, 0.5, n_rows)
+    for i in range(n_cat):
+        y = y + effects[i][keys[f"c{i}"]]
+    rels = [
+        Relation.from_columns(
+            "Fact",
+            keys,
+            {"x": x, "y": y},
+            {f"c{i}": domain for i in range(n_cat)},
+        )
+    ]
+    for i in range(n_cat):
+        rels.append(
+            Relation.from_columns(
+                f"Dim{i}",
+                {f"c{i}": np.arange(domain, dtype=np.int32)},
+                {f"w{i}": rng.normal(0, 1.0, domain)},
+                {f"c{i}": domain},
+            )
+        )
+    store = Store(rels)
+    return SchemaBundle(
+        store=store,
+        vorder=variable_order_from_store(store),
+        features=["x"],
+        label="y",
+    )
+
+
+# ---------------------------------------------------------------------------
+# Star schema with planted functional dependencies
+# ---------------------------------------------------------------------------
+
+def fd_star_schema(
+    n_cat: int = 2,
+    domain: int = 16,
+    dep_domain: int = 4,
+    n_rows: int = 2000,
+    seed: int = 0,
+) -> SchemaBundle:
+    """``many_cat_schema`` with planted FDs: Fact(c0..c{n-1}, x, y, promo)
+    ⋈ Dim_i(c_i, d_i, w_i), where each dimension carries a *determined* key
+    attribute ``d_i = map_i[c_i]`` with a strictly smaller domain — the
+    ``store_nbr → cluster`` pattern of the Favorita schema, expressed as a
+    dictionary-encoded key so it can enter the model as a categorical
+    feature.  ``Store.infer_fds()`` discovers every ``c_i → d_i`` (each
+    Dim_i witnesses it), and the FD-reduced solve over
+    ``cat = [c_0..c_{n-1}, d_0..d_{n-1}]`` drops all ``d_i`` blocks.
+
+    The label ``y`` carries a per-category effect of every c_i AND every
+    d_i (so the dropped blocks genuinely matter to the model), ``promo``
+    is a Bernoulli label driven by the same effects for the GLM leg.
+    """
+    rng = np.random.default_rng(seed)
+    keys = {
+        f"c{i}": rng.integers(0, domain, n_rows).astype(np.int32)
+        for i in range(n_cat)
+    }
+    maps = [
+        rng.integers(0, dep_domain, domain).astype(np.int64)
+        for _ in range(n_cat)
+    ]
+    c_eff = [rng.normal(0, 1.0, domain) for _ in range(n_cat)]
+    d_eff = [rng.normal(0, 1.0, dep_domain) for _ in range(n_cat)]
+    x = rng.normal(0, 2.0, n_rows)
+    eta = 0.5 * x
+    for i in range(n_cat):
+        ids = keys[f"c{i}"]
+        eta = eta + c_eff[i][ids] + d_eff[i][maps[i][ids]]
+    y = eta + rng.normal(0, 0.5, n_rows)
+    promo = rng.binomial(1, 1.0 / (1.0 + np.exp(-0.5 * eta))).astype(
+        np.float64
+    )
+    rels = [
+        Relation.from_columns(
+            "Fact",
+            keys,
+            {"x": x, "y": y, "promo": promo},
+            {f"c{i}": domain for i in range(n_cat)},
+        )
+    ]
+    for i in range(n_cat):
+        rels.append(
+            Relation.from_columns(
+                f"Dim{i}",
+                {
+                    f"c{i}": np.arange(domain, dtype=np.int32),
+                    f"d{i}": maps[i].astype(np.int32),
+                },
+                {f"w{i}": rng.normal(0, 1.0, domain)},
+                {f"c{i}": domain, f"d{i}": dep_domain},
+            )
+        )
+    store = Store(rels)
+    return SchemaBundle(
+        store=store,
+        vorder=variable_order_from_store(store),
+        features=["x"],
+        label="y",
     )
 
 

@@ -1,36 +1,54 @@
 """Public entry points of the kernel layer.
 
 Each function dispatches on where its tensors lie: a CUDA tensor goes to
-the hand-written CUDA kernel (``segment_view`` / ``moments`` modules), which
-launches or raises; a CPU tensor goes to the plain PyTorch version in
-``ref``.  There is no fallback from one to the other.
+the hand-written CUDA kernel (``segment_view`` / ``moments`` / ``gram`` /
+``segment_gram`` modules), which launches or raises; a CPU tensor goes to
+the plain PyTorch version in ``ref``.  There is no fallback from one to the
+other.
 
-Unlike the TPU wrappers there is no padding to block multiples and no
-group chunking: the CUDA kernels take any row count and accumulate straight
-into a ``[G, W]`` output in device memory, whatever its size.
+Unlike the TPU wrappers there is no padding to block multiples: the CUDA
+kernels take any row count.  The segment-view family accumulates straight
+into a ``[G, W]`` output in device memory, whatever its size.  The grouped
+Grams keep the TPU wrappers' budget contract, as a shared-memory budget
+(``smem_budget``, default and cap ``SMEM_ACC_BYTES``): ``segment_gram``
+processes groups in chunks whose ``[G_chunk, K(K+1)/2]`` accumulator fits
+it, with ids rebased per chunk, and ``multi_segment_gram`` falls back to one
+``segment_gram`` per column when the fused ``[ΣG, K(K+1)/2]`` accumulator
+does not fit.  Both paths (kernel and plain version) chunk alike, and both
+refuse a width whose single group exceeds the budget (K > 313 in float32,
+K > 221 in float64 at the default).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from . import gram as _gram
 from . import moments as _moments
 from . import ref
+from . import segment_gram as _sg
 from . import segment_view as _sv
 
 __all__ = [
+    "SMEM_ACC_BYTES",
     "fast_device_grouping",
+    "gram",
     "group_ids_device",
     "launch_counts",
     "moments",
+    "multi_segment_gram",
     "on_gpu",
     "reset_launch_counts",
     "segment_blocks",
+    "segment_gram",
     "segment_view",
 ]
+
+SMEM_ACC_BYTES = _sg.SMEM_ACC_BYTES
+_COUNTERS = (_sv.launches, _moments.launches, _gram.launches, _sg.launches)
 
 
 def on_gpu() -> bool:
@@ -39,11 +57,14 @@ def on_gpu() -> bool:
 
 def launch_counts() -> dict:
     """Launches of every CUDA kernel since the last reset."""
-    return {**_sv.launches, **_moments.launches}
+    out = {}
+    for counts in _COUNTERS:
+        out.update(counts)
+    return out
 
 
 def reset_launch_counts() -> None:
-    for counts in (_sv.launches, _moments.launches):
+    for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0
 
@@ -102,6 +123,95 @@ def moments(x: torch.Tensor):
     """(Σx, max|x|, count) for a 1-D column in one fused pass."""
     impl = _moments.moments if x.is_cuda else ref.moments_ref
     return impl(x.contiguous())
+
+
+def _gram_input(x: torch.Tensor) -> torch.Tensor:
+    if x.dim() != 2:
+        raise ValueError(f"expected an [M, K] matrix, got {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"gram kernels take float32 or float64, got {x.dtype}")
+    return x.contiguous()
+
+
+def gram(x: torch.Tensor) -> torch.Tensor:
+    """``XᵀX`` for any ``[M, K]`` float32/float64 matrix: a symmetric
+    ``[K, K]`` in ``x``'s dtype."""
+    x = _gram_input(x)
+    impl = _gram.gram if x.is_cuda else ref.gram_ref
+    return impl(x)
+
+
+def _group_budget(x: torch.Tensor, smem_budget: Optional[int]) -> tuple:
+    """(budget bytes, accumulator bytes per group) of the grouped Grams."""
+    budget = min(smem_budget or SMEM_ACC_BYTES, SMEM_ACC_BYTES)
+    k = x.shape[1]
+    return budget, max(k * (k + 1) // 2 * x.element_size(), 1)
+
+
+def segment_gram(
+    x: torch.Tensor,
+    seg,
+    num_groups: int,
+    *,
+    smem_budget: Optional[int] = None,
+) -> torch.Tensor:
+    """Per-group Gram ``out[g] = Σ_{seg=g} x xᵀ`` for any ``[M, K]`` and
+    segment ids ``seg [M]`` (a host array moves to ``x``'s device): ``[G, K,
+    K]`` in ``x``'s dtype.  Ids outside ``[0, G)`` add nothing.  When the
+    ``[G, K(K+1)/2]`` accumulator exceeds the budget, groups are processed
+    in chunks with ids rebased per chunk."""
+    x = _gram_input(x)
+    seg = _seg_ids(seg, x.device).contiguous()
+    num_groups = int(num_groups)
+    budget, per_group = _group_budget(x, smem_budget)
+    if per_group > budget:
+        raise ValueError(
+            f"one group's accumulator ({per_group} bytes at K = {x.shape[1]}) "
+            f"exceeds the {budget}-byte budget"
+        )
+    g_chunk = min(num_groups, budget // per_group)
+    impl = _sg.segment_gram if x.is_cuda else ref.segment_gram_ref
+    if g_chunk >= num_groups:
+        return impl(x, seg, num_groups)
+    outs = []
+    for g0 in range(0, num_groups, g_chunk):
+        gn = min(g_chunk, num_groups - g0)
+        inside = (seg >= g0) & (seg < g0 + gn)
+        rebased = torch.where(inside, seg - g0, -1).to(torch.int32)
+        outs.append(impl(x, rebased, gn))
+    return torch.cat(outs, dim=0)
+
+
+def multi_segment_gram(
+    x: torch.Tensor,
+    segs,
+    num_groups: Sequence[int],
+    *,
+    smem_budget: Optional[int] = None,
+) -> List[torch.Tensor]:
+    """Per-group Grams for SEVERAL segment-id columns from one read of
+    ``x``: ``segs [M, n_seg]``, column ``i``'s ids in ``[0, num_groups[i])``.
+    Returns a list of ``[G_i, K, K]`` in ``x``'s dtype.  If the fused
+    ``[ΣG, K(K+1)/2]`` accumulator exceeds the budget, falls back to one
+    (chunked) ``segment_gram`` per column."""
+    x = _gram_input(x)
+    num_groups = [int(g) for g in num_groups]
+    segs = _seg_ids(segs, x.device)
+    if segs.dim() != 2 or segs.shape[1] != len(num_groups):
+        raise ValueError(
+            f"segs shape {tuple(segs.shape)} does not match "
+            f"{len(num_groups)} group counts"
+        )
+    if not num_groups:
+        return []
+    budget, per_group = _group_budget(x, smem_budget)
+    if sum(num_groups) * per_group > budget:
+        return [
+            segment_gram(x, segs[:, i], g, smem_budget=smem_budget)
+            for i, g in enumerate(num_groups)
+        ]
+    impl = _sg.multi_segment_gram if x.is_cuda else ref.multi_segment_gram_ref
+    return impl(x, segs.contiguous(), num_groups)
 
 
 def fast_device_grouping(device) -> bool:

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the port's kernels (the correctness contracts).
 
 Each function has the signature and output of its kernel wrapper in
-``segment_view`` / ``moments`` and computes the same thing the direct way:
-materialize the extended blocks, then ``index_add_`` each per segment.
+``segment_view`` / ``moments`` / ``gram`` / ``segment_gram`` and computes
+the same thing the direct way: materialize the extended blocks (or the
+per-row outer products), then ``index_add_`` each per segment.
 The ops layer runs them for CPU tensors; ``chip_smoke.py`` holds every
 kernel against them on the card.  Sums accumulate in the inputs' dtype;
 segment ids outside ``[0, num_groups)`` contribute nothing.
@@ -10,11 +11,18 @@ segment ids outside ``[0, num_groups)`` contribute nothing.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["segment_view_ref", "segment_blocks_ref", "moments_ref"]
+__all__ = [
+    "gram_ref",
+    "moments_ref",
+    "multi_segment_gram_ref",
+    "segment_blocks_ref",
+    "segment_gram_ref",
+    "segment_view_ref",
+]
 
 
 def _segment_add(data: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tensor:
@@ -74,3 +82,25 @@ def moments_ref(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, int]:
         zero = torch.zeros((), dtype=x.dtype, device=x.device)
         return zero, zero, 0
     return x.sum(), x.abs().max(), int(x.shape[0])
+
+
+def gram_ref(x: torch.Tensor) -> torch.Tensor:
+    """``XᵀX`` of an ``[M, K]`` matrix, ``[K, K]`` in ``x``'s dtype."""
+    return x.T @ x
+
+
+def segment_gram_ref(
+    x: torch.Tensor, seg: torch.Tensor, num_groups: int
+) -> torch.Tensor:
+    """``out[g] = Σ_{seg[m]=g} x_m x_mᵀ``: ``[G, K, K]`` in ``x``'s dtype."""
+    return _segment_add(x[:, :, None] * x[:, None, :], seg, num_groups)
+
+
+def multi_segment_gram_ref(
+    x: torch.Tensor, segs: torch.Tensor, num_groups: Sequence[int]
+) -> List[torch.Tensor]:
+    """One grouped Gram per column of ``segs [M, n_seg]``: a list of
+    ``[G_i, K, K]``."""
+    return [
+        segment_gram_ref(x, segs[:, i], int(g)) for i, g in enumerate(num_groups)
+    ]

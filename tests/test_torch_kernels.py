@@ -2,7 +2,9 @@
 ``repro_torch.kernels.ops`` against the JAX package's kernels — its
 ``repro.kernels.ref`` oracles and its Pallas kernels in interpret mode —
 over the cases of ``tests/test_kernels.py``: shape sweeps, k = 0, empty
-segments, a single group, zero rows, float64 and a bad degree.
+segments, a single group, zero rows, float64 and a bad degree; for the
+Gram family also forced group chunking, the per-column fallback, empty
+segment columns and out-of-range ids.
 
 The CUDA kernels themselves run only on a GPU (``chip_smoke.py`` holds
 each against these plain versions there).  What the CPU can check of them
@@ -23,7 +25,9 @@ import torch
 from repro.kernels import ops as rops
 from repro.kernels import ref as rref
 from repro_torch.kernels import _build, ops, ref
+from repro_torch.kernels import gram as gk
 from repro_torch.kernels import moments as mom
+from repro_torch.kernels import segment_gram as sg
 from repro_torch.kernels import segment_view as sv
 
 
@@ -231,8 +235,12 @@ def test_cpu_tensors_take_the_plain_version():
     ops.segment_view(*_t(c, x, l), None, seg, 6, degree=1)
     ops.segment_blocks(*_t(c, l, q), seg, 6)
     ops.moments(_t(c)[0])
+    ops.gram(_t(l)[0])
+    ops.segment_gram(_t(l)[0], seg, 6)
+    ops.multi_segment_gram(_t(l)[0], np.stack([seg, seg], 1), [6, 6])
     assert set(ops.launch_counts()) == {
-        "segment_view", "segment_view1", "segment_reduce", "moments"
+        "segment_view", "segment_view1", "segment_reduce", "moments",
+        "gram", "segment_gram", "multi_segment_gram",
     }
     assert all(v == 0 for v in ops.launch_counts().values())
     assert ops.fast_device_grouping("cuda") and not ops.fast_device_grouping("cpu")
@@ -248,6 +256,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         sv.segment_reduce(torch.zeros(10, 2), seg, 3)
     with pytest.raises(ValueError):
         mom.moments(c)
+    with pytest.raises(ValueError):
+        gk.gram(l)
+    with pytest.raises(ValueError):
+        sg.segment_gram(l, seg, 3)
+    with pytest.raises(ValueError):
+        sg.multi_segment_gram(l, torch.stack([seg, seg], 1), [3, 3])
 
 
 def _compact_sums(c, x, l, q, seg, g, degree):
@@ -297,6 +311,7 @@ def test_block_packing_round_trips(degree):
 
 
 def test_build_targets_hopper_from_repo_sources(monkeypatch, tmp_path):
+    assert set(_build.SOURCES) == {"segment_view", "moments", "gram", "segment_gram"}
     for name in _build.SOURCES:
         src = _build.CSRC / f"{name}.cu"
         assert src.exists()
@@ -309,3 +324,152 @@ def test_build_targets_hopper_from_repo_sources(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         _build._nvcc()
+
+
+# -- the Gram family ---------------------------------------------------------
+
+def _gram_x(m, k, dtype=np.float32, seed=0):
+    return (np.random.default_rng(seed).standard_normal((m, k)) * 3.0).astype(dtype)
+
+
+@pytest.mark.parametrize("m", [1, 7, 129, 1000])
+@pytest.mark.parametrize("k", [1, 3, 64, 130])
+def test_gram_sweep_matches_pallas_interpret(m, k):
+    """The kernel's small-K (≤ 8) and tiled (> 8) widths alike.  rtol 1e-5;
+    atol 1e-2 covers near-zero off-diagonal entries, float32 sums of up to
+    1000 products of magnitude ~10 taken in another order (the Pallas
+    kernel's 512-row blocks)."""
+    x = _gram_x(m, k, seed=m + k)
+    got = ops.gram(torch.from_numpy(x))
+    want = rops.gram(jnp.asarray(x), interpret=True)
+    assert got.dtype == torch.float32 and got.shape == (k, k)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-2)
+    np.testing.assert_allclose(got.numpy(), np.asarray(rref.gram_ref(jnp.asarray(x))),
+                               rtol=1e-5, atol=1e-3)
+    assert torch.equal(got, got.T)
+
+
+def test_gram_fp64_empty_and_dtypes():
+    x = _gram_x(300, 6, dtype=np.float64)
+    got = ops.gram(torch.from_numpy(x))
+    assert got.dtype == torch.float64
+    with jax.enable_x64(True):
+        want = np.asarray(jnp.asarray(x).T @ jnp.asarray(x))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=1e-12)
+    assert ops.gram(torch.zeros(0, 4)).shape == (4, 4)
+    assert bool((ops.gram(torch.zeros(0, 4)) == 0).all())
+    with pytest.raises(ValueError):
+        ops.gram(torch.zeros(5, 2, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):
+        ops.gram(torch.zeros(5))
+
+
+@pytest.mark.parametrize("m,g", [(5, 1), (64, 4), (200, 17), (1000, 3)])
+@pytest.mark.parametrize("k", [2, 9])
+def test_segment_gram_sweep_matches_pallas_interpret(m, g, k):
+    x = _gram_x(m, k, seed=m)
+    seg = np.random.default_rng(g).integers(0, g, m).astype(np.int32)
+    got = ops.segment_gram(torch.from_numpy(x), seg, g)
+    want = rops.segment_gram(jnp.asarray(x), jnp.asarray(seg), g, interpret=True)
+    assert got.shape == (g, k, k) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("budget", [40, 100, 200])
+def test_segment_gram_forced_chunking_matches_unchunked(budget):
+    """A tiny shared-memory budget drives the chunked path (6 values of
+    4 bytes per group at k = 3: budget 40 gives one group per chunk)."""
+    m, k, g = 57, 3, 10
+    x = torch.from_numpy(_gram_x(m, k, seed=1))
+    seg = np.random.default_rng(2).integers(0, g, m).astype(np.int32)
+    chunked = ops.segment_gram(x, seg, g, smem_budget=budget)
+    unchunked = ops.segment_gram(x, seg, g)
+    np.testing.assert_allclose(chunked.numpy(), unchunked.numpy(), rtol=1e-6, atol=1e-6)
+    want = rops.segment_gram(x.numpy(), jnp.asarray(seg), g, vmem_budget=budget,
+                             interpret=True)
+    np.testing.assert_allclose(chunked.numpy(), np.asarray(want), rtol=1e-5, atol=1e-3)
+
+
+def test_segment_gram_group_chunking_at_default_budget():
+    """4000 groups of k = 40 (820 distinct values each) exceed the default
+    budget: the chunked result equals the reference's oracle."""
+    m, k, g = 64, 40, 4000
+    x = _gram_x(m, k, seed=5)
+    seg = np.random.default_rng(5).integers(0, g, m).astype(np.int32)
+    got = ops.segment_gram(torch.from_numpy(x), seg, g)
+    want = rref.segment_gram_ref(jnp.asarray(x), jnp.asarray(seg), g)
+    assert g * k * (k + 1) // 2 * 4 > ops.SMEM_ACC_BYTES
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-3)
+
+
+def test_segment_gram_out_of_range_ids_and_fp64():
+    """Negative and too-large ids add nothing (the zero one-hot row)."""
+    x = _gram_x(6, 2, dtype=np.float64)
+    seg = np.array([0, -1, 1, 5, 0, 2], np.int32)
+    got = ops.segment_gram(torch.from_numpy(x), seg, 3)
+    assert got.dtype == torch.float64
+    want = np.zeros((3, 2, 2))
+    for row, s in zip(x, seg):
+        if 0 <= s < 3:
+            want[s] += np.outer(row, row)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-14, atol=1e-14)
+    chunked = ops.segment_gram(torch.from_numpy(x), seg, 3, smem_budget=24)
+    np.testing.assert_allclose(chunked.numpy(), want, rtol=1e-14, atol=1e-14)
+    assert ops.segment_gram(torch.zeros(0, 2), np.zeros(0, np.int32), 4).shape == (4, 2, 2)
+
+
+@pytest.mark.parametrize("m", [5, 64, 200])
+@pytest.mark.parametrize("doms", [[3], [4, 7], [5, 2, 9]])
+def test_multi_segment_gram_matches_pallas_interpret(m, doms):
+    x = _gram_x(m, 4, seed=m)
+    rng = np.random.default_rng(len(doms))
+    segs = np.stack([rng.integers(0, d, m) for d in doms], axis=1).astype(np.int32)
+    got = ops.multi_segment_gram(torch.from_numpy(x), segs, doms)
+    want = rops.multi_segment_gram(jnp.asarray(x), jnp.asarray(segs), doms,
+                                   interpret=True)
+    assert len(got) == len(want) == len(doms)
+    for a, b, d in zip(got, want, doms):
+        assert a.shape == (d, 4, 4)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-3)
+
+
+def test_multi_segment_gram_fallback_and_empty_columns():
+    """Over the budget the fused call falls back to one (chunked)
+    segment_gram per column — same numbers; zero columns give []."""
+    m, k, doms = 120, 3, [10, 6]
+    x = torch.from_numpy(_gram_x(m, k, seed=9))
+    rng = np.random.default_rng(9)
+    segs = np.stack([rng.integers(0, d, m) for d in doms], axis=1).astype(np.int32)
+    fused = ops.multi_segment_gram(x, segs, doms)
+    tiny = ops.multi_segment_gram(x, segs, doms, smem_budget=200)
+    want = rops.multi_segment_gram(x.numpy(), jnp.asarray(segs), doms,
+                                   vmem_budget=200, interpret=True)
+    for a, b, c in zip(fused, tiny, want):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(b.numpy(), np.asarray(c), rtol=1e-5, atol=1e-3)
+    assert ops.multi_segment_gram(x, np.zeros((m, 0), np.int32), []) == []
+    with pytest.raises(ValueError):
+        ops.multi_segment_gram(x, segs, [10])
+
+
+def test_grouped_gram_refuses_a_group_over_the_budget():
+    """Chunking cannot go below one group: a K whose single accumulator
+    (K(K+1)/2 values) exceeds the budget is refused on both paths."""
+    x = torch.from_numpy(_gram_x(10, 3))
+    seg = np.zeros(10, np.int32)
+    with pytest.raises(ValueError, match="budget"):
+        ops.segment_gram(x, seg, 2, smem_budget=20)
+    with pytest.raises(ValueError, match="budget"):
+        ops.multi_segment_gram(x, np.stack([seg, seg], 1), [2, 2], smem_budget=20)
+    wide = torch.zeros(4, 314)
+    with pytest.raises(ValueError, match="budget"):
+        ops.segment_gram(wide, np.zeros(4, np.int32), 1)
+    assert ops.segment_gram(torch.zeros(4, 313), np.zeros(4, np.int32), 1).shape == (1, 313, 313)
+
+
+def test_gram_parts_cover_rows():
+    """The row ranges the wrapper sizes its scratch for: at least one, at
+    most one block of 256 rows each (K ≤ 8) or 32-row splits (tiled)."""
+    assert gk.num_parts(1, 5) == 1 and gk.num_parts(18_641_880, 5) == 8 * 132
+    assert gk.num_parts(1_000_000, 130) * 15 >= 4 * 132
+    assert gk.num_parts(40, 130) == 2
