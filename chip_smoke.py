@@ -11,8 +11,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
 2. Kernel phase: hold each kernel against its plain PyTorch version on the
    card at the shapes the main path gives it, and time both with CUDA
    events (median of repeated launches); also gram at K = 130, forced
-   segment_gram group chunking and the multi_segment_gram per-column
-   fallback.
+   segment_gram group chunking, the multi_segment_gram per-column
+   fallback, and flash at the serving path's shape (bf16 and float32),
+   olmo-1b's and mixtral's head layouts (the latter windowed), non-causal
+   ragged lengths and the head dims 8 to 256.
 3. Main path: ``favorita_like(1684, 54, 4100, 0.05, seed=0)`` (18,641,880
    sales rows) through ``linear_regression`` v1 (BGD) and closed form, both
    with the moments kernel, then one degree-1 aggregate batch.  Launch
@@ -36,6 +38,21 @@ Phases, in order; any failed check raises and the script exits non-zero:
    (8 categorical keys, each determining a second one): FD-reduced equals
    full at 1e-10 on the numpy engine and predicts alike through the
    float32 ``multi_segment_gram`` kernel.
+6. LM serving: smollm-135m at its full published width and depth (30
+   layers, d_model 576, 9 query / 3 KV heads, vocab 49,152, bf16; random
+   weights from a seeded generator) behind the continuous-batching
+   ``Engine`` (4 slots, prompts padded to 4,096 tokens, a 4,160-slot
+   cache) answers 8 requests of 2,049–4,096 prompt tokens and 32 new tokens
+   each.  Counters are zeroed before and read after: the flash kernel must
+   have launched exactly 30 times per prefill.  Then the same weights in
+   float32 serve the same requests; their greedy tokens must be those of
+   the full-forward oracle (one teacher-forced forward per request, which
+   also runs flash 30 times), except at reported near-ties (top logit within
+   1e-3 of the engine's pick), and a prefill's last logits must match the
+   plain ``chunked_attention`` path on the card within 1e-4 of the largest.
+   Last, the bf16 model's forward logits at all 4,096 positions through
+   flash are held to the plain path in bf16 and, beside it, to the float32
+   model (flash may be no farther from float32 than the plain path is).
 
 The last lines are the kernels JSON object, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -43,6 +60,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import json
@@ -52,15 +70,18 @@ import sys
 import time
 import types
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 N_SALES = 18_641_880  # favorita_like(1684, 54, 4100, 0.05) fact rows
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, off the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM, dense tensor cores
 # kernel vs plain: both sum in float32 in run-dependent orders (atomics);
 # the rounding error of a sum of n terms is ~sqrt(n)·2^-24·Σ|terms|, under
 # 1e-5 of the largest sum at the ≤ 10^4 terms per group these shapes have
@@ -89,6 +110,34 @@ GRAM_WIDE = (1_000_000, 130)  # the reference's widest gram test, scaled up
 # and phase 4 (all seven)
 PHASE3_KERNELS = ("segment_view", "segment_view1", "segment_reduce", "moments")
 PHASE4_KERNELS = PHASE3_KERNELS + ("gram", "segment_gram", "multi_segment_gram")
+ALL_KERNELS = PHASE4_KERNELS + ("flash",)  # phase 6 launches flash
+# flash vs its plain version; three bounds must all hold.  Elementwise
+# |a - b| <= tol·(1 + |b|): the reference's own flash tolerances
+# (tests/test_kernels.py).  Those floors are as large as the outputs once an
+# output row averages thousands of keys, so also, scaled to the outputs:
+# each output row (one query, one head) ‖a_r - b_r‖ <= rtol·(‖b_r‖ +
+# sqrt(D)·rms(b)), and the whole output ‖a - b‖ <= norm_rtol·‖b‖.  In bf16
+# the kernel rounds p = exp(s - m) against its running max, the plain
+# version the normalized softmax, each to 2^-9: rows differ by a few 1e-3
+# relative, whatever the number of keys.  float32 sums in another order.
+# PERF.md records the readings.
+FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-2}
+FLASH_ROW_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+FLASH_NORM_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# phase 6: smollm-135m behind the engine
+LM_ARCH = "smollm-135m"
+LM_SERVE = dict(slots=4, prefill_len=4_096, max_len=4_160)
+LM_REQUESTS, LM_NEW, LM_PROMPT = 8, 32, (2_049, 4_096)
+LOGIT_RTOL = 1e-4  # flash vs chunked_attention prefill, float32, of max |logit|
+# bf16 forward logits, per position, in the plain bf16 path's own distance
+# from the float32 model on the same weights: flash may be no farther from
+# float32 than BF16_FAR_RATIO times that (both round p, the attention output
+# and every other activation to bf16 alike; a wrong tile would put flash far
+# off), and no farther from the plain path than BF16_NEAR_RATIO times it
+# (two bf16 paths, each about that far from float32)
+BF16_FAR_RATIO = 1.5
+BF16_NEAR_RATIO = 2.0
+NEAR_TIE = 1e-3  # a greedy pick this close to the top logit is a tie
 
 
 _T0 = time.perf_counter()
@@ -138,9 +187,9 @@ def max_err(got, expect) -> tuple:
     return err, scale
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
+def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -251,6 +300,7 @@ def kernel_phase(ref, sv, mom, kops) -> dict:
                 bound_ms=b, bound_by=by, library_ms=time_ms(lib),
             )
     rows.update(gram_family(ref, kops, gen, check))
+    rows["flash"] = flash_rows(ref, kops, gen)
     # the date column: SalesF + Transactions + Oil rows
     m = N_SALES + 90_936 + 1_684
     x = torch.randint(0, 1_684, (m,), device="cuda", generator=gen).float()
@@ -357,6 +407,106 @@ def gram_family(ref, kops, gen, check) -> dict:
         bound_ms=b, bound_by=by, library_ms=None,
     )
     return rows
+
+
+BF16, F32 = torch.bfloat16, torch.float32
+# (what, B, Sq, Sk, H, KH, D, causal, window, dtype, timed); the first row
+# is the serving path's prefill (the JSON row), the others ride in "also"
+FLASH_SHAPES = [
+    ("smollm-135m prefill", 1, 4096, 4096, 9, 3, 64, True, None, BF16, True),
+    ("smollm-135m prefill", 1, 4096, 4096, 9, 3, 64, True, None, F32, True),
+    ("olmo-1b heads", 1, 4096, 4096, 16, 16, 128, True, None, BF16, True),
+    ("mixtral heads, window 1024", 1, 4096, 4096, 32, 8, 128, True, 1024, BF16, True),
+    ("non-causal ragged", 2, 1000, 3001, 8, 2, 64, False, None, BF16, True),
+    ("non-causal ragged", 2, 1000, 3001, 8, 2, 64, False, None, F32, True),
+    ("head dim 8", 1, 300, 300, 2, 1, 8, True, None, BF16, False),
+    ("head dim 40, window 50", 1, 300, 300, 2, 1, 40, True, 50, BF16, False),
+    ("head dim 40, window 50", 1, 300, 300, 2, 1, 40, True, 50, F32, False),
+    ("head dim 256", 1, 333, 333, 2, 2, 256, True, None, BF16, False),
+    ("head dim 256", 1, 333, 333, 2, 2, 256, True, None, F32, False),
+]
+
+
+def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks leave visible: the work this input needs."""
+    i = np.arange(sq)
+    hi = np.minimum(i + 1, sk) if causal else np.full(sq, sk)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(sq, np.int64)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def library_attention(q, k, v, causal, window):
+    """The one PyTorch call computing flash's function, on [B, H, S, D]
+    copies made beforehand (timed as ``library_ms``; the port never calls
+    it)."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if window is None:
+        return functools.partial(
+            F.scaled_dot_product_attention, qt, kt, vt, is_causal=causal, enable_gqa=True
+        )
+    i = torch.arange(q.shape[1], device=q.device)[:, None]
+    j = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = (j > i - window) & ((j <= i) if causal else True)
+    return functools.partial(
+        F.scaled_dot_product_attention, qt, kt, vt, attn_mask=mask, enable_gqa=True
+    )
+
+
+def flash_rows(ref, kops, gen) -> dict:
+    """flash against its plain version at every shape of FLASH_SHAPES, timed
+    where marked; returns the JSON row of the first shape, the others in
+    ``also``."""
+    out = []
+    for what, b, sq, sk, h, kh, d, causal, window, dt, timed in FLASH_SHAPES:
+        q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dt)
+        k = torch.randn(b, sk, kh, d, device="cuda", generator=gen).to(dt)
+        v = torch.randn(b, sk, kh, d, device="cuda", generator=gen).to(dt)
+        kw = dict(causal=causal, window=window, kv_len=sk)
+        kern = functools.partial(kops.flash_attention, q, k, v, **kw)
+        plain = functools.partial(ref.flash_attention_ref, q, k, v, **kw)
+        got, want = kern().float(), plain().float()
+        tol, row_rtol, norm_rtol = FLASH_TOL[dt], FLASH_ROW_RTOL[dt], FLASH_NORM_RTOL[dt]
+        diff = got - want
+        err = float(diff.abs().max())
+        floor = d**0.5 * float(want.square().mean().sqrt())
+        row_err = float((diff.norm(dim=-1) / (want.norm(dim=-1) + floor)).max())
+        norm_err = float(diff.norm() / want.norm())
+        ok = (bool((diff.abs() <= tol * (1 + want.abs())).all()) and row_err <= row_rtol
+              and norm_err <= norm_rtol and bool(torch.isfinite(got).all()))
+        name = f"{what} {str(dt).split('.')[-1]}"
+        log(f"{'flash':15s} {name:34s} max_abs_err={err:.3e} tol={tol:.0e} "
+            f"row_err={row_err:.3e} rtol={row_rtol:.0e} norm_err={norm_err:.3e} "
+            f"rtol={norm_rtol:.0e}")
+        if not ok:
+            raise AssertionError(
+                f"flash at {name}: error {err}, row {row_err}, norm {norm_err} over "
+                f"tolerance {tol} / {row_rtol} / {norm_rtol}")
+        row = dict(
+            shape=dict(what=what, batch=b, sq=sq, sk=sk, heads=h, kv_heads=kh,
+                       head_dim=d, causal=causal, window=window,
+                       dtype=str(dt).split(".")[-1]),
+            max_abs_err=err, tol=tol, row_err=row_err, row_rtol=row_rtol,
+            norm_err=norm_err, norm_rtol=norm_rtol,
+        )
+        if timed:
+            s = q.element_size()
+            nbytes = 2 * b * sq * h * d * s + 2 * b * sk * kh * d * s
+            flops = 4 * d * h * b * visible_pairs(sq, sk, causal, window)
+            bnd, by = bound_ms(nbytes, flops, BF16_FLOPS if dt == BF16 else FP32_FLOPS)
+            row.update(
+                ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=bnd, bound_by=by,
+                library_ms=time_ms(library_attention(q, k, v, causal, window)),
+            )
+            log(f"{'flash':15s} {name:34s} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                f"bound_ms={bnd:.4f} ({by}) library_ms={row['library_ms']:.4f}")
+        out.append(row)
+        del q, k, v, got, want, diff
+    main = out[0]
+    return dict(
+        name="flash", route="cuda", source="src/repro_torch/csrc/flash.cu",
+        replaces="src/repro/kernels/flash.py:106 flash_kernel_call",
+        **main, also=out[1:],
+    )
 
 
 # -- phase 3: the main path ---------------------------------------------------
@@ -713,6 +863,203 @@ def fd_oracle(rt) -> None:
                        exact, joined, b.label)
 
 
+# -- phase 6: LM serving ---------------------------------------------------------
+
+def plain_flash(chunked_attention):
+    """A stand-in for ``ops.flash_attention`` that runs its plain version on
+    the model's path, ``chunked_attention`` with arange positions (patched
+    in for the logits comparison only; it launches no kernel)."""
+    def run(q, k, v, *, causal, window, kv_len):
+        b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
+        if not sq == sk == kv_len:
+            raise ValueError(f"prefill attention expected, got Sq {sq}, Sk {sk}, kv_len {kv_len}")
+        pos = torch.arange(sq, dtype=torch.int32, device=q.device)[None].expand(b, sq)
+        return chunked_attention(q, k, v, pos, pos, causal=causal, window=window,
+                                 out_dtype=q.dtype)
+    return run
+
+
+def lm_serve(lm, params, cfg, prompts) -> tuple:
+    """Serve every prompt for LM_NEW tokens; ({uid: Result}, wall seconds)."""
+    eng = lm.Engine(params, cfg, lm.ServeConfig(**LM_SERVE, seed=SEED))
+    for uid, prompt in enumerate(prompts):
+        eng.submit(lm.Request(uid=uid, tokens=prompt, max_new_tokens=LM_NEW))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if sorted(r.uid for r in results) != list(range(len(prompts))):
+        raise AssertionError("the engine lost a request")
+    for r in results:
+        if len(r.tokens) != LM_NEW or not all(0 <= t < cfg.vocab for t in r.tokens):
+            raise AssertionError(f"request {r.uid}: bad tokens {r.tokens}")
+    return {r.uid: r for r in results}, wall
+
+
+def count_flash(lm, what, fn, expect) -> tuple:
+    """Run ``fn`` between a counter reset and a read; flash must have
+    launched ``expect`` times.  Returns (``fn``'s result, launches)."""
+    lm.kops.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    n = lm.kops.launch_counts()["flash"]
+    log(f"{what}: flash launches {n} (expected {expect})")
+    if n != expect:
+        raise AssertionError(f"{what}: flash launched {n} times, expected {expect}")
+    return out, n
+
+
+def bf16_forward_check(lm, params, cfg, params32, cfg32, batch) -> None:
+    """The serving dtype end to end: bf16 forward logits at every position of
+    ``batch`` through flash against the plain ``chunked_attention`` path, both
+    held to the float32 model on the same weights (on the plain path too, so
+    that no kernel is in the baseline)."""
+    v = cfg.vocab
+
+    def logits(p, c):
+        return lm.forward(p, batch, c)[0][0, :, :v]
+
+    kern, _ = count_flash(lm, "bf16 forward", functools.partial(logits, params, cfg),
+                          cfg.n_layers)
+    with mock.patch.object(lm.kops, "flash_attention", plain_flash(lm.chunked_attention)):
+        plain, _ = count_flash(lm, "bf16 forward, plain path",
+                               functools.partial(logits, params, cfg), 0)
+        full, _ = count_flash(lm, "float32 forward, plain path",
+                              functools.partial(logits, params32, cfg32), 0)
+
+    def rel(a, b):  # per position ‖a − b‖ / ‖b‖
+        return (a - b).norm(dim=-1) / b.norm(dim=-1)
+
+    k_p, k_32, p_32 = rel(kern, plain), rel(kern, full), rel(plain, full)
+    agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    for what, r in (("flash vs plain", k_p), ("flash vs float32", k_32),
+                    ("plain vs float32", p_32)):
+        log(f"bf16 forward logits {what}: per-position relative error median "
+            f"{float(r.median()):.3e} max {float(r.max()):.3e}")
+    log(f"bf16 forward: flash and plain argmax agree at {agree:.4f} of "
+        f"{kern.shape[0]} positions")
+    if not bool(torch.isfinite(kern).all()):
+        raise AssertionError("bf16 forward logits through flash are not finite")
+    for stat in ("max", "mean"):
+        got, base = float(getattr(k_32, stat)()), float(getattr(p_32, stat)())
+        if not got <= BF16_FAR_RATIO * base:
+            raise AssertionError(
+                f"bf16 forward: flash {stat} error vs float32 {got:.3e} over "
+                f"{BF16_FAR_RATIO} x the plain path's {base:.3e}")
+    if not float(k_p.max()) <= BF16_NEAR_RATIO * float(p_32.max()):
+        raise AssertionError(
+            f"bf16 forward: flash vs plain path {float(k_p.max()):.3e} over "
+            f"{BF16_NEAR_RATIO} x the plain path's distance from float32")
+
+
+def lm_phase(lm) -> int:
+    cfg = lm.get_config(LM_ARCH)
+    t = time.perf_counter()
+    params = lm.init_params(cfg, seed=SEED, device="cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.head_dim}, vocab {cfg.vocab}, "
+        f"{cfg.dtype}, {n_params} parameters, {time.perf_counter() - t:.2f}s to draw")
+    rng = np.random.RandomState(SEED)
+    prompts = [
+        [int(x) for x in rng.randint(1, cfg.vocab, size=rng.randint(LM_PROMPT[0], LM_PROMPT[1] + 1))]
+        for _ in range(LM_REQUESTS)
+    ]
+    log(f"prompt lengths {[len(p) for p in prompts]}")
+    per_prefill = cfg.n_layers
+    # warm-up (cuBLAS handles, allocator): one short request, uncounted
+    warm = lm.Engine(params, cfg, lm.ServeConfig(**LM_SERVE))
+    warm.submit(lm.Request(uid=0, tokens=prompts[0][:2_100], max_new_tokens=2))
+    warm.run()
+    del warm
+
+    # the serving path, bf16
+    torch.cuda.reset_peak_memory_stats()
+    (res, wall), launches = count_flash(
+        lm, "bf16 serve", functools.partial(lm_serve, lm, params, cfg, prompts),
+        per_prefill * LM_REQUESTS)
+    gen_tokens = sum(len(r.tokens) for r in res.values())
+    lat = sorted(r.latency_s for r in res.values())
+    log(f"bf16 serve: {len(res)} requests, {gen_tokens} tokens in {wall:.3f}s "
+        f"({gen_tokens / wall:.1f} tok/s); latency p50 {lat[len(lat) // 2]:.3f}s "
+        f"p100 {lat[-1]:.3f}s; max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    toks = np.zeros((1, LM_SERVE["prefill_len"]), np.int64)
+    toks[0, : len(prompts[0])] = prompts[0]
+    batch = {"tokens": torch.from_numpy(toks).cuda()}
+    prefill = functools.partial(lm.prefill, params, batch, cfg, LM_SERVE["max_len"])
+    prefill_ms = time_ms(prefill, reps=5)
+    cache = lm.init_cache(cfg, LM_SERVE["slots"], LM_SERVE["max_len"])
+    step = torch.ones((LM_SERVE["slots"], 1), dtype=torch.long, device="cuda")
+    decode = functools.partial(lm.decode_step, params, step, cache, 3_000, cfg)
+    decode_ms = time_ms(decode)
+    log(f"bf16 prefill of {LM_SERVE['prefill_len']} tokens {prefill_ms:.3f} ms; decode step "
+        f"({LM_SERVE['slots']} slots, {LM_SERVE['max_len']}-slot cache) {decode_ms:.3f} ms")
+    # device time of one prefill and one decode step, against their
+    # unprofiled CUDA-event times above (the profiler's own host cost
+    # would inflate a profiled wall time)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for what, fn, ms in (("prefill", prefill, prefill_ms), ("decode step", decode, decode_ms)):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = device_ops(prof)
+        busy = sum(us for _, us in ops) / 1e3
+        flash_ms = sum(us for name, us in ops if "flash_" in name) / 1e3
+        log(f"bf16 {what}: device busy {busy:.3f} ms of {ms:.3f} ms (idle share "
+            f"{1 - busy / ms:.4f}); flash {flash_ms:.3f} ms; {sum(1 for _ in ops)} kernel kinds")
+        for name, us in ops[:6]:
+            log(f"  device {us / 1e3:10.3f} ms  {name[:90]}")
+    del cache
+
+    # the same weights in float32: greedy tokens against the full-forward oracle
+    cfg32 = dataclasses.replace(cfg, dtype_name="float32", param_dtype_name="float32")
+    params32 = copy.deepcopy(params).float()
+    (res32, wall32), _ = count_flash(
+        lm, "float32 serve", functools.partial(lm_serve, lm, params32, cfg32, prompts),
+        per_prefill * LM_REQUESTS)
+    same = sum(a == b for u in res for a, b in zip(res[u].tokens, res32[u].tokens))
+    log(f"float32 serve: {wall32:.3f}s; bf16 and float32 agree on {same} of "
+        f"{gen_tokens} tokens")
+
+    def oracle():
+        ties = []
+        for uid, prompt in enumerate(prompts):
+            gen = res32[uid].tokens
+            seq = torch.tensor([prompt + gen[:-1]], device="cuda")
+            logits, _ = lm.forward(params32, {"tokens": seq}, cfg32)
+            steps = logits[0, len(prompt) - 1 :, : cfg.vocab]
+            top = steps.max(dim=-1).values
+            picked = steps[torch.arange(LM_NEW, device="cuda"), torch.tensor(gen, device="cuda")]
+            gap = (top - picked).cpu().numpy()
+            for t in np.nonzero(gap > 0)[0]:
+                ties.append((uid, int(t), float(gap[t])))
+                if not gap[t] < NEAR_TIE:
+                    raise AssertionError(
+                        f"request {uid} step {t}: engine picked {gen[t]}, "
+                        f"{gap[t]:.3e} under the oracle's top logit")
+        return ties
+    ties, _ = count_flash(lm, "float32 oracle forwards", oracle, per_prefill * LM_REQUESTS)
+    log(f"float32 greedy tokens vs full-forward oracle: {LM_REQUESTS * LM_NEW - len(ties)} "
+        f"of {LM_REQUESTS * LM_NEW} equal; near-ties {ties}")
+
+    # the prefill's last logits: flash vs the plain chunked path, on the card
+    kernel_logits, _ = lm.prefill(params32, batch, cfg32, LM_SERVE["max_len"])
+    with mock.patch.object(lm.kops, "flash_attention", plain_flash(lm.chunked_attention)):
+        (plain_logits, _), _ = count_flash(
+            lm, "float32 prefill, plain path",
+            functools.partial(lm.prefill, params32, batch, cfg32, LM_SERVE["max_len"]), 0)
+    err = float((kernel_logits - plain_logits).abs().max())
+    scale = float(plain_logits.abs().max())
+    log(f"float32 prefill last logits, flash vs chunked_attention: max_abs_err={err:.3e} "
+        f"tol={LOGIT_RTOL * scale:.3e}")
+    if not (torch.isfinite(kernel_logits).all() and err <= LOGIT_RTOL * scale):
+        raise AssertionError(f"prefill logits: flash vs plain path {err} > {LOGIT_RTOL * scale}")
+    bf16_forward_check(lm, params, cfg, params32, cfg32, batch)
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device available")
@@ -735,6 +1082,10 @@ def main() -> None:
     from repro_torch.kernels import _build, ops as kops, ref
     from repro_torch.kernels import moments as mom
     from repro_torch.kernels import segment_view as sv
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as lm_model
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.serve import Engine, Request, ServeConfig
 
     rt = types.SimpleNamespace(
         VERSIONS=VERSIONS, AggregateQuery=AggregateQuery,
@@ -747,6 +1098,15 @@ def main() -> None:
         linear_regression=linear_regression, fz=fz,
         favorita_like=favorita_like, fd_star_schema=fd_star_schema, kops=kops,
     )
+    lm = types.SimpleNamespace(
+        get_config=get_config, init_params=lm_model.init_params,
+        init_cache=lm_model.init_cache, prefill=lm_model.prefill,
+        decode_step=lm_model.decode_step, forward=lm_model.forward,
+        chunked_attention=chunked_attention, Engine=Engine, Request=Request,
+        ServeConfig=ServeConfig, kops=kops,
+    )
+    torch.backends.cuda.matmul.allow_tf32 = False  # float32 means float32
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -781,7 +1141,10 @@ def main() -> None:
     oracle_phase(rt)
     fd_oracle(rt)
 
-    print(json.dumps({"kernels": [rows[n] for n in PHASE4_KERNELS]}))
+    log("phase 6: LM serving")
+    rows["flash"]["launches"] = lm_phase(lm)
+
+    print(json.dumps({"kernels": [rows[n] for n in ALL_KERNELS]}))
     print(card)
     print(json.dumps({
         "ok": True,

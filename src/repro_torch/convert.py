@@ -11,6 +11,10 @@ between them as plain Python and numpy:
 ``store_to_numpy`` / ``vorder_to_tree`` read any object with the same
 attributes (either package's store and variable order);
 ``store_from_numpy`` / ``vorder_from_tree`` build this package's.
+
+LM weights cross as the reference's parameter tree of float32 numpy arrays
+(nested dicts, block leaves stacked over periods); ``params_from_jax``
+loads one into this package's :class:`~repro_torch.models.model.Transformer`.
 """
 
 from __future__ import annotations
@@ -18,12 +22,15 @@ from __future__ import annotations
 from typing import List, Mapping, Sequence
 
 import numpy as np
+import torch
 
 from .core.relation import Relation
 from .core.store import Store
 from .core.variable_order import VariableOrder
+from .models.model import Transformer, resolve_device
 
 __all__ = [
+    "params_from_jax",
     "store_from_numpy",
     "store_to_numpy",
     "vorder_from_tree",
@@ -78,3 +85,36 @@ def vorder_from_tree(tree: tuple) -> VariableOrder:
     return VariableOrder(
         name, [vorder_from_tree(ch) for ch in children], relation
     )
+
+
+def params_from_jax(tree: Mapping, cfg, device="cuda") -> Transformer:
+    """A :class:`Transformer` for ``cfg`` on ``device`` holding the weights
+    of the reference's parameter tree ``tree`` (float32 numpy arrays, as
+    ``jax.tree.map(np.asarray, params)`` gives them).
+
+    Layouts are the reference's (``wq [d, H, hd]``, ``wk`` / ``wv [d, KH,
+    hd]``, ``wo [H, hd, d]``, ``w_gate`` / ``w_up [d, ff]``, ``w_down
+    [ff, d]``, ``embed [pv, d]``); layer ``i`` reads period ``i //
+    len(pattern)`` of block ``b{i % len(pattern)}``.  Matrices are cast to
+    ``cfg.param_dtype``; norm scales and biases stay float32, as in both
+    packages."""
+    model = Transformer(cfg, device=resolve_device(device))
+    n = len(cfg.pattern)
+    with torch.no_grad():
+        for name, param in model.named_parameters():
+            path = name.split(".")
+            if path[0] == "blocks":
+                layer = int(path[1])
+                leaf = tree["periods"][f"b{layer % n}"]
+                path, index = path[2:], layer // n
+            else:
+                leaf, index = tree, None
+            for key in path:
+                leaf = leaf[key]
+            arr = np.array(leaf if index is None else leaf[index], dtype=np.float32)
+            if arr.shape != tuple(param.shape):
+                raise ValueError(
+                    f"{name}: tree leaf {arr.shape} != parameter {tuple(param.shape)}"
+                )
+            param.copy_(torch.from_numpy(arr))
+    return model

@@ -30,7 +30,9 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
-SOURCES: Tuple[str, ...] = ("segment_view", "moments", "gram", "segment_gram")
+SOURCES: Tuple[str, ...] = (
+    "segment_view", "moments", "gram", "segment_gram", "flash",
+)
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xptxas=-v",

@@ -2,9 +2,9 @@
 
 Each function dispatches on where its tensors lie: a CUDA tensor goes to
 the hand-written CUDA kernel (``segment_view`` / ``moments`` / ``gram`` /
-``segment_gram`` modules), which launches or raises; a CPU tensor goes to
-the plain PyTorch version in ``ref``.  There is no fallback from one to the
-other.
+``segment_gram`` / ``flash`` modules), which launches or raises; a CPU
+tensor goes to the plain PyTorch version in ``ref``.  There is no fallback
+from one to the other.
 
 Unlike the TPU wrappers there is no padding to block multiples: the CUDA
 kernels take any row count.  The segment-view family accumulates straight
@@ -16,7 +16,9 @@ it, with ids rebased per chunk, and ``multi_segment_gram`` falls back to one
 ``segment_gram`` per column when the fused ``[ΣG, K(K+1)/2]`` accumulator
 does not fit.  Both paths (kernel and plain version) chunk alike, and both
 refuse a width whose single group exceeds the budget (K > 313 in float32,
-K > 221 in float64 at the default).
+K > 221 in float64 at the default).  ``flash_attention`` reads the
+model's ``[B, S, H, D]`` layout and the KV heads of GQA in place: no
+transposes, no repeated K/V, no padding.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from . import flash as _flash
 from . import gram as _gram
 from . import moments as _moments
 from . import ref
@@ -34,7 +37,9 @@ from . import segment_view as _sv
 
 __all__ = [
     "SMEM_ACC_BYTES",
+    "FLASH_MAX_HEAD_DIM",
     "fast_device_grouping",
+    "flash_attention",
     "gram",
     "group_ids_device",
     "launch_counts",
@@ -48,7 +53,11 @@ __all__ = [
 ]
 
 SMEM_ACC_BYTES = _sg.SMEM_ACC_BYTES
-_COUNTERS = (_sv.launches, _moments.launches, _gram.launches, _sg.launches)
+_COUNTERS = (
+    _sv.launches, _moments.launches, _gram.launches, _sg.launches, _flash.launches,
+)
+#: widest head dim the flash kernel takes (its widest instantiation)
+FLASH_MAX_HEAD_DIM = 256
 
 
 def on_gpu() -> bool:
@@ -240,3 +249,53 @@ def group_ids_device(key, device=None) -> tuple:
     inv = torch.empty_like(gid).scatter_(0, order, gid)
     first = order[start].cpu().numpy().astype(np.int64)
     return inv.to(torch.int32), int(first.shape[0]), first
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    kv_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Fused online-softmax attention: q ``[B, Sq, H, D]``, k / v
+    ``[B, Sk, KH, D]`` with ``H % KH == 0`` → ``[B, Sq, H, D]`` in q's dtype.
+
+    Positions are the sequence indices: query ``i`` sees key ``j`` iff
+    ``j < kv_len`` (default ``Sk``), ``j <= i`` when ``causal`` and
+    ``j > i - window`` when ``window`` is set; a row that sees no key is 0.
+    Takes bfloat16 or float32 (all three alike) and a head dim that is a
+    multiple of 8 up to :data:`FLASH_MAX_HEAD_DIM`; refuses anything else
+    with ``ValueError``."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"flash_attention: expected q [B, Sq, H, D] and k, v [B, Sk, KH, D], "
+            f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    b, _, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or kh == 0 or h % kh:
+        raise ValueError(
+            f"flash_attention: k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}"
+        )
+    if d % 8 or not 8 <= d <= FLASH_MAX_HEAD_DIM:
+        raise ValueError(
+            f"flash_attention: head dim {d} is not a multiple of 8 in "
+            f"[8, {FLASH_MAX_HEAD_DIM}]"
+        )
+    if q.dtype not in (torch.bfloat16, torch.float32) or not (
+        q.dtype == k.dtype == v.dtype
+    ):
+        raise ValueError(
+            f"flash_attention takes bfloat16 or float32 alike, got "
+            f"{q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window {window} < 1")
+    kv_len = sk if kv_len is None else int(kv_len)
+    if not 0 <= kv_len <= sk:
+        raise ValueError(f"flash_attention: kv_len {kv_len} outside [0, {sk}]")
+    impl = _flash.flash_attention if q.is_cuda else ref.flash_attention_ref
+    return impl(q, k, v, causal=causal, window=window, kv_len=kv_len)

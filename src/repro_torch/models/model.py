@@ -1,0 +1,260 @@
+"""Architecture assembly for the dense family: ``ModelConfig`` -> weights /
+forward / prefill / decode (PyTorch port of the JAX package's
+``models/model.py``).
+
+The depth is the config's block pattern repeated ``n_periods`` times; here
+the blocks are an ``nn.ModuleList`` run in a Python loop (layer ``i`` is
+block ``i % len(pattern)`` of period ``i // len(pattern)``).  Ported: GQA
+attention (full and sliding-window) with a dense MLP (SwiGLU / GELU), RMS /
+Layer / non-parametric LayerNorm, RoPE or learned positions, tied or
+separate LM head.  Not ported yet (``NotImplementedError``, ROADMAP queue 1
+item 10): the mamba, mLSTM and sLSTM mixers, MoE feed-forwards, the
+whisper encoder and the llava patch prefix, and ``loss_fn`` (training).
+One card holds the whole model, so the reference's sharding constraints
+have no counterpart here.
+
+Public entry points (``params`` is a :class:`Transformer`)::
+
+    init_params(cfg, seed, device)              -> Transformer
+    forward(params, batch, cfg)                 -> (logits, aux_loss)
+    prefill(params, batch, cfg, max_len)        -> (last_logits, cache)
+    init_cache(cfg, batch, max_len, device)     -> cache
+    decode_step(params, token, cache, pos, cfg) -> (logits, cache)
+
+Caches keep the reference's structure: ``{"periods": {"b<i>": {"mixer":
+{"k", "v", "pos"}}}}`` with leaves stacked over periods (``[n_periods,
+B, slots, ...]``).  Logits are float32 ``[.., padded_vocab]``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from . import attention as attn
+from .layers import MLP, Norm, apply_norm, dense_init, embed_init, truncated_normal
+
+__all__ = [
+    "Transformer",
+    "TransformerBlock",
+    "check_supported",
+    "decode_step",
+    "forward",
+    "init_cache",
+    "init_params",
+    "padded_vocab",
+    "prefill",
+    "resolve_device",
+]
+
+_TODO = "is not ported yet (ROADMAP queue 1, item 10)"
+
+
+def _round_up(x: int, mult: int) -> int:
+    return ((x + mult - 1) // mult) * mult
+
+
+def padded_vocab(cfg) -> int:
+    """Vocab padded to a 256 multiple, as the reference pads it."""
+    return _round_up(cfg.vocab, 256)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch device, ``"cuda"`` resolved to the current card
+    (so it compares equal to a tensor's device); the CUDA default raises
+    without a GPU (there is no fallback to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "the LM runs on device='cuda' by default and no CUDA device is "
+                "available; pass device='cpu' to run on the CPU"
+            )
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def check_supported(cfg) -> None:
+    """Raise ``NotImplementedError`` for the parts of ``cfg`` the port does
+    not run yet."""
+    for blk in cfg.pattern:
+        if blk.mixer != "attn":
+            raise NotImplementedError(f"{cfg.name}: the {blk.mixer} mixer {_TODO}")
+        if blk.ffn not in ("mlp", "none"):
+            raise NotImplementedError(f"{cfg.name}: the {blk.ffn} feed-forward {_TODO}")
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(f"{cfg.name}: the encoder (encode) {_TODO}")
+    if cfg.n_patches:
+        raise NotImplementedError(f"{cfg.name}: the n_patches image prefix {_TODO}")
+    if cfg.pos not in ("rope", "learned", "none"):
+        raise NotImplementedError(f"{cfg.name}: {cfg.pos} positions {_TODO}")
+
+
+class TransformerBlock(nn.Module):
+    """One (attention, feed-forward) position of the depth pattern."""
+
+    def __init__(self, cfg, blk, generator=None, device=None) -> None:
+        super().__init__()
+        self.has_ffn = blk.ffn != "none"
+        self.mixer_norm = Norm(cfg.d_model, cfg.norm, device)
+        self.mixer = attn.attention_init(cfg, generator, device)
+        if self.has_ffn:
+            self.ffn_norm = Norm(cfg.d_model, cfg.norm, device)
+            self.ffn = MLP(cfg.d_model, cfg.d_ff, cfg.mlp, cfg.param_dtype, generator, device)
+
+
+class Transformer(nn.Module):
+    """The weights of one model; layouts as the reference's parameter tree
+    (``embed [pv, d]``, ``lm_head [d, pv]``, ``pos_embed [max_pos, d]``).
+    ``generator=None`` leaves the matrices uninitialised (for loading)."""
+
+    def __init__(self, cfg, generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        check_supported(cfg)
+        if generator is not None:
+            device = generator.device
+        pv, d, dt = padded_vocab(cfg), cfg.d_model, cfg.param_dtype
+        self.blocks = nn.ModuleList(
+            TransformerBlock(cfg, cfg.pattern[i % len(cfg.pattern)], generator, device)
+            for i in range(cfg.n_layers)
+        )
+        self.embed = embed_init(pv, d, dt, generator, device)
+        self.final_norm = Norm(d, cfg.norm, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = dense_init(d, pv, dt, generator, device=device)
+        if cfg.pos == "learned":
+            self.pos_embed = truncated_normal((cfg.max_pos, d), dt, 0.02, generator, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def init_params(cfg, seed: int = 0, device="cuda") -> Transformer:
+    """Random weights for ``cfg`` on ``device`` (the card unless the caller
+    asks for the CPU), drawn from a ``torch.Generator`` seeded with
+    ``seed``.  The same seed gives other numbers than the reference's
+    ``jax.random`` key; ``repro_torch.convert.params_from_jax`` loads
+    the reference's weights instead."""
+    dev = resolve_device(device)
+    return Transformer(cfg, torch.Generator(device=dev).manual_seed(seed))
+
+
+def _layers(cfg):
+    """(period, block name) of each layer, in depth order."""
+    n = len(cfg.pattern)
+    for i in range(cfg.n_layers):
+        yield i // n, f"b{i % n}"
+
+
+def _embed_inputs(params: Transformer, batch, cfg):
+    """Token embedding (+ learned positions) in ``cfg.dtype``: ``[B, S, d]``."""
+    tokens = torch.as_tensor(batch["tokens"], device=params.device).long()
+    x = params.embed[tokens]
+    if cfg.pos == "learned":
+        x = x + params.pos_embed[: tokens.shape[1]][None]
+    return x.to(cfg.dtype)
+
+
+def _head(params: Transformer, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Final logits in float32 (bf16 operands upcast: exact products,
+    float32 sums, as ``preferred_element_type=float32``)."""
+    if cfg.tie_embeddings:
+        return x.float() @ params.embed.float().T
+    return x.float() @ params.lm_head.float()
+
+
+def _ffn(blk: TransformerBlock, x: torch.Tensor, cfg) -> torch.Tensor:
+    if not blk.has_ffn:
+        return x
+    return x + blk.ffn(apply_norm(x, blk.ffn_norm, cfg.norm))
+
+
+def forward(params: Transformer, batch, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence logits ``[B, S, padded_vocab]`` (float32) and the MoE
+    aux loss (0: no MoE layer is ported)."""
+    with torch.inference_mode():
+        x = _embed_inputs(params, batch, cfg)
+        for blk in params.blocks:
+            h = apply_norm(x, blk.mixer_norm, cfg.norm)
+            x = x + attn.attention_apply(blk.mixer, h, cfg, causal=True, window=cfg.window)
+            x = _ffn(blk, x, cfg)
+        x = apply_norm(x, params.final_norm, cfg.norm)
+        logits = _head(params, x, cfg)
+        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _stack_cache(cfg, layer_caches) -> Dict:
+    """Per-layer ``{"k", "v", "pos"}`` dicts → the reference's structure,
+    leaves stacked over periods."""
+    n = len(cfg.pattern)
+    return {
+        "periods": {
+            f"b{bi}": {
+                "mixer": {
+                    name: torch.stack([c[name] for c in layer_caches[bi::n]])
+                    for name in ("k", "v", "pos")
+                }
+            }
+            for bi in range(n)
+        }
+    }
+
+
+def prefill(params: Transformer, batch, cfg, max_len: int):
+    """Returns (last-position logits ``[B, pv]``, decode cache)."""
+    with torch.inference_mode():
+        x = _embed_inputs(params, batch, cfg)
+        caches = []
+        for blk in params.blocks:
+            h = apply_norm(x, blk.mixer_norm, cfg.norm)
+            h, c = attn.attention_prefill(blk.mixer, h, cfg, max_len, window=cfg.window)
+            x = _ffn(blk, x + h, cfg)
+            caches.append(c)
+        x = apply_norm(x[:, -1:], params.final_norm, cfg.norm)
+        return _head(params, x, cfg)[:, 0], _stack_cache(cfg, caches)
+
+
+def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Dict:
+    """Fresh (empty) decode cache for ``batch`` rows."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    one = attn.init_kv_cache(cfg, batch, max_len, window=cfg.window, device=dev)
+    return {
+        "periods": {
+            f"b{bi}": {
+                "mixer": {
+                    name: t[None].repeat((cfg.n_periods,) + (1,) * t.dim())
+                    for name, t in one.items()
+                }
+            }
+            for bi in range(len(cfg.pattern))
+        }
+    }
+
+
+def decode_step(params: Transformer, token, cache: Dict, cur_pos: int, cfg):
+    """token ``[B, 1]`` ints, ``cur_pos`` an int (same for every row) ->
+    (logits ``[B, pv]`` float32, new cache).  ``cache`` is left as it was:
+    the step writes into one copy of it."""
+    with torch.inference_mode():
+        new = {
+            "periods": {
+                b: {"mixer": {n: t.clone() for n, t in c["mixer"].items()}}
+                for b, c in cache["periods"].items()
+            }
+        }
+        tokens = torch.as_tensor(token, device=params.device).long()
+        x = params.embed[tokens].to(cfg.dtype)
+        if cfg.pos == "learned":
+            x = x + params.pos_embed[cur_pos][None, None]
+        for (period, name), blk in zip(_layers(cfg), params.blocks):
+            layer = {n: t[period] for n, t in new["periods"][name]["mixer"].items()}
+            h = apply_norm(x, blk.mixer_norm, cfg.norm)
+            x = x + attn.decode_into(blk.mixer, h, layer, cur_pos, cfg, window=cfg.window)
+            x = _ffn(blk, x, cfg)
+        x = apply_norm(x, params.final_norm, cfg.norm)
+        return _head(params, x, cfg)[:, 0], new

@@ -238,9 +238,11 @@ def test_cpu_tensors_take_the_plain_version():
     ops.gram(_t(l)[0])
     ops.segment_gram(_t(l)[0], seg, 6)
     ops.multi_segment_gram(_t(l)[0], np.stack([seg, seg], 1), [6, 6])
+    qkv = torch.zeros(1, 8, 2, 16)
+    ops.flash_attention(qkv, qkv, qkv)
     assert set(ops.launch_counts()) == {
         "segment_view", "segment_view1", "segment_reduce", "moments",
-        "gram", "segment_gram", "multi_segment_gram",
+        "gram", "segment_gram", "multi_segment_gram", "flash",
     }
     assert all(v == 0 for v in ops.launch_counts().values())
     assert ops.fast_device_grouping("cuda") and not ops.fast_device_grouping("cpu")
@@ -311,7 +313,9 @@ def test_block_packing_round_trips(degree):
 
 
 def test_build_targets_hopper_from_repo_sources(monkeypatch, tmp_path):
-    assert set(_build.SOURCES) == {"segment_view", "moments", "gram", "segment_gram"}
+    assert set(_build.SOURCES) == {
+        "segment_view", "moments", "gram", "segment_gram", "flash",
+    }
     for name in _build.SOURCES:
         src = _build.CSRC / f"{name}.cu"
         assert src.exists()
