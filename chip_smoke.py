@@ -173,6 +173,23 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def time_ms_back_to_back(fn, launches: int = 20, warmup: int = 2) -> float:
+    """CUDA-event time of ``launches`` calls of ``fn`` queued back to back,
+    over their count, in ms: the host's launch work overlaps the device's
+    (as on the model's path), where ``time_ms`` counts it per call."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / launches
+
+
 def max_err(got, expect) -> tuple:
     """(max |got − expect|, max |expect|) over a tuple of outputs."""
     err, scale = 0.0, 0.0
@@ -239,7 +256,7 @@ TIMED_VIEW_NODE = "item_nbr"
 TIMED_REGROUP_NODE = "transactions"
 
 
-def kernel_phase(ref, sv, mom, kops) -> dict:
+def kernel_phase(ref, sv, mom, kops, kflash) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {}
 
@@ -300,7 +317,7 @@ def kernel_phase(ref, sv, mom, kops) -> dict:
                 bound_ms=b, bound_by=by, library_ms=time_ms(lib),
             )
     rows.update(gram_family(ref, kops, gen, check))
-    rows["flash"] = flash_rows(ref, kops, gen)
+    rows["flash"] = flash_rows(ref, kops, kflash, gen)
     # the date column: SalesF + Transactions + Oil rows
     m = N_SALES + 90_936 + 1_684
     x = torch.randint(0, 1_684, (m,), device="cuda", generator=gen).float()
@@ -410,70 +427,88 @@ def gram_family(ref, kops, gen, check) -> dict:
 
 
 BF16, F32 = torch.bfloat16, torch.float32
-# (what, B, Sq, Sk, H, KH, D, causal, window, dtype, timed); the first row
-# is the serving path's prefill (the JSON row), the others ride in "also"
+# (what, B, Sq, Sk, H, KH, D, causal, window, kv_len, dtype, timed), kv_len
+# None meaning Sk; the first row is the serving path's prefill (the JSON
+# row), the others ride in "also"
 FLASH_SHAPES = [
-    ("smollm-135m prefill", 1, 4096, 4096, 9, 3, 64, True, None, BF16, True),
-    ("smollm-135m prefill", 1, 4096, 4096, 9, 3, 64, True, None, F32, True),
-    ("olmo-1b heads", 1, 4096, 4096, 16, 16, 128, True, None, BF16, True),
-    ("mixtral heads, window 1024", 1, 4096, 4096, 32, 8, 128, True, 1024, BF16, True),
-    ("non-causal ragged", 2, 1000, 3001, 8, 2, 64, False, None, BF16, True),
-    ("non-causal ragged", 2, 1000, 3001, 8, 2, 64, False, None, F32, True),
-    ("head dim 8", 1, 300, 300, 2, 1, 8, True, None, BF16, False),
-    ("head dim 40, window 50", 1, 300, 300, 2, 1, 40, True, 50, BF16, False),
-    ("head dim 40, window 50", 1, 300, 300, 2, 1, 40, True, 50, F32, False),
-    ("head dim 256", 1, 333, 333, 2, 2, 256, True, None, BF16, False),
-    ("head dim 256", 1, 333, 333, 2, 2, 256, True, None, F32, False),
+    ("smollm-135m prefill", 1, 4096, 4096, 9, 3, 64, True, None, None, BF16, True),
+    ("smollm-135m prefill", 1, 4096, 4096, 9, 3, 64, True, None, None, F32, True),
+    ("olmo-1b heads", 1, 4096, 4096, 16, 16, 128, True, None, None, BF16, True),
+    ("mixtral heads, window 1024", 1, 4096, 4096, 32, 8, 128, True, 1024, None, BF16, True),
+    ("non-causal ragged", 2, 1000, 3001, 8, 2, 64, False, None, None, BF16, True),
+    ("non-causal ragged", 2, 1000, 3001, 8, 2, 64, False, None, None, F32, True),
+    ("non-causal, kv_len 2,777 of 3,001", 2, 1000, 3001, 8, 2, 64, False, None, 2777, BF16, True),
+    ("non-causal, kv_len 0", 2, 1000, 3001, 8, 2, 64, False, None, 0, BF16, False),
+    ("causal 1,111 tokens, head dim 128", 1, 1111, 1111, 4, 1, 128, True, None, None, BF16, True),
+    ("head dim 8", 1, 300, 300, 2, 1, 8, True, None, None, BF16, False),
+    ("head dim 40, window 50", 1, 300, 300, 2, 1, 40, True, 50, None, BF16, False),
+    ("head dim 40, window 50", 1, 300, 300, 2, 1, 40, True, 50, None, F32, False),
+    ("head dim 256", 1, 333, 333, 2, 2, 256, True, None, None, BF16, False),
+    ("head dim 256", 1, 333, 333, 2, 2, 256, True, None, None, F32, False),
 ]
 
 
-def visible_pairs(sq: int, sk: int, causal: bool, window) -> int:
+def visible_pairs(sq: int, kv_len: int, causal: bool, window) -> int:
     """(query, key) pairs the masks leave visible: the work this input needs."""
     i = np.arange(sq)
-    hi = np.minimum(i + 1, sk) if causal else np.full(sq, sk)
+    hi = np.minimum(i + 1, kv_len) if causal else np.full(sq, kv_len)
     lo = np.maximum(i - window + 1, 0) if window else np.zeros(sq, np.int64)
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def library_attention(q, k, v, causal, window):
+def library_attention(q, k, v, causal, window, kv_len):
     """The one PyTorch call computing flash's function, on [B, H, S, D]
-    copies made beforehand (timed as ``library_ms``; the port never calls
-    it)."""
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    copies of q and of the first kv_len keys made beforehand (timed as
+    ``library_ms``; the port never calls it)."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k[:, :kv_len], v[:, :kv_len]))
     if window is None:
         return functools.partial(
             F.scaled_dot_product_attention, qt, kt, vt, is_causal=causal, enable_gqa=True
         )
     i = torch.arange(q.shape[1], device=q.device)[:, None]
-    j = torch.arange(k.shape[1], device=q.device)[None, :]
+    j = torch.arange(kv_len, device=q.device)[None, :]
     mask = (j > i - window) & ((j <= i) if causal else True)
     return functools.partial(
         F.scaled_dot_product_attention, qt, kt, vt, attn_mask=mask, enable_gqa=True
     )
 
 
-def flash_rows(ref, kops, gen) -> dict:
+def flash_rows(ref, kops, kflash, gen) -> dict:
     """flash against its plain version at every shape of FLASH_SHAPES, timed
     where marked; returns the JSON row of the first shape, the others in
-    ``also``."""
+    ``also``.  First the bf16 instantiation the library reports for every
+    head dim must be the one ``kernels/flash.py`` mirrors (and the CPU tests
+    check)."""
+    for d in range(8, 257, 8):
+        got, want = kflash.kernel_bf16_geometry(d), kflash.bf16_geometry(d)
+        if got != want:
+            raise AssertionError(f"flash bf16 geometry at head dim {d}: {got} != {want}")
+    log(f"{'flash':15s} bf16 geometry of head dims 8-256 as mirrored: "
+        f"{sorted({tuple(kflash.bf16_geometry(d).values()) for d in (16, 32, 64, 128, 256)})}")
     out = []
-    for what, b, sq, sk, h, kh, d, causal, window, dt, timed in FLASH_SHAPES:
+    for what, b, sq, sk, h, kh, d, causal, window, kv_len, dt, timed in FLASH_SHAPES:
+        kv_len = sk if kv_len is None else kv_len
         q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dt)
         k = torch.randn(b, sk, kh, d, device="cuda", generator=gen).to(dt)
         v = torch.randn(b, sk, kh, d, device="cuda", generator=gen).to(dt)
-        kw = dict(causal=causal, window=window, kv_len=sk)
+        kw = dict(causal=causal, window=window, kv_len=kv_len)
         kern = functools.partial(kops.flash_attention, q, k, v, **kw)
         plain = functools.partial(ref.flash_attention_ref, q, k, v, **kw)
         got, want = kern().float(), plain().float()
         tol, row_rtol, norm_rtol = FLASH_TOL[dt], FLASH_ROW_RTOL[dt], FLASH_NORM_RTOL[dt]
+        name = f"{what} {str(dt).split('.')[-1]}"
         diff = got - want
         err = float(diff.abs().max())
-        floor = d**0.5 * float(want.square().mean().sqrt())
-        row_err = float((diff.norm(dim=-1) / (want.norm(dim=-1) + floor)).max())
-        norm_err = float(diff.norm() / want.norm())
+        if kv_len == 0:  # no row sees a key: both must be exact zeros
+            if bool(got.any()) or bool(want.any()):
+                raise AssertionError(f"flash at {name}: output not exactly 0")
+            row_err = norm_err = 0.0
+        else:
+            floor = d**0.5 * float(want.square().mean().sqrt())
+            row_err = float((diff.norm(dim=-1) / (want.norm(dim=-1) + floor)).max())
+            norm_err = float(diff.norm() / want.norm())
         ok = (bool((diff.abs() <= tol * (1 + want.abs())).all()) and row_err <= row_rtol
               and norm_err <= norm_rtol and bool(torch.isfinite(got).all()))
-        name = f"{what} {str(dt).split('.')[-1]}"
         log(f"{'flash':15s} {name:34s} max_abs_err={err:.3e} tol={tol:.0e} "
             f"row_err={row_err:.3e} rtol={row_rtol:.0e} norm_err={norm_err:.3e} "
             f"rtol={norm_rtol:.0e}")
@@ -483,22 +518,27 @@ def flash_rows(ref, kops, gen) -> dict:
                 f"tolerance {tol} / {row_rtol} / {norm_rtol}")
         row = dict(
             shape=dict(what=what, batch=b, sq=sq, sk=sk, heads=h, kv_heads=kh,
-                       head_dim=d, causal=causal, window=window,
+                       head_dim=d, causal=causal, window=window, kv_len=kv_len,
                        dtype=str(dt).split(".")[-1]),
             max_abs_err=err, tol=tol, row_err=row_err, row_rtol=row_rtol,
             norm_err=norm_err, norm_rtol=norm_rtol,
         )
         if timed:
             s = q.element_size()
-            nbytes = 2 * b * sq * h * d * s + 2 * b * sk * kh * d * s
-            flops = 4 * d * h * b * visible_pairs(sq, sk, causal, window)
+            nbytes = 2 * b * sq * h * d * s + 2 * b * kv_len * kh * d * s
+            flops = 4 * d * h * b * visible_pairs(sq, kv_len, causal, window)
             bnd, by = bound_ms(nbytes, flops, BF16_FLOPS if dt == BF16 else FP32_FLOPS)
+            lib = library_attention(q, k, v, causal, window, kv_len)
             row.update(
                 ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=bnd, bound_by=by,
-                library_ms=time_ms(library_attention(q, k, v, causal, window)),
+                library_ms=time_ms(lib), ms_back_to_back=time_ms_back_to_back(kern),
+                library_ms_back_to_back=time_ms_back_to_back(lib),
             )
+            row["pct_of_bound"] = 100 * bnd / row["ms"]
             log(f"{'flash':15s} {name:34s} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-                f"bound_ms={bnd:.4f} ({by}) library_ms={row['library_ms']:.4f}")
+                f"bound_ms={bnd:.4f} ({by}, {row['pct_of_bound']:.1f} %) "
+                f"library_ms={row['library_ms']:.4f}; back to back "
+                f"{row['ms_back_to_back']:.4f} vs library {row['library_ms_back_to_back']:.4f}")
         out.append(row)
         del q, k, v, got, want, diff
     main = out[0]
@@ -1080,6 +1120,7 @@ def main() -> None:
     from repro_torch.core import factorize as fz
     from repro_torch.data import favorita_like, fd_star_schema
     from repro_torch.kernels import _build, ops as kops, ref
+    from repro_torch.kernels import flash as kflash
     from repro_torch.kernels import moments as mom
     from repro_torch.kernels import segment_view as sv
     from repro_torch.configs import get_config
@@ -1123,7 +1164,7 @@ def main() -> None:
                     print(f"  {name}: {line.strip()}")
 
     log("phase 2: kernels vs plain versions")
-    rows = kernel_phase(ref, sv, mom, kops)
+    rows = kernel_phase(ref, sv, mom, kops, kflash)
 
     bundle = favorita(rt)
     log("phase 3: main path")

@@ -23,29 +23,57 @@
 // (989 TFLOP/s bf16).  Float32 inputs run off the tensor cores (67 TFLOP/s):
 // TF32 would not hold float32 accuracy.
 //
-// Design.  The TPU kernel walks a sequential (head, q-block, k-block) grid
-// and keeps the running state in VMEM scratch between grid steps.  Here one
-// block of 4 warps owns (batch, head, 64 queries) and loops over key tiles
-// itself, keeping the state in registers.  The block reads its query head's
-// KV head h / (H/KH) directly: GQA costs no repeated K/V.  Tiles are bounds
-// checked, so no padding is needed: rows past the sequence load as zeros and
-// are never stored, and the head dim is zero-padded to the instantiation's
-// width DP (16, 32, 64, 128 or 256) inside shared memory.  Key tiles wholly
-// above the causal diagonal, wholly before the window, or past kv_len are
-// skipped: their p would be 0 and their correction 1, so skipping is exact.
-// Query blocks are issued latest first, so the longest causal rows start
-// first.
-//  * bf16: each warp owns 16 query rows.  S = Q·Kᵀ for a 64-key tile is
-//    mma.sync m16n8k16 with float32 accumulators; the softmax runs on the
-//    accumulator fragments; P (packed to bf16 straight from those
-//    fragments) times V is a second mma.sync into the float32 output
-//    fragments.  K is staged row-major and V transposed in shared memory,
-//    each row padded by 8 values so the fragment loads hit 32 distinct banks.
-//  * float32: two threads per query row, 32-key tiles; each thread forms 16
-//    scores with float4 dot products and owns half of the row's output
-//    columns; p goes through shared memory between the two products.
-// Not yet used: wgmma, TMA, warp specialisation, double buffering.
+// Design, shared.  The TPU kernel walks a sequential (head, q-block,
+// k-block) grid and keeps the running state in VMEM scratch between grid
+// steps.  Here one block owns (batch, head, a tile of queries) and loops
+// over key tiles itself, keeping the state in registers.  The block reads
+// its query head's KV head h / (H/KH) in place: GQA costs no repeated K/V.
+// Key tiles wholly above the causal diagonal, wholly before the window, or
+// past kv_len are skipped: their p would be 0 and their correction 1, so
+// skipping is exact.  Query tiles are issued latest first, so the longest
+// causal rows start first (bf16: across all heads and batches).
+//
+// bf16 (warp-specialised, 384 threads, 128 queries per block):
+//  * Warpgroup 2 is the producer: one thread loads the block's Q tile once
+//    and then keeps a ring of K/V stages in flight with TMA
+//    (cp.async.bulk.tensor, 4-d tensor maps over [B, S, heads, D] built on
+//    the host and passed as __grid_constant__ parameters).  Each stage has
+//    a full mbarrier (the TMA's transaction bytes) and an empty mbarrier
+//    (one arrival per consumer thread); a thread's phase parity is its
+//    tile count over the ring depth, so any depth fits any tile count.
+//    TMA zero-fills rows past the sequence and columns past D, so no
+//    bounds checks and no padding.
+//  * Warpgroups 0 and 1 are consumers, 64 query rows each (wgmma's M), and
+//    take the registers the producer gives up (setmaxnreg).  S = Q·Kᵀ is
+//    wgmma m64nNk16 (N = 128 or 64 keys) with Q and K read from shared
+//    memory, both K-major; the online softmax runs on the float32
+//    accumulator fragments in the log2 domain (one FMA and one ex2 per
+//    score, D^-1/2·log2 e folded into the scale); the visibility predicate
+//    runs only on tiles that straddle the diagonal, the window edge or
+//    kv_len.  P, packed to bf16 from those fragments, is the register A
+//    operand of O += P·V, whose B operand is V read in place from the TMA
+//    stage as an MN-major matrix (the transpose bit).
+//  * Each consumer takes one tile at a time (S, softmax, P·V, release the
+//    stage); the two run unsynchronised, so one's softmax overlaps the
+//    other's products.  Explicit turns between them (named barriers),
+//    overlapping a tile's softmax with the previous tile's P·V inside one
+//    consumer, and a third consumer warpgroup were tried and measured no
+//    faster (PERF.md, Findings).
+//  * Shared-memory tiles are stored in panels of min(DP, 64) columns, each
+//    row of a panel one swizzle span (32, 64 or 128 bytes for DP = 16, 32,
+//    >= 64), so the TMA swizzle mode and the wgmma descriptors' layout
+//    agree per width; a P·V wgmma covers one panel (N <= 64).  Key tiles
+//    are 128 keys for DP <= 64 and 64 above, in a ring of 3 stages (2 for
+//    DP >= 128, measured faster there): Bf16Geometry, mirrored for the
+//    tests in kernels/flash.py.
+//  * Each consumer sums l across the four threads of a row at the end,
+//    divides and stores bf16 rows below Sq.
+// float32: 4 warps, 64 queries per block, two threads per query row,
+// 32-key tiles; each thread forms 16 scores with float4 dot products and
+// owns half of the row's output columns; p goes through shared memory
+// between the two products.
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -53,8 +81,8 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // queries per block
-constexpr int kThreads = 128;  // 4 warps
+constexpr int kBQ = 64;        // queries per float32 block
+constexpr int kThreads = 128;  // 4 warps (float32)
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -73,30 +101,243 @@ __device__ __forceinline__ bool visible(const Args& a, int i, int j) {
 }
 
 // key tiles [*first, *last) that can hold a visible key for queries
-// [q0, q0 + kBQ)
+// [q0, q0 + bq)
 __device__ __forceinline__ void key_tiles(const Args& a, int q0, int bk,
-                                          int* first, int* last) {
+                                          int* first, int* last,
+                                          int bq = kBQ) {
   int end = a.kv_len;
-  if (a.causal) end = min(end, min(q0 + kBQ, a.sq));
+  if (a.causal) end = min(end, min(q0 + bq, a.sq));
   int begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
   *first = begin / bk;
   *last = end > begin ? (end + bk - 1) / bk : *first;
 }
 
 // ---------------------------------------------------------------------------
-// bf16: tensor cores (mma.sync m16n8k16, float32 accumulate)
+// bf16: wgmma on TMA-fed stages, one producer and two consumer warpgroups
 // ---------------------------------------------------------------------------
 
-constexpr int kBK16 = 64;            // keys per tile
-constexpr int kLDV = kBK16 + 8;      // transposed V row (bf16 values)
+constexpr int kBQ16 = 128;            // queries per block
+constexpr int kRowsWG = 64;           // queries per consumer warpgroup
+constexpr int kConsumers = 256;       // two consumer warpgroups
+constexpr int kThreads16 = 384;       // + one producer warpgroup
+// setmaxnreg moves registers within the block: the launch gives every
+// thread 168 (64 K / 384, rounded down to 8); the producer warpgroup drops
+// to 24, so the consumers can rise to 240 (128·24 + 256·240 = 384·168)
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+// the instantiation for padded width DP; flash_bf16_geometry reports it
+template <int DP>
+struct Bf16Geometry {
+  static constexpr int kPanel = DP < 64 ? DP : 64;  // columns per panel
+  static constexpr int kSwizzle = kPanel * 2;       // bytes per panel row
+  static constexpr int kPanels = DP / kPanel;
+  static constexpr int kBK = DP >= 128 ? 64 : 128;  // keys per tile
+  static constexpr int kStages = DP >= 128 ? 2 : 3;
+  static constexpr int kQBytes = kBQ16 * DP * 2;
+  static constexpr int kTileBytes = kBK * DP * 2;   // one K or one V tile
+  static constexpr int kBarBytes = (2 * kStages + 1) * 8;
+  // + 1024: the base is rounded up to the 128-byte swizzle's 1 KiB repeat
+  static constexpr int kSmem =
+      1024 + kQBytes + 2 * kStages * kTileBytes + kBarBytes;
+  static_assert(kSmem <= 232448, "over the block's shared memory");
+  static_assert((kBK == 64 || kBK == 128) && DP % kPanel == 0, "tile shape");
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// until the phase of parity `parity` has completed (a fresh barrier counts
+// its phase before 0, of parity 1, as completed)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done, tries = 0;
+  do {
+    if (++tries == (1u << 22)) __trap();  // a lost phase: fail, never hang
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// rows [c2, c2 + box rows) and columns [c0, c0 + panel) of head c1, batch
+// c3, into a swizzled panel at dst; completion counted on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a swizzled panel (rows of `swizzle`
+// bytes, 8-row groups 8·swizzle bytes apart): start address, leading and
+// stride byte offsets in 16-byte units, layout 1 / 2 / 3 = 128 / 64 / 32-byte
+// swizzle.  The panel base is 1 KiB aligned, so the base offset is 0.
+template <int kSwizzle>
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
+  constexpr uint64_t kLayout = kSwizzle == 128 ? 1 : kSwizzle == 64 ? 2 : 3;
+  constexpr uint64_t kSbo = 8 * kSwizzle / 16;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo & 0x3FFF) << 16) |
+         (kSbo << 32) | (kLayout << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous product
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(float (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+f"(r[i][j])::"memory");
+}
+template <int M, int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+#define FLASH_ACC8(d, i)                                                   \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d[64 x N] (+)= A[64 x 16] · B[16 x N], A and B K-major in shared memory
+template <int N>
+struct WgmmaSS;
+
+template <>
+struct WgmmaSS<64> {
+  __device__ __forceinline__ static void run(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+        "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : FLASH_ACC8(d, 0), FLASH_ACC8(d, 8), FLASH_ACC8(d, 16),
+          FLASH_ACC8(d, 24)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaSS<128> {
+  __device__ __forceinline__ static void run(float (&d)[64], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+        "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+        "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+        "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : FLASH_ACC8(d, 0), FLASH_ACC8(d, 8), FLASH_ACC8(d, 16),
+          FLASH_ACC8(d, 24), FLASH_ACC8(d, 32), FLASH_ACC8(d, 40),
+          FLASH_ACC8(d, 48), FLASH_ACC8(d, 56)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+// d[64 x N] += A[64 x 16] · B[16 x N]: A bf16 fragments in registers, B
+// MN-major in shared memory (transpose bit set)
+template <int N>
+struct WgmmaRS;
+
+template <>
+struct WgmmaRS<16> {
+  __device__ __forceinline__ static void run(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, "
+        "p, 1, 1, 1;\n}\n"
+        : FLASH_ACC8(d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+  }
+};
+
+template <>
+struct WgmmaRS<32> {
+  __device__ __forceinline__ static void run(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : FLASH_ACC8(d, 0), FLASH_ACC8(d, 8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+  }
+};
+
+template <>
+struct WgmmaRS<64> {
+  __device__ __forceinline__ static void run(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+        "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : FLASH_ACC8(d, 0), FLASH_ACC8(d, 8), FLASH_ACC8(d, 16),
+          FLASH_ACC8(d, 24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
+  }
+};
+
+#undef FLASH_ACC8
+
+// 2^x, subnormal results flushed to 0 (one MUFU op; exp2f adds range
+// handling for subnormals, which a p below 2^-126 of the row's largest does
+// not need); 2^-inf = 0 exactly
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -104,156 +345,237 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// every key of [k0, k0 + bk) visible to every query of [r0, r0 + rows): the
+// tile needs no mask
+__device__ __forceinline__ bool tile_interior(const Args& a, int r0, int rows,
+                                              int k0, int bk) {
+  return k0 + bk <= a.kv_len && (!a.causal || k0 + bk - 1 <= r0) &&
+         (a.window <= 0 || k0 > r0 + rows - 1 - a.window);
 }
 
-// rows [r0, r0 + nrows) of a [*, stride] bf16 matrix into shared memory,
-// 8 values (16 bytes) per load; rows past `limit` and columns past d are 0.
-// transpose = false: dst[r][c] with row length ld; true: dst[c][r].
-template <int DP, bool kTranspose>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, int ld,
-                                           const __nv_bfloat16* src,
-                                           int64_t stride, int r0, int nrows,
-                                           int limit, int d) {
-  constexpr int kChunks = DP / 8;
-  for (int idx = threadIdx.x; idx < nrows * kChunks; idx += kThreads) {
-    const int r = idx / kChunks, c = (idx % kChunks) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < limit && c < d)
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + c);
-    if (!kTranspose) {
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-    } else {
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dst[(c + i) * ld + r] = e[i];
-    }
-  }
-}
-
+// one consumer warpgroup's work on a key tile, on register fragments:
+// score element 4j + 2rr + e is query row0 + 8rr, key k0 + 8j + 2t4 + e
+// (wgmma's accumulator layout, g = lane / 4 and t4 = lane % 4 within each
+// warp's 16 rows)
 template <int DP>
-__global__ void __launch_bounds__(kThreads) flash_bf16_kernel(Args a) {
-  constexpr int kLDQ = DP + 8;  // Q / K row (bf16 values)
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);  // [kBQ][kLDQ]
-  __nv_bfloat16* ks = qs + kBQ * kLDQ;                           // [kBK16][kLDQ]
-  __nv_bfloat16* vt = ks + kBK16 * kLDQ;                         // [DP][kLDV]
+struct TileOps {
+  using G = Bf16Geometry<DP>;
+  static constexpr int kPanel = G::kPanel, kSw = G::kSwizzle, kBK = G::kBK;
+  typedef float Scores[kBK / 2];
+  typedef float Out[G::kPanels][kPanel / 2];
+  typedef uint32_t Probs[kBK / 16][4];
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int head = blockIdx.y, batch = blockIdx.z;
-  const int kv_head = head / (a.h / a.kh);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-
-  const int64_t q_stride = (int64_t)a.h * a.d, kv_stride = (int64_t)a.kh * a.d;
-  const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(a.q) +
-                            ((int64_t)batch * a.sq * a.h + head) * a.d;
-  const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(a.k) +
-                            ((int64_t)batch * a.sk * a.kh + kv_head) * a.d;
-  const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(a.v) +
-                            ((int64_t)batch * a.sk * a.kh + kv_head) * a.d;
-
-  stage_bf16<DP, false>(qs, kLDQ, qg, q_stride, q0, kBQ, a.sq, a.d);
-
-  float o[DP / 8][4];
-#pragma unroll
-  for (int n = 0; n < DP / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m_row[2] = {kNegInf, kNegInf}, l_row[2] = {0.f, 0.f};
-  const int row0 = q0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
-
-  int first, last;
-  key_tiles(a, q0, kBK16, &first, &last);
-  for (int kt = first; kt < last; ++kt) {
-    const int k0 = kt * kBK16;
-    __syncthreads();  // the previous tile is consumed (and Q is staged)
-    stage_bf16<DP, false>(ks, kLDQ, kg, kv_stride, k0, kBK16, a.sk, a.d);
-    stage_bf16<DP, true>(vt, kLDV, vg, kv_stride, k0, kBK16, a.sk, a.d);
-    __syncthreads();
-
-    // S = Q Kᵀ: 16 rows x 64 keys per warp, eight 16x8 fragments
-    float s[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+  // S = Q Kᵀ, 64 rows x kBK keys (issued, not waited)
+  __device__ __forceinline__ static void issue_qk(Scores& sc, uint32_t q_wg,
+                                                  uint32_t k_s) {
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
-      const __nv_bfloat16* qa = qs + (warp * 16 + g) * kLDQ + kk * 16 + t4 * 2;
-      const uint32_t af[4] = {ld32(qa), ld32(qa + 8 * kLDQ), ld32(qa + 8),
-                              ld32(qa + 8 * kLDQ + 8)};
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const __nv_bfloat16* kb = ks + (j * 8 + g) * kLDQ + kk * 16 + t4 * 2;
-        mma_bf16(s[j], af, ld32(kb), ld32(kb + 8));
-      }
+      const int p = kk * 16 / kPanel, col_bytes = (kk * 16 % kPanel) * 2;
+      const uint64_t da = smem_desc<kSw>(q_wg + p * kBQ16 * kSw + col_bytes, 1);
+      const uint64_t db = smem_desc<kSw>(k_s + p * kBK * kSw + col_bytes, 1);
+      WgmmaSS<kBK>::run(sc, da, db, kk > 0);
     }
+  }
 
-    // online softmax on the fragments: element (j, e) of row rr is key
-    // k0 + 8j + 2·t4 + (e & 1), row row0 + 8·rr with rr = e >> 1
+  // O += P V: 16 keys a step, one wgmma per panel, V read MN-major from
+  // the stage (issued, not waited).  One panel is one swizzle span wide, so
+  // the leading offset (the next span along N) is never used; both offsets
+  // name the 8-row step.
+  __device__ __forceinline__ static void issue_pv(Out& o, const Probs& pa,
+                                                  uint32_t v_s) {
+#pragma unroll
+    for (int kt = 0; kt < kBK / 16; ++kt)
+#pragma unroll
+      for (int p = 0; p < G::kPanels; ++p) {
+        const uint64_t db = smem_desc<kSw>(
+            v_s + p * kBK * kSw + kt * 16 * kSw, 8 * kSw / 16);
+        WgmmaRS<kPanel>::run(o[p], pa[kt], db);
+      }
+  }
+
+  // the online-softmax step: scores (masked when the tile straddles an
+  // edge) become p = exp2(s·scale2 - m), m kept in the log2 domain; m and l
+  // move on; corr is the factor for O
+  __device__ __forceinline__ static void softmax(Scores& sc, float (&m_row)[2],
+                                                 float (&l_row)[2],
+                                                 float (&corr)[2],
+                                                 const Args& a, int r0,
+                                                 int row0, int t4, int k0,
+                                                 float scale2) {
+    if (!tile_interior(a, r0, kRowsWG, k0, kBK)) {
+#pragma unroll
+      for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!visible(a, row0 + 8 * (e >> 1), k0 + j * 8 + t4 * 2 + (e & 1)))
+            sc[j * 4 + e] = -INFINITY;
+    }
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) {
-      const int qi = row0 + 8 * rr;
-      uint32_t vis = 0;
-      float mx = kNegInf;
+      float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int bit = j * 2 + e;
-          float x = s[j][rr * 2 + e] * a.scale;
-          if (visible(a, qi, k0 + j * 8 + t4 * 2 + e)) {
-            vis |= 1u << bit;
-          } else {
-            x = kNegInf;
-          }
-          s[j][rr * 2 + e] = x;
-          mx = fmaxf(mx, x);
-        }
-      }
+      for (int j = 0; j < kBK / 8; ++j)
+        mx = fmaxf(mx, fmaxf(sc[j * 4 + rr * 2], sc[j * 4 + rr * 2 + 1]));
       mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-      const float m_new = fmaxf(m_row[rr], mx);
-      const float corr = expf(m_row[rr] - m_new);
+      const float m_new = fmaxf(m_row[rr], mx * scale2);  // scale2 > 0
+      // a row with no visible key so far keeps m = -inf; subtracting 0 then
+      // gives p = 2^-inf = 0 exactly (never exp(-inf - -inf) = 1)
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;
+      corr[rr] = exp2_ftz(m_row[rr] - m_use);
       float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kBK / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float p = (vis >> (j * 2 + e)) & 1u
-                              ? expf(s[j][rr * 2 + e] - m_new) : 0.f;
-          s[j][rr * 2 + e] = p;
-          sum += p;
+          float& x = sc[j * 4 + rr * 2 + e];
+          x = exp2_ftz(fmaf(x, scale2, -m_use));
+          sum += x;
         }
-      }
       // l stays a per-thread partial over its columns; the four threads of
       // a row are summed once at the end
-      l_row[rr] = l_row[rr] * corr + sum;
+      l_row[rr] = l_row[rr] * corr[rr] + sum;
       m_row[rr] = m_new;
+    }
+  }
+
+  __device__ __forceinline__ static void rescale(Out& o,
+                                                 const float (&corr)[2]) {
 #pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
-        o[n][rr * 2] *= corr;
-        o[n][rr * 2 + 1] *= corr;
+    for (int p = 0; p < G::kPanels; ++p)
+#pragma unroll
+      for (int j = 0; j < kPanel / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[p][j * 4 + e] *= corr[e >> 1];
+  }
+
+  // P rounded to bf16 from the score fragments: the A fragment of 16 keys
+  // holds rows g, g + 8 and keys 2t4, 2t4 + 8 (two 8-key blocks)
+  __device__ __forceinline__ static void pack(const Scores& sc, Probs& pa) {
+#pragma unroll
+    for (int kt = 0; kt < kBK / 16; ++kt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kt][r] = pack_bf16(sc[kt * 8 + 2 * r], sc[kt * 8 + 2 * r + 1]);
+  }
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads16, 1)
+    flash_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map, Args a) {
+  using G = Bf16Geometry<DP>;
+  constexpr int kPanel = G::kPanel, kSw = G::kSwizzle, kBK = G::kBK;
+  constexpr int kStages = G::kStages;
+  extern __shared__ unsigned char smem[];
+  // shared-space addresses: Q panels, then per stage a K and a V tile (each
+  // its panels one after another), then the barriers
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t kv_s = q_s + G::kQBytes;
+  const uint32_t bars = kv_s + 2 * kStages * G::kTileBytes;
+  const uint32_t q_bar = bars + 16 * kStages;  // full: bars + 8s, empty: + 8(S + s)
+
+  // blocks start in index order, x fastest: every (batch, head) of the
+  // last query tile, then of the one before, so the longest causal rows
+  // start first across all heads
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ16;
+  const int head = blockIdx.x % a.h, batch = blockIdx.x / a.h;
+  int first, last;
+  key_tiles(a, q0, kBK, &first, &last, kBQ16);
+  const int n_tiles = last - first;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (kStages + s), kConsumers);
+    }
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer warpgroup: one thread issues every load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (threadIdx.x == kConsumers && n_tiles > 0) {
+      const int kv_head = head / (a.h / a.kh);
+      mbar_expect_tx(q_bar, G::kQBytes);
+#pragma unroll
+      for (int p = 0; p < G::kPanels; ++p)
+        tma_load(q_s + p * kBQ16 * kSw, &q_map, q_bar, p * kPanel, head, q0,
+                 batch);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        mbar_wait(bars + 8 * (kStages + s), ((i / kStages) & 1) ^ 1);
+        const uint32_t full = bars + 8 * s;
+        mbar_expect_tx(full, 2 * G::kTileBytes);
+        const uint32_t k_s = kv_s + 2 * s * G::kTileBytes;
+        const uint32_t v_s = k_s + G::kTileBytes;
+        const int k0 = (first + i) * kBK;
+#pragma unroll
+        for (int p = 0; p < G::kPanels; ++p) {
+          tma_load(k_s + p * kBK * kSw, &k_map, full, p * kPanel, kv_head, k0,
+                   batch);
+          tma_load(v_s + p * kBK * kSw, &v_map, full, p * kPanel, kv_head, k0,
+                   batch);
+        }
       }
     }
+    return;
+  }
 
-    // O += P V, P rounded to bf16 from the score fragments
+  // ---- consumer warpgroups: 64 query rows each ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  using T = TileOps<DP>;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = q0 + wg * kRowsWG;
+  const int row0 = r0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  const uint32_t q_wg = q_s + wg * kRowsWG * kSw;
+  const float scale2 = a.scale * kLog2e;  // scores in the log2 domain
+
+  typename T::Out o;
 #pragma unroll
-    for (int t = 0; t < kBK16 / 16; ++t) {
-      const uint32_t pf[4] = {
-          pack_bf16(s[2 * t][0], s[2 * t][1]),
-          pack_bf16(s[2 * t][2], s[2 * t][3]),
-          pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]),
-          pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3]),
-      };
+  for (int p = 0; p < G::kPanels; ++p)
 #pragma unroll
-      for (int n = 0; n < DP / 8; ++n) {
-        const __nv_bfloat16* vb = vt + (n * 8 + g) * kLDV + t * 16 + t4 * 2;
-        mma_bf16(o[n], pf, ld32(vb), ld32(vb + 8));
-      }
+    for (int i = 0; i < kPanel / 2; ++i) o[p][i] = 0.f;
+  float m_row[2] = {-INFINITY, -INFINITY}, l_row[2] = {0.f, 0.f};
+
+  if (n_tiles > 0) {
+    typename T::Scores sc;
+    typename T::Probs pa;
+    float corr[2];
+    mbar_wait(q_bar, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages;
+      mbar_wait(bars + 8 * s, (i / kStages) & 1);
+      wg_fence();
+      T::issue_qk(sc, q_wg, kv_s + 2 * s * G::kTileBytes);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(sc);
+      T::softmax(sc, m_row, l_row, corr, a, r0, row0, t4, (first + i) * kBK,
+                 scale2);
+      T::rescale(o, corr);
+      T::pack(sc, pa);
+      fence_regs(o);
+      fence_regs(pa);
+      wg_fence();
+      T::issue_pv(o, pa, kv_s + (2 * s + 1) * G::kTileBytes);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(o);
+      fence_regs(pa);
+      mbar_arrive(bars + 8 * (kStages + s));  // done with stage s
     }
   }
 
   __nv_bfloat16* og = static_cast<__nv_bfloat16*>(a.out) +
                       ((int64_t)batch * a.sq * a.h + head) * a.d;
+  const int64_t q_stride = (int64_t)a.h * a.d;
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
     float l = l_row[rr];
@@ -263,13 +585,15 @@ __global__ void __launch_bounds__(kThreads) flash_bf16_kernel(Args a) {
     const int qi = row0 + 8 * rr;
     if (qi >= a.sq) continue;
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int c = n * 8 + t4 * 2;
-      if (c < a.d)
-        *reinterpret_cast<__nv_bfloat162*>(og + qi * q_stride + c) =
-            __floats2bfloat162_rn(o[n][rr * 2] / denom,
-                                  o[n][rr * 2 + 1] / denom);
-    }
+    for (int p = 0; p < G::kPanels; ++p)
+#pragma unroll
+      for (int j = 0; j < kPanel / 8; ++j) {
+        const int col = p * kPanel + j * 8 + t4 * 2;
+        if (col < a.d)
+          *reinterpret_cast<__nv_bfloat162*>(og + qi * q_stride + col) =
+              __floats2bfloat162_rn(o[p][j * 4 + rr * 2] / denom,
+                                    o[p][j * 4 + rr * 2 + 1] / denom);
+      }
   }
 }
 
@@ -411,20 +735,102 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(Args a) {
   }
 }
 
+
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
+// cuTensorMapEncodeTiled, taken from the driver at run time so that the
+// library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a bf16 [batch, seq, heads, d] tensor as 4-d (d, heads, seq, batch), boxes
+// of `panel` columns x 1 head x `rows` rows x 1 batch into one swizzled
+// panel; elements past d or seq read as 0
+bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+                int batch, int seq, int heads, int d, int panel, int rows,
+                int swizzle) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)seq * heads * d * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)panel, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle mode = swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, mode,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <int DP>
 cudaError_t launch_bf16(const Args& a, int b, cudaStream_t stream) {
-  constexpr int kSmem =
-      (kBQ + kBK16) * (DP + 8) * 2 + DP * kLDV * 2;  // bytes
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bf16_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  using G = Bf16Geometry<DP>;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  // with Sk = 0 no key tile is ever loaded; the K/V maps then describe q
+  // only because a map needs a non-empty tensor
+  const bool keys = a.sk > 0;
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_map(encode, &q_map, a.q, b, a.sq, a.h, a.d, G::kPanel, kBQ16,
+                  G::kSwizzle) ||
+      !encode_map(encode, &k_map, keys ? a.k : a.q, b, keys ? a.sk : a.sq,
+                  keys ? a.kh : a.h, a.d, G::kPanel, G::kBK, G::kSwizzle) ||
+      !encode_map(encode, &v_map, keys ? a.v : a.q, b, keys ? a.sk : a.sq,
+                  keys ? a.kh : a.h, a.d, G::kPanel, G::kBK, G::kSwizzle))
+    return cudaErrorInvalidValue;
+  // the shared-memory opt-in, once per device (a bit each, up to 64)
+  static unsigned long long opted_in = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.sq + kBQ - 1) / kBQ, a.h, b);
-  flash_bf16_kernel<DP><<<grid, kThreads, kSmem, stream>>>(a);
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (!(opted_in & bit)) {
+    err = cudaFuncSetAttribute(flash_bf16_kernel<DP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               G::kSmem);
+    if (err != cudaSuccess) return err;
+    opted_in |= bit;
+  }
+  const dim3 grid(b * a.h, (a.sq + kBQ16 - 1) / kBQ16);
+  flash_bf16_kernel<DP><<<grid, kThreads16, G::kSmem, stream>>>(q_map, k_map,
+                                                                 v_map, a);
   return cudaGetLastError();
+}
+
+template <int DP>
+void bf16_geometry(int* out) {
+  using G = Bf16Geometry<DP>;
+  const int g[] = {DP, G::kPanel, G::kSwizzle, kBQ16, G::kBK, G::kStages,
+                   G::kSmem};
+  for (int i = 0; i < 7; ++i) out[i] = g[i];
 }
 
 template <int DP>
@@ -481,6 +887,22 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
     case 128: return (int)launch_bf16<128>(a, b, s);
     default: return (int)launch_bf16<256>(a, b, s);
   }
+}
+
+// the bf16 instantiation for head dim d, as seven ints: padded width, panel
+// columns, swizzle bytes, queries per block, keys per tile, stages, dynamic
+// shared-memory bytes.  Returns a cudaError_t.
+extern "C" int flash_bf16_geometry(int d, int* out) {
+  if (d < 8 || d % 8 != 0 || padded_dim(d) == 0)
+    return (int)cudaErrorInvalidValue;
+  switch (padded_dim(d)) {
+    case 16: bf16_geometry<16>(out); break;
+    case 32: bf16_geometry<32>(out); break;
+    case 64: bf16_geometry<64>(out); break;
+    case 128: bf16_geometry<128>(out); break;
+    default: bf16_geometry<256>(out); break;
+  }
+  return 0;
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,

@@ -1,9 +1,19 @@
 """ctypes wrapper of the flash-attention kernel (``csrc/flash.cu``).
 
 :func:`flash_attention` runs online-softmax attention over the model's
-``[B, S, H, D]`` layout through ``flash_attention_bf16`` (tensor cores) or
-``flash_attention_f32``.  Replaces ``flash_kernel_call`` of
-``repro/kernels/flash.py``.
+``[B, S, H, D]`` layout through ``flash_attention_bf16`` (Hopper tensor
+cores: ``wgmma`` on a TMA/mbarrier ring of K/V stages, warp-specialised)
+or ``flash_attention_f32`` (scalar FMAs).  Replaces ``flash_kernel_call``
+of ``repro/kernels/flash.py``.
+
+The bf16 kernel's host-side geometry and schedule are mirrored here in
+plain Python so that the CPU tests can hold them against a brute-force
+count of visible (query, key) pairs: :func:`bf16_geometry` (the
+instantiation per head dim), :func:`tensor_map` (the TMA maps),
+:func:`block_order` (the block order), :func:`key_tiles` and
+:func:`tile_interior` (which key tiles a block walks and which of them
+need the mask).  :func:`kernel_bf16_geometry` asks the built library for
+its own numbers; ``chip_smoke.py`` holds the two equal.
 
 The function takes CUDA tensors only and raises on anything else; its plain
 PyTorch version with the same signature is
@@ -16,13 +26,24 @@ here and the kernel runs on the current stream without synchronising.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "launches"]
+__all__ = [
+    "BF16_ROWS_PER_WARPGROUP",
+    "bf16_geometry",
+    "block_order",
+    "flash_attention",
+    "kernel_bf16_geometry",
+    "key_tiles",
+    "launches",
+    "padded_dim",
+    "tensor_map",
+    "tile_interior",
+]
 
 #: launches since the last reset (chip_smoke.py zeroes and reads)
 launches = {"flash": 0}
@@ -32,11 +53,96 @@ _P, _I32 = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _P, _P, _P] + [_I32] * 9 + [_P]
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
+#: queries per bf16 consumer warpgroup (wgmma's M)
+BF16_ROWS_PER_WARPGROUP = 64
+_SMEM_PER_BLOCK = 232_448  # bytes a block can take on an H100
+_GEOMETRY_KEYS = ("dp", "panel", "swizzle", "bq", "bk", "stages", "smem")
+
+
+def padded_dim(d: int) -> int:
+    """The instantiation width for head dim ``d``: the least of 16, 32, 64,
+    128, 256 that holds it (``padded_dim`` in ``flash.cu``)."""
+    for dp in (16, 32, 64, 128, 256):
+        if d <= dp:
+            return dp
+    raise ValueError(f"flash: head dim {d} over 256")
+
+
+def bf16_geometry(d: int) -> dict:
+    """The bf16 instantiation for head dim ``d`` (``Bf16Geometry`` in
+    ``flash.cu``): padded width ``dp``; shared-memory tiles in panels of
+    ``panel`` columns whose rows are one ``swizzle`` span (bytes, the TMA
+    swizzle mode and the wgmma layout); ``bq`` queries per block (two
+    consumer warpgroups of 64), ``bk`` keys per tile, a ring of ``stages``
+    K/V stages; ``smem`` dynamic shared-memory bytes (1 KiB of alignment
+    slack, Q, the ring, the mbarriers)."""
+    dp = padded_dim(d)
+    bq = 2 * BF16_ROWS_PER_WARPGROUP
+    panel = min(dp, 64)
+    bk = 64 if dp >= 128 else 128
+    stages = 2 if dp >= 128 else 3
+    smem = 1024 + bq * dp * 2 + 2 * stages * bk * dp * 2 + (2 * stages + 1) * 8
+    return dict(dp=dp, panel=panel, swizzle=panel * 2, bq=bq, bk=bk,
+                stages=stages, smem=smem)
+
+
+def tensor_map(batch: int, seq: int, heads: int, d: int, rows: int) -> dict:
+    """The TMA map ``encode_map`` builds for a bf16 ``[batch, seq, heads,
+    d]`` tensor: ``dims`` innermost first (d, heads, seq, batch),
+    ``strides`` in bytes of dims 1–3, and the ``box`` one load copies
+    (``panel`` columns, one head, ``rows`` rows, one batch).  Elements past
+    ``d`` or ``seq`` load as 0."""
+    panel = bf16_geometry(d)["panel"]
+    return dict(
+        dims=(d, heads, seq, batch),
+        strides=(d * 2, heads * d * 2, seq * heads * d * 2),
+        box=(panel, 1, rows, 1),
+    )
+
+
+def block_order(batch: int, sq: int, heads: int, bq: int) -> list:
+    """(batch, first query, head) of the bf16 blocks in the order they
+    start (block index order, x fastest: the grid is (batch·heads, query
+    tiles) and a block's query tile counts from the end): every head of the
+    last tile first, so the longest causal rows start first."""
+    n = -(-sq // bq)
+    return [(x // heads, (n - 1 - y) * bq, x % heads)
+            for y in range(n) for x in range(batch * heads)]
+
+
+def key_tiles(q0: int, bq: int, bk: int, *, sq: int, kv_len: int, causal: bool,
+              window: Optional[int]) -> Tuple[int, int]:
+    """Key tiles ``[first, last)`` that can hold a visible key for queries
+    ``[q0, q0 + bq)`` (``key_tiles`` in ``flash.cu``)."""
+    end = min(kv_len, q0 + bq, sq) if causal else kv_len
+    begin = max(0, q0 - window + 1) if window else 0
+    first = begin // bk
+    return first, (-(-end // bk) if end > begin else first)
+
+
+def tile_interior(r0: int, rows: int, k0: int, bk: int, *, kv_len: int,
+                  causal: bool, window: Optional[int]) -> bool:
+    """Every key of ``[k0, k0 + bk)`` visible to every query of ``[r0, r0 +
+    rows)``: the tile skips the mask (``tile_interior`` in ``flash.cu``)."""
+    return (k0 + bk <= kv_len and (not causal or k0 + bk - 1 <= r0)
+            and (not window or k0 > r0 + rows - 1 - window))
+
+
+def kernel_bf16_geometry(d: int) -> dict:
+    """The built library's own bf16 instantiation for head dim ``d``
+    (``flash_bf16_geometry``; builds the library on first use)."""
+    fn = _build.function("flash", "flash_bf16_geometry", [_I32, _P])
+    out = (ctypes.c_int * len(_GEOMETRY_KEYS))()
+    err = fn(d, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"flash_bf16_geometry({d}) failed: cudaError_t {err}")
+    return dict(zip(_GEOMETRY_KEYS, out))
+
 
 def _operand(name: str, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous and 16-byte aligned (the kernel loads 16 bytes at a
-    time) on ``like``'s device."""
-    if not t.is_cuda or t.device != like.device:
+    """``t`` contiguous and 16-byte aligned (TMA, and the float32 kernel's
+    16-byte loads, take no less) on ``like``'s device."""
+    if not t.is_cuda or t.get_device() != like.get_device():
         raise ValueError(f"flash: {name} must be a CUDA tensor on {like.device}")
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
@@ -64,10 +170,13 @@ def flash_attention(
     if out.numel() == 0:
         return out
     fn = _build.function("flash", f"flash_attention_{_SUFFIX[q.dtype]}", _ARGTYPES)
+    # the current stream's handle, as torch.cuda.current_stream(q.device)
+    # .cuda_stream gives it, without building a Stream object (a few µs a
+    # call, on every layer of a prefill)
+    stream = torch._C._cuda_getCurrentRawStream(q.get_device())
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, sk, h, kh, d, int(causal), window or 0, kv_len,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        b, sq, sk, h, kh, d, int(causal), window or 0, kv_len, stream,
     )
     if err != 0:
         raise RuntimeError(f"flash launch failed: cudaError_t {err}")

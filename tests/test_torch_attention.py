@@ -8,10 +8,13 @@ blocks, its plain version takes one dense softmax), bf16 at 4e-2 (the
 reference's own flash tolerance: one bf16 rounding of p and of the output),
 the layers at 1e-6.  The CUDA kernel itself runs only on the card
 (``chip_smoke.py`` phase 2); here its wrapper's refusals and build command
-are checked.
+are checked, and the bf16 kernel's host-side geometry and schedule (its
+Python mirror in ``kernels/flash.py``) are held against brute-force counts
+of the visible (query, key) pairs.
 """
 
 import dataclasses
+import re
 
 import jax
 import jax.numpy as jnp
@@ -20,6 +23,7 @@ import pytest
 import torch
 
 import repro.kernels.ops as JOPS
+from repro.kernels.flash import flash_kernel_call
 import repro.models.attention as JA
 import repro.models.layers as JL
 import repro_torch.models.attention as PA
@@ -27,6 +31,7 @@ import repro_torch.models.layers as PL
 from repro.configs import get_config as jax_config
 from repro_torch.configs import get_config
 from repro_torch.kernels import _build
+from repro_torch.kernels import flash as PF
 from repro_torch.kernels import ops as POPS
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -218,3 +223,204 @@ def test_flash_builds_for_sm90a_and_counts():
     q = torch.zeros(1, 8, 2, 16)
     POPS.flash_attention(q, q, q)  # CPU: the plain version, no launch
     assert POPS.launch_counts()["flash"] == 0
+
+
+# -- the bf16 kernel's geometry and schedule (Hopper: wgmma + TMA) ----------------
+
+def _visible(rows, keys, *, kv_len, causal, window):
+    """Brute-force visibility of queries ``rows`` x keys ``keys`` (index arrays)."""
+    i, j = rows[:, None], keys[None, :]
+    vis = j < kv_len
+    if causal:
+        vis = vis & (j <= i)
+    if window:
+        vis = vis & (j > i - window)
+    return vis
+
+
+@pytest.mark.parametrize("d", range(8, 257, 8))
+def test_bf16_geometry_per_width(d):
+    """Every head dim the kernel takes has an instantiation that holds it,
+    whose TMA swizzle span is one panel row (32, 64 or 128 bytes, the
+    wgmma layout's), whose tiles start on the 1 KiB swizzle repeat and whose
+    shared memory fits one H100 block."""
+    g = PF.bf16_geometry(d)
+    assert g["dp"] == min(w for w in (16, 32, 64, 128, 256) if w >= d)
+    assert g["panel"] == min(g["dp"], 64) and g["dp"] % g["panel"] == 0
+    assert g["swizzle"] == 2 * g["panel"] and g["swizzle"] in (32, 64, 128)
+    assert g["bq"] == 2 * PF.BF16_ROWS_PER_WARPGROUP == 128
+    assert g["bk"] in (64, 128) and g["stages"] >= 2
+    q_bytes, tile_bytes = g["bq"] * g["dp"] * 2, g["bk"] * g["dp"] * 2
+    assert q_bytes % 1024 == 0 and tile_bytes % 1024 == 0
+    assert g["smem"] == 1024 + q_bytes + 2 * g["stages"] * tile_bytes + (2 * g["stages"] + 1) * 8
+    assert g["smem"] <= 232_448
+
+
+def _tma_box(x, tmap, coords):
+    """What one TMA load of ``tmap``'s box at ``coords`` (innermost first)
+    puts in shared memory, read from ``x``'s flat storage through the map's
+    byte strides; elements outside ``dims`` are 0."""
+    flat = x.ravel()
+    box, dims = tmap["box"], tmap["dims"]
+    st = [1] + [s // 2 for s in tmap["strides"]]
+    out = np.zeros((box[2], box[0]), x.dtype)
+    for r in range(box[2]):
+        for c in range(box[0]):
+            at = (coords[0] + c, coords[1], coords[2] + r, coords[3])
+            if all(0 <= a < n for a, n in zip(at, dims)):
+                out[r, c] = flat[sum(a * s for a, s in zip(at, st))]
+    return out
+
+
+@pytest.mark.parametrize(
+    "b,seq,heads,d,rows,row0",
+    [(2, 37, 3, 40, 16, 30), (1, 20, 2, 8, 8, 16), (2, 9, 1, 72, 8, 0), (1, 12, 2, 256, 4, 10)],
+)
+def test_bf16_tensor_map_loads_padded_tiles(b, seq, heads, d, rows, row0):
+    """The maps over ``[B, S, heads, D]``: 16-byte strides, a box one swizzle
+    span wide, and loads of each panel that together give the tile of one
+    head and batch, zero past the sequence and past D (the kernel's
+    padding), never another batch's rows."""
+    g = PF.bf16_geometry(d)
+    tmap = PF.tensor_map(b, seq, heads, d, rows)
+    assert all(s % 16 == 0 for s in tmap["strides"])
+    assert tmap["box"][0] * 2 == g["swizzle"] and max(tmap["box"]) <= 256
+    x = np.random.default_rng(d).standard_normal((b, seq, heads, d)).astype(np.float32)
+    for bi in range(b):
+        for hi in range(heads):
+            got = np.concatenate(
+                [_tma_box(x, tmap, (p * g["panel"], hi, row0, bi))
+                 for p in range(g["dp"] // g["panel"])], axis=1)
+            want = np.zeros((rows, g["dp"]), np.float32)
+            tile = x[bi, row0:row0 + rows, hi, :]
+            want[: tile.shape[0], :d] = tile
+            np.testing.assert_array_equal(got, want)
+
+
+# (Sq, Sk, kv_len, causal, window, D): the serving shape, ragged ends,
+# kv_len short of Sk and not a tile multiple, kv_len 0, windows
+SCHEDULES = [
+    (4096, 4096, 4096, True, None, 64),
+    (1111, 1111, 1111, True, None, 128),
+    (1000, 3001, 2777, False, None, 64),
+    (1000, 3001, 0, False, None, 64),
+    (300, 300, 300, True, 50, 40),
+    (333, 333, 333, True, None, 256),
+    (2048, 2048, 2048, True, 1024, 128),
+    (257, 520, 300, True, 77, 16),
+    (130, 70, 70, False, 9, 32),
+]
+
+
+@pytest.mark.parametrize("sq,sk,kv_len,causal,window,d", SCHEDULES)
+def test_bf16_schedule_covers_visible_pairs(sq, sk, kv_len, causal, window, d):
+    """Blocks in launch order cover every (batch, head, query tile) once,
+    latest tiles first across all heads (causal: of the full tiles, the most
+    work first); the key tiles a block walks hold every visible pair of its
+    rows (skipping the others is exact); a tile that skips the mask has
+    every pair of its warpgroup's 64 rows visible; and the pairs in walked
+    tiles, counted per tile, sum to the brute-force count."""
+    g = PF.bf16_geometry(d)
+    bq, bk, wg_rows = g["bq"], g["bk"], PF.BF16_ROWS_PER_WARPGROUP
+    kw = dict(kv_len=kv_len, causal=causal, window=window)
+    order = PF.block_order(2, sq, 3, bq)
+    assert sorted(order) == sorted(
+        (b, q0, h) for b in range(2) for q0 in range(0, sq, bq) for h in range(3))
+    starts = [q0 for _, q0, _ in order]
+    assert starts == sorted(starts, reverse=True)
+    vis = _visible(np.arange(sq), np.arange(sk), **kw)
+    if causal and not window:  # of the full tiles, the longest start first
+        work = [int(vis[q0:q0 + bq].sum()) for q0 in starts if q0 + bq <= sq]
+        assert work == sorted(work, reverse=True)
+    counted, interior = 0, 0
+    for q0 in sorted(set(starts), reverse=True):
+        first, last = PF.key_tiles(q0, bq, bk, sq=sq, **kw)
+        assert 0 <= first <= last
+        block = vis[q0:q0 + bq]
+        assert not block[:, : first * bk].any() and not block[:, last * bk:].any()
+        for t in range(first, last):
+            k0 = t * bk
+            counted += int(block[:, k0:k0 + bk].sum())
+            for r0 in range(q0, q0 + bq, wg_rows):
+                if PF.tile_interior(r0, wg_rows, k0, bk, **kw):
+                    interior += 1
+                    rows = np.arange(r0, r0 + wg_rows)
+                    assert _visible(rows, np.arange(k0, k0 + bk), **kw).all()
+        if kv_len == 0:
+            assert first == last
+    assert counted == int(vis.sum())
+    if causal and sq >= 1024:
+        assert interior > 0  # the long rows take the unmasked path
+
+
+@pytest.mark.parametrize(
+    "bh,sq,sk,d,blk,kv_lens",
+    [(2, 40, 72, 16, 8, (53, 0)), (1, 1000, 3001, 64, 512, (2777, 0))],
+)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_plain_version_matches_pallas_at_kv_len(bh, sq, sk, d, blk, kv_lens, dtype):
+    """``kv_len`` short of Sk and not a multiple of the key tile (the small
+    shape and chip_smoke.py's 1,000 x 3,001 one), and ``kv_len = 0`` (exact
+    zeros), against ``flash_kernel_call`` itself in interpret mode on
+    zero-padded blocks."""
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(29)
+    q, k, v = _randn(rng, (bh, sq, d)), _randn(rng, (bh, sk, d)), _randn(rng, (bh, sk, d))
+    pad = lambda x: np.pad(x, ((0, 0), (0, -x.shape[1] % blk), (0, 0)))
+    tol = 1e-5 if dtype == "float32" else 4e-2
+    for kv_len in kv_lens:
+        want = flash_kernel_call(
+            *(jnp.asarray(pad(x), jdt) for x in (q, k, v)),
+            causal=False, kv_len=kv_len, bq=blk, bk=blk, interpret=True,
+        )[:, :sq]
+        # [BH, S, D] as batch 1 with BH heads
+        got = POPS.flash_attention(
+            *(torch.from_numpy(x).to(tdt).transpose(0, 1)[None] for x in (q, k, v)),
+            causal=False, kv_len=kv_len,
+        )[0].transpose(0, 1)
+        np.testing.assert_allclose(
+            got.float().numpy(), np.asarray(want, np.float32), rtol=tol, atol=tol
+        )
+        if kv_len == 0:
+            assert not got.any() and not np.asarray(want, np.float32).any()
+
+
+def _variants_tool():
+    """``tools/flash_variants.py`` (a script, not a package) as a module."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "tools" / "flash_variants.py"
+    spec = importlib.util.spec_from_file_location("flash_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_variant_tool_edits_copies_of_the_kernel_source(tmp_path):
+    """A variant is the checkout's flash.cu with texts replaced, or another
+    file; a replacement that names no text of the source is refused."""
+    tool = _variants_tool()
+    base = (_build.CSRC / "flash.cu").read_text()
+    other = tmp_path / "old.cu"
+    other.write_text("int x;")
+    stages = re.search(r"static constexpr int kStages = [^;]*;", base).group(0)
+    got = tool.variant_sources([
+        "final",
+        f"two_stages={stages}=>static constexpr int kStages = 2;",
+        f"old:{other}",
+    ])
+    assert got["final"] == base and got["old"] == "int x;"
+    assert got["two_stages"] == base.replace(stages, "static constexpr int kStages = 2;")
+    with pytest.raises(SystemExit, match="not in the source"):
+        tool.variant_sources(["bad=no such text=>x"])
+
+
+def test_variant_tool_reads_ptxas_registers_and_spills():
+    log = (
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117flash_bf16_kernelILi64EEEv' "
+        "for 'sm_90a'\nptxas info    : Function properties for _ZN12_GLOBAL__N_117flash_bf16_"
+        "kernelILi64EEEv\n    16 bytes stack frame, 24 bytes spill stores, 8 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 16 barriers\n"
+    )
+    assert _variants_tool().ptxas_report(log) == [(64, 168, 24, 8)]
