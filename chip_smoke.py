@@ -10,9 +10,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``nvcc`` per source, all at once).
 2. Kernel phase: hold each kernel against its plain PyTorch version on the
    card at the shapes the main path gives it, and time both with CUDA
-   events (median of repeated launches); also gram at K = 130, forced
-   segment_gram group chunking, the multi_segment_gram per-column
-   fallback, and flash at the serving path's shape (bf16 and float32),
+   events (median of repeated launches).  The segment-view family runs at
+   the main path's sizes with random ids (the worst case), after its path
+   choice (``segment_view_plan``) is held equal to the Python mirror; the
+   blocks kernel's paths A and C run at every degree, also in float64,
+   with random ids.  Also gram at
+   K = 130, forced segment_gram group chunking, the multi_segment_gram
+   per-column fallback, and flash at the serving path's shape (bf16 and float32),
    olmo-1b's and mixtral's head layouts (the latter windowed), non-causal
    ragged lengths and the head dims 8 to 256.
 3. Main path: ``favorita_like(1684, 54, 4100, 0.05, seed=0)`` (18,641,880
@@ -20,7 +24,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
    with the moments kernel, then one degree-1 aggregate batch.  Launch
    counters are zeroed just before and read just after; every kernel must
    have launched.  The degree-1 batch is checked against float64 sums of
-   the fact table.
+   the fact table.  The arguments of the profiled closed-form traversal's
+   ``segment_view`` and ``segment_blocks`` calls are captured, and each
+   call runs again: against its plain version, path A bitwise equal across
+   two calls, one float64 call per path, timed per call and back to back
+   beside its bound and its device time in the profiled traversal; then
+   the host/device split of one regroup at transactions against
+   ``index_add_``.
 4. Categorical and cofactor baselines, on the same 18.6 M-row bundle:
    ``linear_regression`` closed form with ``categorical=("store_nbr",
    "item_nbr")`` on its factorized leg and on its materialized leg through
@@ -86,6 +96,9 @@ BF16_FLOPS = 989e12  # H100 SXM, dense tensor cores
 # the rounding error of a sum of n terms is ~sqrt(n)·2^-24·Σ|terms|, under
 # 1e-5 of the largest sum at the ≤ 10^4 terms per group these shapes have
 KERNEL_RTOL = 1e-4
+# float64 kernels vs plain: sums of ≤ 10^4 terms in another order, ~1e-16
+# relative each
+F64_RTOL = 1e-10
 # float32 engine on the card vs the float64 numpy engine, relative to the
 # largest cofactor: 1.86 M rows summed in float32 through five nodes
 ORACLE_RTOL = 1e-4
@@ -190,6 +203,20 @@ def time_ms_back_to_back(fn, launches: int = 20, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / launches
 
 
+def paired_ms(fns: dict, rounds: int = 6, reps: int = 50, launches: int = 200) -> dict:
+    """{name: (ms a call, ms back to back)} for calls whose host work is
+    their cost: each the median over ``rounds`` in which the calls take
+    turns (the order reversed every other round), so that drift on the
+    shared host falls on all alike."""
+    got = {name: ([], []) for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            got[name][0].append(time_ms(fns[name], reps=reps))
+            got[name][1].append(time_ms_back_to_back(fns[name], launches=launches))
+    return {name: (statistics.median(a), statistics.median(b))
+            for name, (a, b) in got.items()}
+
+
 def max_err(got, expect) -> tuple:
     """(max |got − expect|, max |expect|) over a tuple of outputs."""
     err, scale = 0.0, 0.0
@@ -226,16 +253,37 @@ def library_segment_sum(data, seg64, g: int) -> torch.Tensor:
 
 
 def view_inputs(m: int, k: int, g: int, gen: torch.Generator):
+    """Random rows and random ids: a random permutation where G = M (one row
+    per group), else uniform ids — the worst case, not the main path's
+    order (phase 3 times the main path's own ids)."""
     dev = "cuda"
     c = torch.rand(m, device=dev, generator=gen) + 0.5
     x = torch.randn(m, device=dev, generator=gen)
     l = torch.randn(m, k, device=dev, generator=gen)
     q = torch.randn(m, k, k, device=dev, generator=gen)
-    if g == m:  # one row per group, in no order (first feature nodes)
+    if g == m:
         seg = torch.randperm(m, device=dev, generator=gen)
     else:
         seg = torch.randint(0, g, (m,), device=dev, generator=gen)
     return c, x, l, q, seg.to(torch.int32)
+
+
+def plan_check(sv) -> None:
+    """segment_view's path choice and padded layout: the Python mirror
+    (``kernels/segment_view.py:plan``, which the CPU tests check) must equal
+    the library's own for every payload, degree and width, with and
+    without each group's row."""
+    n = 0
+    for payload, degrees in (("view", (2,)), ("blocks", (0, 1, 2))):
+        for degree in degrees:
+            for k in (0, 1, 2, 3, 4, 5, 40):
+                for one_row in (False, True):
+                    args = (payload, k, degree, one_row)
+                    got, want = sv.kernel_plan(*args), sv.plan(*args)
+                    if got != want:
+                        raise AssertionError(f"segment_view plan {args}: {got} != {want}")
+                    n += 1
+    log(f"{'segment_view':15s} plans of {n} calls as mirrored (path, width, padded)")
 
 
 # (node, rows M, features k, groups G) of the main path's traversal
@@ -268,6 +316,9 @@ def kernel_phase(ref, sv, mom, kops, kflash) -> dict:
             raise AssertionError(f"{name} at {node}: error {err} > {tol}")
         return err, tol
 
+    plan_check(sv)
+    log("segment_view family at the main path's sizes with random ids (the worst "
+        "case; phase 3 times the main path's own ids)")
     for degree, name in ((2, "segment_view"), (1, "segment_view1")):
         for node, m, k, g in FEATURE_NODES:
             c, x, l, q, seg = view_inputs(m, k, g, gen)
@@ -275,7 +326,13 @@ def kernel_phase(ref, sv, mom, kops, kflash) -> dict:
             args = (c, x, l, qq, seg, g)
             kern = functools.partial(sv.segment_view, *args, degree=degree)
             plain = functools.partial(ref.segment_view_ref, *args, degree=degree)
-            err, tol = check(name, node, kern(), plain())
+            want = plain()
+            err, tol = check(name, node, kern(), want)
+            if degree == 2 and g == m:  # path A: each group's row passed
+                order = torch.argsort(seg).to(torch.int32)
+                err = max(err, check(name, f"{node} order", sv.segment_view(
+                    *args, order=order), want)[0])
+            del want
             if node != TIMED_VIEW_NODE:
                 continue
             s = 4
@@ -292,30 +349,58 @@ def kernel_phase(ref, sv, mom, kops, kflash) -> dict:
                     if degree == 2 else
                     "src/repro/kernels/segment_view.py:161 segment_view1_kernel_call"
                 ),
-                shape=dict(node=node, rows=m, k=k, groups=g, degree=degree),
+                shape=dict(node=node, rows=m, k=k, groups=g, degree=degree,
+                           ids="random"),
                 max_abs_err=err, tol=tol,
                 ms=time_ms(kern), plain_ms=time_ms(plain),
                 bound_ms=b, bound_by=by, library_ms=None,
             )
     for node, m, g in REGROUP_NODES:
         c, _, l, q, seg = view_inputs(m, 0, g, gen)
-        kern = functools.partial(sv.segment_blocks, c, l, q, seg, g, degree=2)
+        order = torch.argsort(seg).to(torch.int32)  # path A, as on the main path
+        kern = functools.partial(sv.segment_blocks, c, l, q, seg, g, degree=2,
+                                 order=order)
         plain = functools.partial(ref.segment_blocks_ref, c, l, q, seg, g, degree=2)
         err, tol = check("segment_reduce", node, kern(), plain())
+        check("segment_reduce", f"{node} no order", sv.segment_blocks(
+            c, l, q, seg, g, degree=2), plain())
         if node == TIMED_REGROUP_NODE:
             lib = functools.partial(
                 library_segment_sum, c[:, None].contiguous(), seg.long(), g
             )
             b, by = bound_ms(m * 8 + g * 4, m)
+            # tens of µs of host work a call: kernel and library in turns
+            t = paired_ms({"kernel": kern, "library": lib})
             rows["segment_reduce"] = dict(
                 name="segment_reduce", route="cuda",
                 source="src/repro_torch/csrc/segment_view.cu",
                 replaces="src/repro/kernels/segment_view.py:212 segment_reduce_kernel_call",
-                shape=dict(node=node, rows=m, width=1, groups=g),
+                shape=dict(node=node, rows=m, width=1, groups=g, ids="random permutation"),
                 max_abs_err=err, tol=tol,
-                ms=time_ms(kern), plain_ms=time_ms(plain),
-                bound_ms=b, bound_by=by, library_ms=time_ms(lib),
+                ms=t["kernel"][0], plain_ms=time_ms(plain),
+                bound_ms=b, bound_by=by, library_ms=t["library"][0],
+                ms_back_to_back=t["kernel"][1], library_ms_back_to_back=t["library"][1],
             )
+    # both paths of the blocks kernel with random ids, at every degree, in
+    # float32 and float64 (the main path's regroups all take A)
+    for what, m, k, g in (("one_row", 90_936, 3, 90_936), ("atomic", 90_936, 3, 54),
+                          ("atomic", 1_000_000, 2, 90_936)):
+        c, _, l, q, seg = view_inputs(m, k, g, gen)
+        order = torch.argsort(seg).to(torch.int32) if what == "one_row" else None
+        for degree in (0, 1, 2):
+            label = f"path {what} G {g} deg {degree}"
+            if sv.plan("blocks", k, degree, order is not None)["path"] != what:
+                raise AssertionError(f"segment_reduce {label}: planned another path")
+            check("segment_reduce", label,
+                  sv.segment_blocks(c, l, q, seg, g, degree=degree, order=order),
+                  ref.segment_blocks_ref(c, l, q, seg, g, degree=degree))
+            c64, l64, q64 = c.double(), l.double(), q.double()
+            err, scale = max_err(
+                sv.segment_blocks(c64, l64, q64, seg, g, degree=degree, order=order),
+                ref.segment_blocks_ref(c64, l64, q64, seg, g, degree=degree))
+            log(f"{'segment_reduce':15s} float64 {label} max_abs_err={err:.3e}")
+            if not err <= F64_RTOL * max(1.0, scale):
+                raise AssertionError(f"segment_reduce float64 {label}: error {err}")
     rows.update(gram_family(ref, kops, gen, check))
     rows["flash"] = flash_rows(ref, kops, kflash, gen)
     # the date column: SalesF + Transactions + Oil rows
@@ -584,6 +669,34 @@ class HostTimers:
         self.kops.group_ids_device = self.saved_gid
 
 
+class Capture:
+    """The arguments of every ``segment_view`` and ``segment_blocks`` call
+    the engine makes, by patching the names the engine module calls (as
+    HostTimers does).  The tensors are kept, not copied (~1.3 GB on the card
+    for one closed-form traversal of the 18.6 M-row bundle)."""
+
+    NAMES = ("segment_view", "segment_blocks")
+
+    def __init__(self, kops):
+        self.kops, self.calls = kops, []
+
+    def _wrap(self, name, fn):
+        def captured(*args, **kwargs):
+            self.calls.append((name, args, kwargs))
+            return fn(*args, **kwargs)
+        return captured
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.kops, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            setattr(self.kops, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.kops, n, fn)
+
+
 def device_ops(prof) -> list:
     """(name, device µs) of the kernels and copies the device ran, longest
     first.  Host-side op rows are left out: they repeat the device time of
@@ -645,18 +758,28 @@ def main_path(rt, bundle) -> dict:
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA,
         ]
-        with torch.profiler.profile(activities=activities) as prof:
+        # (the segment kernels' arguments are captured in this run, after
+        # the peak memory of the path is read)
+        peak = torch.cuda.max_memory_allocated()
+        with torch.profiler.profile(activities=activities) as prof, \
+                Capture(rt.kops) as cap:
             rt.linear_regression(store, vorder, feats, label, cfg)
             torch.cuda.synchronize()
         busy = device_busy_ms(prof) / 1e3
-        ours = sum(
-            us for name, us in device_ops(prof)
-            if "segment_rows<" in name or "moments_kernel<" in name
-        ) / 1e6
+        names = {k: v for k, v in rt.sv.KERNEL_NAMES.items()}
+        names["moments"] = ("moments_kernel<",)
+        by_kernel = {
+            k: sum(us for name, us in device_ops(prof) if any(p in name for p in v)) / 1e3
+            for k, v in names.items()
+        }
+        ours = sum(by_kernel.values()) / 1e3
         log(f"closed device_busy={busy:.3f}s (port kernels {ours:.3f}s) of "
             f"{wall:.3f}s unprofiled wall: idle_share={1 - busy / wall:.4f}")
+        log("  port kernels' device ms in the profiled traversal: " + " ".join(
+            f"{k}={v:.4f}" for k, v in by_kernel.items()))
         for name, us in device_ops(prof)[:12]:
             log(f"  device {us / 1e3:10.3f} ms  {name[:100]}")
+        node_ms = node_device_ms(prof, cap.calls, rt.sv)
         # one degree-1 batch: every feature node through segment_view1
         cols = feats + [label]
         factors = results["closed"].factors
@@ -670,12 +793,15 @@ def main_path(rt, bundle) -> dict:
     counts = rt.kops.launch_counts()
     log(f"passes={store.passes} node_visits={store.node_visits} "
           f"launches={counts} "
-          f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+          f"max_memory_allocated={peak} (before the capture)")
     log("host seconds: " + " ".join(
         f"{k}={v:.3f}" for k, v in timers.seconds.items()))
     missing = [k for k in PHASE3_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
+    # the captured calls again, after the main path's counts are read
+    traversal = main_path_kernels(rt, cap.calls, node_ms)
+    del cap
 
     # the degree-1 aggregates over the join equal float64 sums of the fact
     # table: every sale joins exactly one row of each dimension
@@ -687,7 +813,190 @@ def main_path(rt, bundle) -> dict:
         got, expect = blk.lin[0, j], terms.sum()
         if not abs(got - expect) <= ORACLE_RTOL * np.abs(terms).sum():
             raise AssertionError(f"degree-1 Σ{f}: {got} vs {expect}")
-    return counts
+    return counts, traversal
+
+
+def call_node(sv, name, args, kwargs) -> dict:
+    """A captured call's node (by its sizes, FEATURE_NODES / REGROUP_NODES),
+    payload, sizes and plan."""
+    c, num = args[0], int(args[-1])
+    l = args[2] if name == "segment_view" else args[1]
+    m, degree = c.shape[0], kwargs.get("degree", 2)
+    k = l.shape[1] if l is not None else 0
+    payload = "view" if name == "segment_view" else "blocks"
+    node = next((n for n, nm, nk, ng in FEATURE_NODES if (nm, nk, ng) == (m, k, num)),
+                None) if payload == "view" else next(
+        (n for n, nm, ng in REGROUP_NODES if (nm, ng) == (m, num)), None)
+    unique = kwargs.get("order") is not None
+    kernel = ("segment_view" if degree == 2 else "segment_view1") if payload == "view" \
+        else "segment_reduce"
+    p = sv.plan(payload, k, degree, unique)
+    path = p["path"] if kernel != "segment_view1" else "view1"
+    return dict(node=node or f"{payload} M {m} G {num}", kernel=kernel, payload=payload,
+                rows=m, k=k, groups=num, degree=degree, unique=unique, path=path,
+                launches=2 if path == "atomic" else 1)
+
+
+def node_device_ms(prof, calls, sv) -> list:
+    """Device ms of each captured call's kernels in the profiled run: the
+    kernels of each name in launch order, shared out among the calls in call
+    order (path C launches two).  None where the counts do not match."""
+    events = [e for e in prof.events() if e.device_type != torch.autograd.DeviceType.CPU]
+    queues = {}
+    for kernel, names in sv.KERNEL_NAMES.items():
+        queues[kernel] = sorted(
+            (e.time_range.start, e.time_range.elapsed_us()) for e in events
+            if any(n in e.name for n in names))
+    nodes = [call_node(sv, *call) for call in calls]
+    taken = {k: 0 for k in queues}
+    out = []
+    for nd in nodes:
+        i, n = taken[nd["kernel"]], nd["launches"]
+        out.append(sum(d for _, d in queues[nd["kernel"]][i : i + n]) / 1e3)
+        taken[nd["kernel"]] = i + n
+    if any(taken[k] != len(q) for k, q in queues.items()):
+        log(f"  profiled kernels {({k: len(q) for k, q in queues.items()})} do not match "
+            f"the captured calls' launches {taken}: no per-node device time")
+        return [None] * len(nodes)
+    return out
+
+
+def node_bound(sv, nd) -> tuple:
+    """(ms, by) the card needs for one call: each input read once (rows,
+    feature, ids), each output written once, the row arithmetic at the
+    float32 rate."""
+    m, k, g, s = nd["rows"], nd["k"], nd["groups"], 4
+    if nd["payload"] == "view":
+        w_in, w_out, flops = 2 + k + k * k, 1 + (k + 1) + (k + 1) ** 2, 5 + 3 * k + k * k
+    else:
+        w_in = w_out = sv.width("blocks", k, nd["degree"])
+        flops = 0 if nd["unique"] else w_in
+    return bound_ms(m * (w_in * s + 4) + g * w_out * s, m * flops)
+
+
+def call_pair(sv, ref, name, args, kwargs, dtype=None):
+    """(kernel, plain) of a captured call as calls without arguments, on the
+    call's own tensors (cast to ``dtype`` if given)."""
+    cast = (lambda t: t if t is None or dtype is None else t.to(dtype))
+    seg = torch.as_tensor(args[-2], device=args[0].device)
+    seg = seg if seg.dtype == torch.int32 else seg.to(torch.int32)
+    kw = dict(degree=kwargs.get("degree", 2), order=kwargs.get("order"))
+    blocks = [cast(t.contiguous()) if t is not None else None for t in args[:-2]]
+    kern_fn, plain_fn = ((sv.segment_view, ref.segment_view_ref) if name == "segment_view"
+                         else (sv.segment_blocks, ref.segment_blocks_ref))
+    return (functools.partial(kern_fn, *blocks, seg, int(args[-1]), **kw),
+            functools.partial(plain_fn, *blocks, seg, int(args[-1]), degree=kw["degree"]))
+
+
+def main_path_kernels(rt, calls, device_ms) -> dict:
+    """Each captured call of the closed-form traversal again, on its own
+    arguments: kernel vs plain version (KERNEL_RTOL), path A bitwise equal
+    across two calls, one float64 call per (kernel, path) within F64_RTOL;
+    timed per call and back to back, beside its plain version, its bound
+    and its device time in the profiled traversal."""
+    sv, ref = rt.sv, rt.ref
+    rows, f64_done = [], set()
+    log(f"main path's own segment ids: {len(calls)} calls of one closed-form traversal")
+    for (name, args, kwargs), dev_ms in zip(calls, device_ms):
+        nd = call_node(sv, name, args, kwargs)
+        kern, plain = call_pair(sv, ref, name, args, kwargs)
+        got = kern()
+        err, scale = max_err(got, plain())
+        tol = KERNEL_RTOL * max(1.0, scale)
+        if not err <= tol:
+            raise AssertionError(f"{nd['kernel']} at {nd['node']}: error {err} > {tol}")
+        if nd["path"] == "one_row":
+            again = kern()
+            if not all(a is None or torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{nd['kernel']} at {nd['node']}: path A not bitwise "
+                                     "equal across two calls")
+        del got
+        if (nd["kernel"], nd["path"]) not in f64_done:
+            f64_done.add((nd["kernel"], nd["path"]))
+            k64, p64 = call_pair(sv, ref, name, args, kwargs, dtype=torch.float64)
+            e64, s64 = max_err(k64(), p64())
+            log(f"  float64 {nd['kernel']} path {nd['path']} at {nd['node']}: "
+                f"max_abs_err={e64:.3e} tol={F64_RTOL * max(1.0, s64):.3e}")
+            if not e64 <= F64_RTOL * max(1.0, s64):
+                raise AssertionError(f"float64 {nd['kernel']} at {nd['node']}: {e64}")
+            del k64, p64
+        b, by = node_bound(sv, nd)
+        nd.update(max_abs_err=err, tol=tol, ms=time_ms(kern),
+                  ms_back_to_back=time_ms_back_to_back(kern),
+                  plain_ms=time_ms(plain, reps=3), bound_ms=b, bound_by=by,
+                  device_ms_profiled=dev_ms)
+        rows.append(nd)
+        dev = "not attributed" if dev_ms is None else f"{dev_ms:.4f}"
+        log(f"  {nd['kernel']:14s} {nd['node']:12s} path {nd['path']:7s} M {nd['rows']} "
+            f"k {nd['k']} G {nd['groups']}: ms={nd['ms']:.4f} back-to-back "
+            f"{nd['ms_back_to_back']:.4f} profiled {dev} plain_ms={nd['plain_ms']:.4f} "
+            f"bound_ms={b:.4f} ({by}) max_abs_err={err:.3e} tol={tol:.3e}")
+    sums = {}
+    for kernel in ("segment_view", "segment_reduce"):
+        mine = [r for r in rows if r["kernel"] == kernel]
+        prof = [r["device_ms_profiled"] for r in mine]
+        sums[kernel] = dict(
+            calls=len(mine), ms=sum(r["ms"] for r in mine),
+            ms_back_to_back=sum(r["ms_back_to_back"] for r in mine),
+            plain_ms=sum(r["plain_ms"] for r in mine),
+            bound_ms=sum(r["bound_ms"] for r in mine),
+            device_ms_profiled=None if None in prof else sum(prof),
+        )
+        log(f"  {kernel} per traversal ({len(mine)} calls): " + " ".join(
+            f"{key}={v:.4f}" if isinstance(v, float) else f"{key}={v}"
+            for key, v in sums[kernel].items()))
+    return dict(nodes=rows, per_traversal=sums, transactions_split=regroup_split(rt, calls))
+
+
+def host_device_split(fns: dict, n: int = 200) -> dict:
+    """Where each call's time goes, the calls of ``fns`` taking turns: the
+    host's enqueue µs a call (``n`` calls, no synchronise; median of three
+    turns), the device µs a call (profiler), and CUDA events a call (host
+    and device in turn) and back to back (overlapped), from paired_ms."""
+    host = {name: [] for name in fns}
+    for r in range(3):
+        for name, fn in fns.items():
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(n):
+                fn()
+            host[name].append((time.perf_counter() - t) / n * 1e6)
+            torch.cuda.synchronize()
+    times = paired_ms(fns, launches=n)
+    out = {}
+    for name, fn in fns.items():
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        out[name] = dict(host_us=statistics.median(host[name]),
+                         device_us=device_busy_ms(prof) * 1e3 / n,
+                         event_us=times[name][0] * 1e3,
+                         back_to_back_us=times[name][1] * 1e3)
+    return out
+
+
+def regroup_args(sv, calls):
+    """The captured segment_blocks call at TIMED_REGROUP_NODE."""
+    return next((n, a, kw) for n, a, kw in calls if n == "segment_blocks"
+                and call_node(sv, n, a, kw)["node"] == TIMED_REGROUP_NODE)
+
+
+def regroup_split(rt, calls) -> dict:
+    """host_device_split of one segment_blocks call at transactions (the
+    main path's own ids) and of index_add_ on the same inputs."""
+    name, args, kwargs = regroup_args(rt.sv, calls)
+    kern, _ = call_pair(rt.sv, rt.ref, name, args, kwargs)
+    c, seg, g = args[0], kern.args[-2], int(args[-1])
+    lib = functools.partial(library_segment_sum, c[:, None].contiguous(), seg.long(), g)
+    out = host_device_split({"segment_reduce": kern, "index_add_": lib})
+    for what, split in out.items():
+        log(f"  split at {TIMED_REGROUP_NODE}, {what}: " + " ".join(
+            f"{key}={v:.2f}" for key, v in split.items()))
+    return out
 
 
 # -- phase 4: categorical regression and the cofactor baselines --------------
@@ -1138,6 +1447,7 @@ def main() -> None:
         cofactors_streaming=cofactors_streaming, design_matrix=design_matrix,
         linear_regression=linear_regression, fz=fz,
         favorita_like=favorita_like, fd_star_schema=fd_star_schema, kops=kops,
+        sv=sv, ref=ref,
     )
     lm = types.SimpleNamespace(
         get_config=get_config, init_params=lm_model.init_params,
@@ -1168,9 +1478,16 @@ def main() -> None:
 
     bundle = favorita(rt)
     log("phase 3: main path")
-    counts = main_path(rt, bundle)
+    counts, traversal = main_path(rt, bundle)
     for name in PHASE3_KERNELS:
         rows[name]["launches"] = counts[name]
+    for name in ("segment_view", "segment_reduce"):
+        rows[name]["main_path"] = dict(
+            nodes=[{k: v for k, v in nd.items() if k != "kernel"}
+                   for nd in traversal["nodes"] if nd["kernel"] == name],
+            per_traversal=traversal["per_traversal"][name],
+        )
+    rows["segment_reduce"]["main_path"]["split_us"] = traversal["transactions_split"]
 
     log("phase 4: categorical regression and cofactor baselines")
     counts = categorical_phase(rt, bundle)

@@ -796,7 +796,7 @@ class FactorizedEngine:
         x = self._feature_values(view, attr)
         drop = set() if attr in keep else {attr}
         remaining = sorted(set(view.keys) - drop)
-        seg, num, keys = self._group_ids(view, remaining)
+        seg, num, keys, order = self._group_ids(view, remaining)
         c, l, q = kernel_ops.segment_view(
             view.c,
             x,
@@ -805,6 +805,9 @@ class FactorizedEngine:
             seg,
             num,
             degree=degree,
+            # _group_ids numbers only groups that occur: as many groups as
+            # rows means one row each, and the sort's order lists them
+            order=order if num == view.num_rows else None,
         )
         return _View(
             keys=keys,
@@ -817,8 +820,10 @@ class FactorizedEngine:
 
     def _group_ids(
         self, view: _View, remaining: Sequence[str]
-    ) -> Tuple[object, int, Dict[str, np.ndarray]]:
-        """Segment ids + surviving key columns for GROUP BY ``remaining``.
+    ) -> Tuple[object, int, Dict[str, np.ndarray], Optional[object]]:
+        """Segment ids + surviving key columns for GROUP BY ``remaining``,
+        and the rows in group order where the device sort gives them (else
+        None).
 
         Group numbering is canonical — ascending packed-key order over the
         (sorted) ``remaining`` attributes — whichever path computes it: the
@@ -826,13 +831,16 @@ class FactorizedEngine:
         is bit-compatible and keeps the per-row ids on the device."""
         n = view.num_rows
         if not remaining:
-            return np.zeros((n,), dtype=np.int32), 1, {}
+            return np.zeros((n,), dtype=np.int32), 1, {}, None
         doms = [self.domains[a] for a in remaining]
         # group_key, not composite_key: a GROUP BY only needs within-call
         # injectivity, and wide keys would overflow the strict radix.
         key = group_key([view.keys[a] for a in remaining], doms)
+        order = None
         if self.device_grouping and n > 0:
-            seg, num, first = kernel_ops.group_ids_device(key, self.device)
+            seg, num, first, order = kernel_ops.group_ids_device(
+                key, self.device, with_order=True
+            )
         else:
             uniq, first, inv = np.unique(
                 key, return_index=True, return_inverse=True
@@ -840,14 +848,14 @@ class FactorizedEngine:
             seg = inv.astype(np.int32)
             num = len(uniq)
         keys = {a: view.keys[a][first] for a in remaining}
-        return seg, num, keys
+        return seg, num, keys, order
 
     def _group_rows(
         self, view: _View, remaining: Sequence[str], degree: int
     ) -> _View:
         """GROUP BY ``remaining`` over a view's rows (segment-sum of every
         block)."""
-        seg, num, keys = self._group_ids(view, remaining)
+        seg, num, keys, order = self._group_ids(view, remaining)
         if self.use_node_kernels and view.num_rows > 0:
             # one multi-block kernel launch instead of a scatter per block
             c, l, q = kernel_ops.segment_blocks(
@@ -857,6 +865,7 @@ class FactorizedEngine:
                 seg,
                 num,
                 degree=degree,
+                order=order if num == view.num_rows else None,
             )
         else:
             c = self._segment_sum(view.c, seg, num)

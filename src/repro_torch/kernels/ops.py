@@ -7,8 +7,9 @@ tensor goes to the plain PyTorch version in ``ref``.  There is no fallback
 from one to the other.
 
 Unlike the TPU wrappers there is no padding to block multiples: the CUDA
-kernels take any row count.  The segment-view family accumulates straight
-into a ``[G, W]`` output in device memory, whatever its size.  The grouped
+kernels take any row count.  The segment-view family writes any number of
+groups: each call takes one of two paths (``segment_view.plan``), chosen
+by whether the caller passes ``order``, each group's one row.  The grouped
 Grams keep the TPU wrappers' budget contract, as a shared-memory budget
 (``smem_budget``, default and cap ``SMEM_ACC_BYTES``): ``segment_gram``
 processes groups in chunks whose ``[G_chunk, K(K+1)/2]`` accumulator fits
@@ -78,8 +79,13 @@ def reset_launch_counts() -> None:
             counts[name] = 0
 
 
-def _seg_ids(seg, device: torch.device) -> torch.Tensor:
-    seg = torch.as_tensor(seg, device=device)
+def _seg_ids(seg, like: torch.Tensor) -> torch.Tensor:
+    """``seg`` as int32 on ``like``'s device (the engine's device ids pass
+    as they are: a cheap check, on a path whose host work is its cost)."""
+    if (type(seg) is torch.Tensor and seg.dtype is torch.int32
+            and seg.get_device() == like.get_device()):
+        return seg
+    seg = torch.as_tensor(seg, device=like.device)
     return seg if seg.dtype == torch.int32 else seg.to(torch.int32)
 
 
@@ -92,20 +98,26 @@ def segment_view(
     num_groups: int,
     *,
     degree: int = 2,
+    order=None,
 ):
     """Fused traversal node: extend a view's blocks with feature ``x`` AND
     GROUP BY in one pass — ``(c [M], l [M, k], q [M, k, k])`` plus segment
     ids become ``(c' [G], l' [G, k+1], q' [G, k+1, k+1])`` with the feature
     prepended (``q'`` None at degree 1).  ``seg`` may be a host array; it
-    moves to ``c``'s device.  Returns blocks in ``c``'s dtype."""
+    moves to ``c``'s device.  ``order``, where given, states that every
+    group has one row and lists it (``order[g]``, group ``g``'s row; where
+    ``G == M``, ``group_ids_device(..., with_order=True)`` gives it): the
+    kernel then gathers each group's row and stores it in place; the plain
+    version checks the statement.  Returns blocks in ``c``'s dtype."""
     if degree not in (1, 2):
         raise ValueError(f"segment_view needs degree 1 or 2, got {degree}")
-    seg = _seg_ids(seg, c.device)
+    seg = _seg_ids(seg, c)
+    order = None if order is None else _seg_ids(order, c)
     q = q.contiguous() if degree == 2 else None
     impl = _sv.segment_view if c.is_cuda else ref.segment_view_ref
     return impl(
         c.contiguous(), x.contiguous(), l.contiguous(), q, seg, num_groups,
-        degree=degree,
+        degree=degree, order=order,
     )
 
 
@@ -117,15 +129,23 @@ def segment_blocks(
     num_groups: int,
     *,
     degree: int = 2,
+    order=None,
 ):
     """Segment-reduce ALL of a view's blocks in one call: c [M] (+ l [M, k]
-    + q [M, k, k] per ``degree``).  Returns ``(c', l', q')`` with Nones
-    past ``degree``, in ``c``'s dtype."""
+    + q [M, k, k] per ``degree``).  ``order`` as for :func:`segment_view`.  Returns ``(c', l', q')`` with Nones past
+    ``degree``, in ``c``'s dtype."""
     if degree not in (0, 1, 2):
         raise ValueError(f"segment_blocks needs degree 0, 1 or 2, got {degree}")
-    seg = _seg_ids(seg, c.device)
-    impl = _sv.segment_blocks if c.is_cuda else ref.segment_blocks_ref
-    return impl(c, l, q, seg, num_groups, degree=degree)
+    seg = _seg_ids(seg, c)
+    if order is not None:
+        order = _seg_ids(order, c)
+    if not c.is_cuda:
+        return ref.segment_blocks_ref(c, l, q, seg, num_groups, degree=degree,
+                                      order=order)
+    return _sv.segment_blocks(
+        c.contiguous(), l.contiguous() if degree >= 1 else None,
+        q.contiguous() if degree == 2 else None, seg, num_groups, degree, order,
+    )
 
 
 def moments(x: torch.Tensor):
@@ -170,7 +190,7 @@ def segment_gram(
     ``[G, K(K+1)/2]`` accumulator exceeds the budget, groups are processed
     in chunks with ids rebased per chunk."""
     x = _gram_input(x)
-    seg = _seg_ids(seg, x.device).contiguous()
+    seg = _seg_ids(seg, x).contiguous()
     num_groups = int(num_groups)
     budget, per_group = _group_budget(x, smem_budget)
     if per_group > budget:
@@ -205,7 +225,7 @@ def multi_segment_gram(
     (chunked) ``segment_gram`` per column."""
     x = _gram_input(x)
     num_groups = [int(g) for g in num_groups]
-    segs = _seg_ids(segs, x.device)
+    segs = _seg_ids(segs, x)
     if segs.dim() != 2 or segs.shape[1] != len(num_groups):
         raise ValueError(
             f"segs shape {tuple(segs.shape)} does not match "
@@ -230,25 +250,30 @@ def fast_device_grouping(device) -> bool:
     return torch.device(device).type == "cuda"
 
 
-def group_ids_device(key, device=None) -> tuple:
+def group_ids_device(key, device=None, *, with_order: bool = False) -> tuple:
     """Tensor GROUP BY ids: stable sort + adjacent-difference run detection
     instead of host ``np.unique``.  Returns ``(seg, num_groups, first)``
     bit-compatible with ``np.unique(key, return_index=True,
     return_inverse=True)`` — groups numbered in ascending key order, ``seg``
     an int32 tensor on ``device`` and ``first`` (host int64 array) the first
-    occurrence of each group.  int64 keys stay int64."""
+    occurrence of each group.  int64 keys stay int64.  ``with_order`` adds
+    the sort's permutation as a fourth element: the rows in group order,
+    int32 on ``device`` (where every group has one row, ``order[g]`` is
+    group ``g``'s row)."""
     key = torch.as_tensor(key, device=device)
     n = key.shape[0]
     if n == 0:
         empty = torch.zeros((0,), dtype=torch.int32, device=key.device)
-        return empty, 0, np.zeros((0,), dtype=np.int64)
+        out = (empty, 0, np.zeros((0,), dtype=np.int64))
+        return out + (empty,) if with_order else out
     sk, order = torch.sort(key, stable=True)
     start = torch.ones(n, dtype=torch.bool, device=key.device)
     start[1:] = sk[1:] != sk[:-1]
     gid = torch.cumsum(start, 0) - 1
     inv = torch.empty_like(gid).scatter_(0, order, gid)
     first = order[start].cpu().numpy().astype(np.int64)
-    return inv.to(torch.int32), int(first.shape[0]), first
+    out = (inv.to(torch.int32), int(first.shape[0]), first)
+    return out + (order.to(torch.int32),) if with_order else out
 
 
 def flash_attention(

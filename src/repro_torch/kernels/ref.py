@@ -8,7 +8,9 @@ segment; attention forms the whole score matrix and takes one softmax.
 The ops layer runs them for CPU tensors; ``chip_smoke.py`` holds every
 kernel against them on the card.  Sums accumulate in the inputs' dtype
 (attention: in float32); segment ids outside ``[0, num_groups)``
-contribute nothing.
+contribute nothing.  ``order`` is the caller's statement that every group
+has exactly one row, and lists it: the kernels' path A relies on it, and
+the plain versions check it and raise ``ValueError`` when it is false.
 """
 
 from __future__ import annotations
@@ -40,6 +42,25 @@ def _segment_add(data: torch.Tensor, seg: torch.Tensor, num: int) -> torch.Tenso
     return out.index_add_(0, seg, data)
 
 
+def _check_order(seg: torch.Tensor, num_groups: int,
+                 order: Optional[torch.Tensor]) -> None:
+    """Raise ``ValueError`` unless ``order``, where given, lists each
+    group's one row: ``num_groups`` ids and ``seg[order[g]] == g`` for every
+    group ``g`` (so ``order`` and ``seg`` are inverse permutations)."""
+    if order is None:
+        return
+    n = int(num_groups)
+    if not (
+        seg.shape == order.shape == (n,)
+        and bool(((order >= 0) & (order < n)).all())
+        and torch.equal(seg[order.long()].long(), torch.arange(n, device=seg.device))
+    ):
+        raise ValueError(
+            f"order does not list one row per group: {seg.shape[0]} ids in {n} "
+            "groups must be a permutation whose inverse is order"
+        )
+
+
 def segment_view_ref(
     c: torch.Tensor,
     x: torch.Tensor,
@@ -48,10 +69,12 @@ def segment_view_ref(
     seg: torch.Tensor,
     num_groups: int,
     degree: int = 2,
+    order: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """Unfused extend-and-group: materialize the extended blocks, then
     scatter-add each per segment.  Returns ``(c' [G], l' [G, k+1],
     q' [G, k+1, k+1] | None)``."""
+    _check_order(seg, num_groups, order)
     l_ext = torch.cat([(x * c)[:, None], l], dim=1)
     c_new = _segment_add(c, seg, num_groups)
     l_new = _segment_add(l_ext, seg, num_groups)
@@ -71,9 +94,11 @@ def segment_blocks_ref(
     seg: torch.Tensor,
     num_groups: int,
     degree: int = 2,
+    order: Optional[torch.Tensor] = None,
 ):
     """Per-block scatter-add: ``(Σc, Σl, Σq)`` per group, Nones past
     ``degree``."""
+    _check_order(seg, num_groups, order)
     c_new = _segment_add(c, seg, num_groups)
     l_new = _segment_add(l, seg, num_groups) if degree >= 1 else None
     q_new = _segment_add(q, seg, num_groups) if degree == 2 else None

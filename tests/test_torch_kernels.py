@@ -55,6 +55,35 @@ def _assert_blocks(got, want, rtol=1e-5, atol=1e-4):
             )
 
 
+#: the orders of segment ids the main path's traversal hands the kernels
+#: (one per node kind): a random permutation (one row per group, onpromotion),
+#: the identity (unit_sales and every regroup), ascending runs of distinct
+#: groups restarting at each item (item_nbr), cyclic 0 … G−1 (store_nbr),
+#: one group (date), and uniformly random ids (the worst case)
+ID_ORDERS = ("permutation", "identity", "item_runs", "cyclic", "one_group", "random")
+
+
+def _ids(order, m, seed=0):
+    """(seg int32 [m], G, each group's row or None) for an id order: the
+    rows come along where every group has one (the engine's ``order``)."""
+    rng = np.random.default_rng(seed)
+    if order == "permutation":
+        seg = rng.permutation(m).astype(np.int32)
+        return seg, m, np.argsort(seg).astype(np.int32)
+    if order == "identity":
+        return np.arange(m, dtype=np.int32), m, np.arange(m, dtype=np.int32)
+    if order == "item_runs":  # 8 items, each a sorted sample of 40 groups
+        g, items = 40, 8
+        runs = [np.sort(rng.choice(g, size=-(-m // items), replace=False))
+                for _ in range(items)]
+        return np.concatenate(runs)[:m].astype(np.int32), g, None
+    if order == "cyclic":
+        return (np.arange(m) % 17).astype(np.int32), 17, None
+    if order == "one_group":
+        return np.zeros(m, np.int32), 1, None
+    return rng.integers(0, 17, m).astype(np.int32), 17, None
+
+
 @pytest.mark.parametrize("m,g", [(5, 1), (200, 17)])
 @pytest.mark.parametrize("k", [1, 4])
 @pytest.mark.parametrize("degree", [1, 2])
@@ -63,6 +92,20 @@ def test_segment_view_sweep_matches_reference(m, g, k, degree):
     qq = q if degree == 2 else None
     got = ops.segment_view(*_t(c, x, l), None if qq is None else _t(qq)[0],
                            seg, g, degree=degree)
+    want = rref.segment_view_ref(c, x, l, q, seg, g, degree=degree)
+    _assert_blocks(got, want)
+
+
+@pytest.mark.parametrize("order", ID_ORDERS)
+@pytest.mark.parametrize("k", [1, 4])
+@pytest.mark.parametrize("degree", [1, 2])
+def test_segment_view_id_orders_match_reference(order, k, degree):
+    m = 200
+    seg, g, rows = _ids(order, m)
+    c, x, l, q, _ = _inputs(m, k, g)
+    qq = q if degree == 2 else None
+    got = ops.segment_view(*_t(c, x, l), None if qq is None else _t(qq)[0],
+                           seg, g, degree=degree, order=rows)
     want = rref.segment_view_ref(c, x, l, q, seg, g, degree=degree)
     _assert_blocks(got, want)
 
@@ -166,6 +209,23 @@ def test_segment_blocks_sweep_matches_reference(m, g, degree):
     _assert_blocks(got, want)
 
 
+@pytest.mark.parametrize("order", ID_ORDERS)
+@pytest.mark.parametrize("degree", [0, 1, 2])
+def test_segment_blocks_id_orders_match_reference(order, degree):
+    seg, g, rows = _ids(order, 200, seed=1)
+    c, _, l, q, _ = _inputs(200, 3, g)
+    got = ops.segment_blocks(
+        *_t(c), _t(l)[0] if degree >= 1 else None,
+        _t(q)[0] if degree == 2 else None, seg, g, degree=degree, order=rows,
+    )
+    _assert_blocks(got, rref.segment_blocks_ref(c, l, q, seg, g, degree=degree))
+    want = rops.segment_blocks(
+        jnp.asarray(c), jnp.asarray(l), jnp.asarray(q), jnp.asarray(seg), g,
+        degree=degree, impl="pallas", interpret=True,
+    )
+    _assert_blocks(got, want)
+
+
 def test_segment_blocks_fp64():
     c, _, l, q, seg = _inputs(90, 2, 9, dtype=np.float64)
     got = ops.segment_blocks(*_t(c, l, q), seg, 9, degree=2)
@@ -212,6 +272,12 @@ def test_group_ids_device_matches_np_unique(n, dom):
     rseg, rnum, rfirst = rops.group_ids_device(key)
     np.testing.assert_array_equal(seg.numpy(), np.asarray(rseg))
     np.testing.assert_array_equal(dfirst, rfirst)
+    # the sort's order lists the rows group by group, each group's first
+    # occurrence first
+    seg4, num4, first4, order = ops.group_ids_device(key, "cpu", with_order=True)
+    assert torch.equal(seg4, seg) and num4 == num and order.dtype == torch.int32
+    assert np.all(np.diff(inv[order.numpy()]) >= 0)
+    np.testing.assert_array_equal(np.sort(order.numpy()), np.arange(n))
 
 
 def test_group_ids_device_keeps_int64_keys():
@@ -255,7 +321,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError):
         sv.segment_blocks(c, l, q, seg, 3)
     with pytest.raises(ValueError):
-        sv.segment_reduce(torch.zeros(10, 2), seg, 3)
+        sv.segment_blocks(c, None, None, seg, 3, degree=0)
     with pytest.raises(ValueError):
         mom.moments(c)
     with pytest.raises(ValueError):
@@ -266,50 +332,172 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         sg.multi_segment_gram(l, torch.stack([seg, seg], 1), [3, 3])
 
 
-def _compact_sums(c, x, l, q, seg, g, degree):
-    """What the kernels write: per-group sums of each row's distinct
-    entries, [c, xc, x·xc, l, x·l, q] (degree 2) or [c, xc, l] (degree 1)."""
-    xc = x * c
-    parts = [c[:, None], xc[:, None]]
-    if degree == 2:
-        parts += [(x * xc)[:, None], l, x[:, None] * l, q.reshape(len(c), -1)]
+def _compact_rows(payload, c, x, l, q, degree=2):
+    """The compact ``[M, W]`` rows the kernels sum (``value`` in
+    ``csrc/segment_view.cu``): ``[c, xc, x·xc, l, x·l, q]`` for the view,
+    ``[c | l | q]`` up to ``degree`` for the blocks."""
+    m = c.shape[0]
+    if payload == "view":
+        xc = x * c
+        parts = [c[:, None], xc[:, None], (x * xc)[:, None], l,
+                 x[:, None] * l, q.reshape(m, -1)]
     else:
-        parts.append(l)
-    rows = torch.cat(parts, dim=1)
-    out = torch.zeros((g, rows.shape[1]), dtype=rows.dtype)
-    return out.index_add_(0, seg.long(), rows)
+        parts = [c[:, None]]
+        if degree >= 1:
+            parts.append(l)
+        if degree == 2:
+            parts.append(q.reshape(m, -1))
+    return torch.cat(parts, dim=1)
+
+
+def _expand_sums(acc, payload, k, degree=2):
+    """The blocks ``(c', l', q')`` from per-group compact sums ``acc [G, W
+    or Wp]`` (``to_blocks`` / ``seg_finish`` in the source; padding columns
+    ignored): the view's bordered blocks (x·l twice, by symmetry), or the
+    blocks' ``c | l | q`` split, Nones past ``degree``."""
+    g = acc.shape[0]
+    c_new = acc[:, 0].clone()
+    if payload == "view":
+        sxl = acc[:, 3 + k : 3 + 2 * k]
+        l_new = torch.cat([acc[:, 1:2], acc[:, 3 : 3 + k]], dim=1)
+        q_new = torch.empty((g, k + 1, k + 1), dtype=acc.dtype)
+        q_new[:, 0, 0] = acc[:, 2]
+        q_new[:, 0, 1:] = sxl
+        q_new[:, 1:, 0] = sxl
+        q_new[:, 1:, 1:] = acc[:, 3 + 2 * k : 3 + 2 * k + k * k].reshape(g, k, k)
+        return c_new, l_new, q_new
+    kl = k if degree >= 1 else 0
+    l_new = acc[:, 1 : 1 + kl].clone() if degree >= 1 else None
+    q_new = None
+    if degree == 2:
+        q_new = acc[:, 1 + kl : 1 + kl + k * k].reshape(g, k, k).clone()
+    return c_new, l_new, q_new
 
 
 @pytest.mark.parametrize("k", [0, 1, 3])
 @pytest.mark.parametrize("degree", [1, 2])
 def test_kernel_sum_layout_expands_to_plain_blocks(k, degree):
+    """The kernels' compact rows (``_compact_rows``), summed per group into
+    path C's padded accumulator, land in the plain version's blocks through
+    the finishing kernel's map (``_expand_sums``); degree 1 keeps its
+    compact ``[c, xc, l]``, whose columns are the blocks themselves."""
     c, x, l, q, seg = _t(*_inputs(120, k, 9, dtype=np.float64))
-    s = _compact_sums(c, x, l, q, seg, 9, degree)
-    assert s.shape[1] == (3 + 2 * k + k * k if degree == 2 else k + 2)
-    got = sv.expand_view_sums(s, k, degree)
     want = ref.segment_view_ref(c, x, l, q if degree == 2 else None, seg, 9,
                                 degree=degree)
+    if degree == 1:
+        rows = torch.cat([c[:, None], (x * c)[:, None], l], dim=1)
+        s = torch.zeros(9, k + 2, dtype=rows.dtype).index_add_(0, seg.long(), rows)
+        got = (s[:, 0], s[:, 1:], None)
+    else:
+        rows = _compact_rows("view", c, x, l, q)
+        p = sv.plan("view", k, 2, False)
+        assert rows.shape[1] == p["width"] == 3 + 2 * k + k * k
+        acc = torch.full((9, p["padded"]), float("nan"), dtype=rows.dtype)
+        acc[:, : p["width"]] = 0
+        acc[:, : p["width"]].index_add_(0, seg.long(), rows)
+        got = _expand_sums(acc, "view", k)
     for a, b in zip(got, want):
         assert (a is None) == (b is None)
         if a is not None:
-            assert a.is_contiguous()
             torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
 
 
 @pytest.mark.parametrize("degree", [0, 1, 2])
 def test_block_packing_round_trips(degree):
+    """The blocks payload's compact row ``[c | l | q]`` (up to ``degree``),
+    summed per group, splits back into the plain version's blocks."""
     c, _, l, q, seg = _t(*_inputs(60, 2, 5, dtype=np.float64))
-    data = sv.pack_blocks(c, l, q, degree)
+    data = _compact_rows("blocks", c, None, l, q, degree)
     assert data.shape == (60, [1, 3, 7][degree]) and data.is_contiguous()
+    assert data.shape[1] == sv.plan("blocks", 2, degree, False)["width"]
     sums = torch.zeros(5, data.shape[1], dtype=data.dtype).index_add_(
         0, seg.long(), data
     )
-    got = sv.unpack_blocks(sums, 2, degree)
+    got = _expand_sums(sums, "blocks", 2, degree)
     want = ref.segment_blocks_ref(c, l, q, seg, 5, degree=degree)
     for a, b in zip(got, want):
         assert (a is None) == (b is None)
         if a is not None:
             torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+
+
+#: (node, payload, rows, k, degree, groups, each group's row passed) at
+#: the main path's sizes, and the path and layout each must take
+MAIN_PATH_PLANS = [
+    ("onpromotion", "view", 18_641_880, 0, 2, 18_641_880, True, ("one_row", 3, 4)),
+    ("unit_sales", "view", 18_641_880, 1, 2, 18_641_880, True, ("one_row", 6, 8)),
+    ("item_nbr", "view", 18_641_880, 2, 2, 90_936, False, ("atomic", 11, 12)),
+    ("store_nbr", "view", 90_936, 3, 2, 1_684, False, ("atomic", 18, 20)),
+    ("date", "view", 1_684, 4, 2, 1, False, ("atomic", 27, 28)),
+    ("transactions", "blocks", 90_936, 0, 2, 90_936, True, ("one_row", 1, 4)),
+    ("cluster", "blocks", 54, 0, 2, 54, True, ("one_row", 1, 4)),
+]
+
+
+@pytest.mark.parametrize("case", MAIN_PATH_PLANS, ids=[c[0] for c in MAIN_PATH_PLANS])
+def test_plan_mirror_at_main_path_nodes(case):
+    """The Python mirror of the library's path choice at each node of the
+    traversal (``chip_smoke.py`` holds it equal to the library's own)."""
+    _, payload, _rows, k, degree, _g, one_row, (path, w, wp) = case
+    p = sv.plan(payload, k, degree, one_row)
+    assert (p["path"], p["width"], p["padded"]) == (path, w, wp)
+    assert p["padded"] % 4 == 0 and p["width"] <= p["padded"] < p["width"] + 4
+
+
+@pytest.mark.parametrize("degree", [0, 1, 2])
+def test_plan_takes_one_row_path_only_with_order(degree):
+    """Path A is taken exactly where the caller passes each group's row,
+    whatever the width; the blocks' width counts the blocks up to
+    ``degree``."""
+    for k in (0, 1, 3, 40):
+        assert sv.plan("blocks", k, degree, True)["path"] == "one_row"
+        assert sv.plan("blocks", k, degree, False)["path"] == "atomic"
+        assert sv.plan("blocks", k, degree, False)["width"] == (
+            1 + (k if degree >= 1 else 0) + (k * k if degree == 2 else 0))
+    assert sv.plan("view", 3, 2, True)["path"] == "one_row"
+    assert sv.PATHS == ("one_row", "atomic")
+
+
+@pytest.mark.parametrize("order", ["random", "item_runs", "one_group"])
+def test_plain_versions_refuse_a_false_one_row_statement(order):
+    """An ``order`` passed where a group has no row or more than one fails
+    on the CPU: ids that repeat, miss a group or fall outside it."""
+    seg, g, _ = _ids(order, 40)
+    c, x, l, q, _ = _t(*_inputs(40, 2, g))
+    rows = np.arange(40, dtype=np.int32)
+    for groups in (g, 40):
+        with pytest.raises(ValueError, match="one row per group"):
+            ops.segment_view(c, x, l, q, seg, groups, order=rows)
+        with pytest.raises(ValueError, match="one row per group"):
+            ops.segment_blocks(c, l, q, seg, groups, order=rows)
+    bad = np.arange(40, dtype=np.int32)
+    bad[3] = 40  # out of range, so group 3 has no row
+    with pytest.raises(ValueError, match="one row per group"):
+        ref.segment_blocks_ref(c, l, q, torch.from_numpy(bad), 40,
+                               order=torch.from_numpy(rows))
+    perm = np.random.default_rng(0).permutation(40).astype(np.int32)
+    ref.segment_view_ref(c, x, l, q, torch.from_numpy(perm), 40,
+                         order=torch.from_numpy(np.argsort(perm).astype(np.int32)))
+
+
+def test_plain_versions_check_the_order_of_groups():
+    """``order`` must list each group's row (the inverse permutation of the
+    ids), and with it the outputs equal those without it exactly."""
+    seg = np.random.default_rng(1).permutation(40).astype(np.int32)
+    order = np.argsort(seg).astype(np.int32)
+    c, x, l, q, _ = _t(*_inputs(40, 2, 40))
+    want = ref.segment_view_ref(c, x, l, q, torch.from_numpy(seg), 40)
+    got = ops.segment_view(c, x, l, q, seg, 40, order=order)
+    _assert_blocks(got, [w.numpy() for w in want], rtol=0, atol=0)
+    got = ops.segment_blocks(c, l, q, seg, 40, order=order)
+    _assert_blocks(got, [w.numpy() for w in ref.segment_blocks_ref(
+        c, l, q, torch.from_numpy(seg), 40)], rtol=0, atol=0)
+    for bad in (seg, np.roll(order, 1), np.where(order == 0, 40, order).astype(np.int32),
+                order[:39]):
+        with pytest.raises(ValueError, match="order"):
+            ops.segment_view(c, x, l, q, seg, 40, order=bad)
+        with pytest.raises(ValueError, match="order"):
+            ops.segment_blocks(c, l, q, seg, 40, order=bad)
 
 
 def test_build_targets_hopper_from_repo_sources(monkeypatch, tmp_path):
@@ -477,3 +665,41 @@ def test_gram_parts_cover_rows():
     assert gk.num_parts(1, 5) == 1 and gk.num_parts(18_641_880, 5) == 8 * 132
     assert gk.num_parts(1_000_000, 130) * 15 >= 4 * 132
     assert gk.num_parts(40, 130) == 2
+
+
+def test_engine_states_one_row_per_group_where_groups_equal_rows(monkeypatch):
+    """A small Favorita traversal on the CPU: every fused node and regroup
+    states one row per group (passes ``order``) exactly where its group
+    count equals its row count (the plain versions check each statement),
+    both kinds occur, and
+    the cofactors still equal the float64 numpy engine's."""
+    import repro_torch.core.factorize as PF
+    import repro_torch.data.synthetic as PS
+
+    calls = []
+
+    def spy(name, fn):
+        def wrapped(c, *args, **kwargs):
+            seg, num = args[-2], args[-1]
+            order = kwargs["order"]
+            calls.append((name, c.shape[0], int(num), order is not None))
+            if order is not None:  # each group's one row
+                assert torch.equal(seg.long()[order.long()], torch.arange(int(num)))
+            return fn(c, *args, **kwargs)
+        return wrapped
+
+    monkeypatch.setattr(PF.kernel_ops, "segment_view",
+                        spy("segment_view", ops.segment_view))
+    monkeypatch.setattr(PF.kernel_ops, "segment_blocks",
+                        spy("segment_blocks", ops.segment_blocks))
+    b = PS.favorita_like(n_dates=8, n_stores=4, n_items=6, seed=3)
+    cols = b.features + [b.label]
+    eng = PF.FactorizedEngine(b.store, b.vorder, cols, backend="torch",
+                              dtype=torch.float64, device="cpu")
+    eng.device_grouping = True  # the GPU's sort-based grouping, on the CPU
+    got = eng.cofactors().matrix()
+    assert {n for n, *_ in calls} == {"segment_view", "segment_blocks"}
+    assert all(stated == (rows == num) for _, rows, num, stated in calls)
+    assert {stated for *_, stated in calls} == {True, False}
+    exact = PF.FactorizedEngine(b.store, b.vorder, cols, backend="numpy")
+    np.testing.assert_allclose(got, exact.cofactors().matrix(), rtol=1e-12, atol=1e-12)
