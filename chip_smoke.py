@@ -12,11 +12,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
    card at the shapes the main path gives it, and time both with CUDA
    events (median of repeated launches).  The segment-view family runs at
    the main path's sizes with random ids (the worst case), after its path
-   choice (``segment_view_plan``) is held equal to the Python mirror; the
-   blocks kernel's paths A and C run at every degree, also in float64,
-   with random ids.  Also gram at
-   K = 130, forced segment_gram group chunking, the multi_segment_gram
-   per-column fallback, and flash at the serving path's shape (bf16 and float32),
+   choice (``segment_view_plan``) is held equal to the Python mirror; both
+   degrees take path A with each group's row where G = M; the blocks
+   kernel's paths A and C run at every degree, also in float64, with
+   random ids.  The grouped Grams' launch plan (``segment_gram_plan``:
+   CTAs a tile, entry split, chunks) is held equal to its mirror, and
+   segment_gram must take one launch at K = 6, G = 4,100.  Also gram at
+   K = 130, forced segment_gram group chunking, chunking by the plan at
+   K = 40, G = 4,000, a float64 and a K = 313 grouped Gram, the
+   multi_segment_gram per-column fallback, and flash at the serving
+   path's shape (bf16 and float32),
    olmo-1b's and mixtral's head layouts (the latter windowed), non-causal
    ragged lengths and the head dims 8 to 256.
 3. Main path: ``favorita_like(1684, 54, 4100, 0.05, seed=0)`` (18,641,880
@@ -30,7 +35,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    two calls, one float64 call per path, timed per call and back to back
    beside its bound and its device time in the profiled traversal; then
    the host/device split of one regroup at transactions against
-   ``index_add_``.
+   ``index_add_``.  The degree-1 batch runs profiled, and its
+   ``segment_view`` calls are captured and run again the same way.
 4. Categorical and cofactor baselines, on the same 18.6 M-row bundle:
    ``linear_regression`` closed form with ``categorical=("store_nbr",
    "item_nbr")`` on its factorized leg and on its materialized leg through
@@ -41,7 +47,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    chunks (against the one-shot Gram) and ``cofactors_grouped`` by item
    through ``segment_gram`` (its groups sum to the global cofactors).
    Counters are zeroed before and read after; all seven kernels must have
-   launched.
+   launched.  A second, profiled run of the factorized leg captures its
+   degree-1 ``segment_view`` calls (the ``g:`` queries), and the
+   ``segment_gram`` and ``multi_segment_gram`` calls of the grouped and
+   materialized paths are captured; each runs again against its plain
+   version and is timed beside its bound.
 5. Oracle: the torch engine on the card against the port's float64 numpy
    engine on the 410-item bundle (1,864,188 sales rows), for the continuous
    and the categorical closed form; and the FD leg on ``fd_star_schema``
@@ -70,6 +80,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -274,7 +285,7 @@ def plan_check(sv) -> None:
     the library's own for every payload, degree and width, with and
     without each group's row."""
     n = 0
-    for payload, degrees in (("view", (2,)), ("blocks", (0, 1, 2))):
+    for payload, degrees in (("view", (2,)), ("view1", (1,)), ("blocks", (0, 1, 2))):
         for degree in degrees:
             for k in (0, 1, 2, 3, 4, 5, 40):
                 for one_row in (False, True):
@@ -284,6 +295,26 @@ def plan_check(sv) -> None:
                         raise AssertionError(f"segment_view plan {args}: {got} != {want}")
                     n += 1
     log(f"{'segment_view':15s} plans of {n} calls as mirrored (path, width, padded)")
+
+
+def gram_plan_check(sg) -> None:
+    """The grouped Grams' launch plan (CTAs a tile, entries a CTA, stages, rows,
+    groups a launch holds, chunks, shared memory): the Python mirror
+    (``kernels/segment_gram.py:plan``, which the CPU tests check) must equal
+    the library's own at every width, group count, type and column count
+    below (the main path's among them)."""
+    n = 0
+    for k in (1, 2, 3, 4, 5, 6, 7, 8, 9, 40, 130, 221, 313):
+        for total in (1, 54, 4_100, 4_154, 17_200, 90_936):
+            for elem in (4, 8):
+                for n_seg in (1, 2, 16):
+                    got, want = sg.kernel_plan(k, total, elem, n_seg), sg.plan(k, total, elem, n_seg)
+                    if got != want:
+                        raise AssertionError(
+                            f"segment_gram plan {(k, total, elem, n_seg)}: {got} != {want}")
+                    n += 1
+    log(f"{'segment_gram':15s} plans of {n} shapes as mirrored; K 6, G 4,100: "
+        f"{sg.plan(6, 4_100, 4)}; K 4, G 54 + 4,100: {sg.plan(4, 4_154, 4, 2)}")
 
 
 # (node, rows M, features k, groups G) of the main path's traversal
@@ -304,7 +335,7 @@ TIMED_VIEW_NODE = "item_nbr"
 TIMED_REGROUP_NODE = "transactions"
 
 
-def kernel_phase(ref, sv, mom, kops, kflash) -> dict:
+def kernel_phase(ref, sv, sg, mom, kops, kflash) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = {}
 
@@ -317,6 +348,7 @@ def kernel_phase(ref, sv, mom, kops, kflash) -> dict:
         return err, tol
 
     plan_check(sv)
+    gram_plan_check(sg)
     log("segment_view family at the main path's sizes with random ids (the worst "
         "case; phase 3 times the main path's own ids)")
     for degree, name in ((2, "segment_view"), (1, "segment_view1")):
@@ -328,10 +360,10 @@ def kernel_phase(ref, sv, mom, kops, kflash) -> dict:
             plain = functools.partial(ref.segment_view_ref, *args, degree=degree)
             want = plain()
             err, tol = check(name, node, kern(), want)
-            if degree == 2 and g == m:  # path A: each group's row passed
+            if g == m:  # path A: each group's row passed
                 order = torch.argsort(seg).to(torch.int32)
                 err = max(err, check(name, f"{node} order", sv.segment_view(
-                    *args, order=order), want)[0])
+                    *args, degree=degree, order=order), want)[0])
             del want
             if node != TIMED_VIEW_NODE:
                 continue
@@ -401,7 +433,7 @@ def kernel_phase(ref, sv, mom, kops, kflash) -> dict:
             log(f"{'segment_reduce':15s} float64 {label} max_abs_err={err:.3e}")
             if not err <= F64_RTOL * max(1.0, scale):
                 raise AssertionError(f"segment_reduce float64 {label}: error {err}")
-    rows.update(gram_family(ref, kops, gen, check))
+    rows.update(gram_family(ref, kops, sg, gen, check))
     rows["flash"] = flash_rows(ref, kops, kflash, gen)
     # the date column: SalesF + Transactions + Oil rows
     m = N_SALES + 90_936 + 1_684
@@ -434,7 +466,7 @@ def kernel_phase(ref, sv, mom, kops, kflash) -> dict:
     return rows
 
 
-def gram_family(ref, kops, gen, check) -> dict:
+def gram_family(ref, kops, sg, gen, check) -> dict:
     """gram, segment_gram and multi_segment_gram at the shapes phase 4 gives
     them: the noPre design matrix (five paper columns), the grouped Gram by
     item over u = [1, five columns], and the categorical leg's u = [1, date,
@@ -473,11 +505,18 @@ def gram_family(ref, kops, gen, check) -> dict:
     kern = functools.partial(kops.segment_gram, u, item, g_item)
     plain = functools.partial(ref.segment_gram_ref, u, item, g_item)
     want = plain()
-    err, tol = check("segment_gram", "item K=6", (kern(),), (want,))
+    kops.reset_launch_counts()
+    got = kern()
+    n_launch = kops.launch_counts()["segment_gram"]
+    if n_launch != 1:
+        raise AssertionError(f"segment_gram at K 6, G {g_item}: {n_launch} launches, not one")
+    err, tol = check("segment_gram", "item K=6", (got,), (want,))
+    del got
     budget = 32 * 1024  # forces 11 chunks of at most 390 groups
     errc, tolc = check("segment_gram", "item chunked",
                        (kops.segment_gram(u, item, g_item, smem_budget=budget),), (want,))
     del want
+    other = grouped_gram_shapes(ref, kops, sg, gen, check)
     b, by = bound_ms(m * 6 * s + m * 4 + g_item * 36 * s, m * 21 * 2)
     rows["segment_gram"] = dict(
         name="segment_gram", route="cuda",
@@ -486,6 +525,8 @@ def gram_family(ref, kops, gen, check) -> dict:
         shape=dict(rows=m, k=6, groups=g_item), max_abs_err=max(err, errc), tol=tol,
         ms=time_ms(kern), plain_ms=time_ms(plain, reps=3),
         bound_ms=b, bound_by=by, library_ms=None,
+        ms_back_to_back=time_ms_back_to_back(kern), launches_per_call=n_launch,
+        plan=sg.plan(6, g_item, 4), also=other,
     )
 
     u4 = u[:, :4].contiguous()
@@ -507,8 +548,40 @@ def gram_family(ref, kops, gen, check) -> dict:
         shape=dict(rows=m, k=4, groups=groups), max_abs_err=max(err, errf), tol=tol,
         ms=time_ms(kern), plain_ms=time_ms(plain, reps=3),
         bound_ms=b, bound_by=by, library_ms=None,
+        ms_back_to_back=time_ms_back_to_back(kern), plan=sg.plan(4, sum(groups), 4, 2),
     )
     return rows
+
+
+def grouped_gram_shapes(ref, kops, sg, gen, check) -> list:
+    """segment_gram off the main path's shape, each against its plain
+    version: chunked by the launch plan at K = 40, G = 4,000 (the reference
+    test's shape, 9 launches); float64 at K = 6, G = 4,100 (a split of 5);
+    one group of K = 313 (the widest, rows read from the stage)."""
+    out = []
+    for what, m, k, g, dt in (("K 40 chunked by the plan", 200_000, 40, 4_000, torch.float32),
+                              ("K 6 float64", 1_000_000, 6, 4_100, torch.float64),
+                              ("K 313 one group", 20_000, 313, 1, torch.float32)):
+        x = torch.randn(m, k, device="cuda", generator=gen, dtype=dt)
+        seg = torch.randint(0, g, (m,), device="cuda", generator=gen, dtype=torch.int32)
+        kops.reset_launch_counts()
+        got = kops.segment_gram(x, seg, g)
+        n = kops.launch_counts()["segment_gram"]
+        want = ref.segment_gram_ref(x, seg, g)
+        if dt == torch.float64:
+            err, scale = max_err((got,), (want,))
+            log(f"{'segment_gram':15s} {what:13s} max_abs_err={err:.3e}")
+            if not err <= F64_RTOL * max(1.0, scale):
+                raise AssertionError(f"segment_gram {what}: error {err}")
+        else:
+            err, _ = check("segment_gram", what, (got,), (want,))
+        plan = sg.plan(k, g, x.element_size())
+        if n != plan["chunks"]:
+            raise AssertionError(f"segment_gram {what}: {n} launches, plan {plan}")
+        out.append(dict(what=what, rows=m, k=k, groups=g, dtype=str(dt).split(".")[-1],
+                        max_abs_err=err, launches=n, plan=plan))
+        del x, seg, got, want
+    return out
 
 
 BF16, F32 = torch.bfloat16, torch.float32
@@ -670,15 +743,16 @@ class HostTimers:
 
 
 class Capture:
-    """The arguments of every ``segment_view`` and ``segment_blocks`` call
-    the engine makes, by patching the names the engine module calls (as
-    HostTimers does).  The tensors are kept, not copied (~1.3 GB on the card
-    for one closed-form traversal of the 18.6 M-row bundle)."""
+    """The arguments of every call of ``names`` (by default the engine's
+    ``segment_view`` and ``segment_blocks``), by patching the names the
+    engine module calls (as HostTimers does).  The tensors are kept, not
+    copied (~1.3 GB on the card for one closed-form traversal of the 18.6
+    M-row bundle)."""
 
     NAMES = ("segment_view", "segment_blocks")
 
-    def __init__(self, kops):
-        self.kops, self.calls = kops, []
+    def __init__(self, kops, names=NAMES):
+        self.kops, self.names, self.calls = kops, names, []
 
     def _wrap(self, name, fn):
         def captured(*args, **kwargs):
@@ -687,7 +761,7 @@ class Capture:
         return captured
 
     def __enter__(self):
-        self.saved = {n: getattr(self.kops, n) for n in self.NAMES}
+        self.saved = {n: getattr(self.kops, n) for n in self.names}
         for n, fn in self.saved.items():
             setattr(self.kops, n, self._wrap(n, fn))
         return self
@@ -787,8 +861,12 @@ def main_path(rt, bundle) -> dict:
             store, vorder, cols, scale=factors, device="cuda"
         )
         t = time.perf_counter()
-        blk = eng.run_batch([rt.AggregateQuery("deg1", (), 1)])["deg1"]
-        log(f"degree-1 batch: {time.perf_counter() - t:.3f}s")
+        with torch.profiler.profile(activities=activities) as prof1, \
+                Capture(rt.kops) as cap1:
+            blk = eng.run_batch([rt.AggregateQuery("deg1", (), 1)])["deg1"]
+            torch.cuda.synchronize()
+        log(f"degree-1 batch (profiled): {time.perf_counter() - t:.3f}s")
+        node_ms1 = node_device_ms(prof1, cap1.calls, rt.sv)
     torch.cuda.synchronize()
     counts = rt.kops.launch_counts()
     log(f"passes={store.passes} node_visits={store.node_visits} "
@@ -801,7 +879,9 @@ def main_path(rt, bundle) -> dict:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     # the captured calls again, after the main path's counts are read
     traversal = main_path_kernels(rt, cap.calls, node_ms)
-    del cap
+    traversal["degree1"] = main_path_kernels(rt, *view1_calls(rt, cap1.calls, node_ms1),
+                                             split=False)
+    del cap, cap1
 
     # the degree-1 aggregates over the join equal float64 sums of the fact
     # table: every sale joins exactly one row of each dimension
@@ -823,15 +903,13 @@ def call_node(sv, name, args, kwargs) -> dict:
     l = args[2] if name == "segment_view" else args[1]
     m, degree = c.shape[0], kwargs.get("degree", 2)
     k = l.shape[1] if l is not None else 0
-    payload = "view" if name == "segment_view" else "blocks"
+    payload = ("view" if degree == 2 else "view1") if name == "segment_view" else "blocks"
     node = next((n for n, nm, nk, ng in FEATURE_NODES if (nm, nk, ng) == (m, k, num)),
-                None) if payload == "view" else next(
+                None) if name == "segment_view" else next(
         (n for n, nm, ng in REGROUP_NODES if (nm, ng) == (m, num)), None)
     unique = kwargs.get("order") is not None
-    kernel = ("segment_view" if degree == 2 else "segment_view1") if payload == "view" \
-        else "segment_reduce"
-    p = sv.plan(payload, k, degree, unique)
-    path = p["path"] if kernel != "segment_view1" else "view1"
+    kernel = {"view": "segment_view", "view1": "segment_view1"}.get(payload, "segment_reduce")
+    path = sv.plan(payload, k, degree, unique)["path"]
     return dict(node=node or f"{payload} M {m} G {num}", kernel=kernel, payload=payload,
                 rows=m, k=k, groups=num, degree=degree, unique=unique, path=path,
                 launches=2 if path == "atomic" else 1)
@@ -861,13 +939,23 @@ def node_device_ms(prof, calls, sv) -> list:
     return out
 
 
+def view1_calls(rt, calls, device_ms) -> tuple:
+    """(calls, device ms) of the captured degree-1 ``segment_view`` calls."""
+    keep = [i for i, call in enumerate(calls)
+            if call_node(rt.sv, *call)["kernel"] == "segment_view1"]
+    return [calls[i] for i in keep], [device_ms[i] for i in keep]
+
+
 def node_bound(sv, nd) -> tuple:
     """(ms, by) the card needs for one call: each input read once (rows,
-    feature, ids), each output written once, the row arithmetic at the
+    feature, and the ids the path reads: ``order`` on path A, the segment
+    ids on path C), each output written once, the row arithmetic at the
     float32 rate."""
     m, k, g, s = nd["rows"], nd["k"], nd["groups"], 4
     if nd["payload"] == "view":
         w_in, w_out, flops = 2 + k + k * k, 1 + (k + 1) + (k + 1) ** 2, 5 + 3 * k + k * k
+    elif nd["payload"] == "view1":
+        w_in, w_out, flops = 2 + k, 1 + (k + 1), k + 3
     else:
         w_in = w_out = sv.width("blocks", k, nd["degree"])
         flops = 0 if nd["unique"] else w_in
@@ -888,15 +976,16 @@ def call_pair(sv, ref, name, args, kwargs, dtype=None):
             functools.partial(plain_fn, *blocks, seg, int(args[-1]), degree=kw["degree"]))
 
 
-def main_path_kernels(rt, calls, device_ms) -> dict:
+def main_path_kernels(rt, calls, device_ms, split: bool = True) -> dict:
     """Each captured call of the closed-form traversal again, on its own
     arguments: kernel vs plain version (KERNEL_RTOL), path A bitwise equal
     across two calls, one float64 call per (kernel, path) within F64_RTOL;
     timed per call and back to back, beside its plain version, its bound
-    and its device time in the profiled traversal."""
+    and its device time in the profiled traversal; with ``split``, the
+    host/device split of the regroup at transactions."""
     sv, ref = rt.sv, rt.ref
     rows, f64_done = [], set()
-    log(f"main path's own segment ids: {len(calls)} calls of one closed-form traversal")
+    log(f"main path's own segment ids: {len(calls)} captured calls")
     for (name, args, kwargs), dev_ms in zip(calls, device_ms):
         nd = call_node(sv, name, args, kwargs)
         kern, plain = call_pair(sv, ref, name, args, kwargs)
@@ -932,7 +1021,7 @@ def main_path_kernels(rt, calls, device_ms) -> dict:
             f"{nd['ms_back_to_back']:.4f} profiled {dev} plain_ms={nd['plain_ms']:.4f} "
             f"bound_ms={b:.4f} ({by}) max_abs_err={err:.3e} tol={tol:.3e}")
     sums = {}
-    for kernel in ("segment_view", "segment_reduce"):
+    for kernel in sorted({r["kernel"] for r in rows}):
         mine = [r for r in rows if r["kernel"] == kernel]
         prof = [r["device_ms_profiled"] for r in mine]
         sums[kernel] = dict(
@@ -945,7 +1034,10 @@ def main_path_kernels(rt, calls, device_ms) -> dict:
         log(f"  {kernel} per traversal ({len(mine)} calls): " + " ".join(
             f"{key}={v:.4f}" if isinstance(v, float) else f"{key}={v}"
             for key, v in sums[kernel].items()))
-    return dict(nodes=rows, per_traversal=sums, transactions_split=regroup_split(rt, calls))
+    out = dict(nodes=rows, per_traversal=sums)
+    if split:
+        out["transactions_split"] = regroup_split(rt, calls)
+    return out
 
 
 def host_device_split(fns: dict, n: int = 200) -> dict:
@@ -1082,14 +1174,16 @@ def categorical_phase(rt, bundle) -> dict:
         log(f"{what}: {time.perf_counter() - t:.3f}s")
         return out
 
-    res = {}
+    res, cfgs = {}, {}
+    cap_multi = Capture(rt.kops, ("multi_segment_gram",))
     for leg, fact in (("factorized", True), ("materialized", False)):
-        cfg = dataclasses.replace(
+        cfg = cfgs[leg] = dataclasses.replace(
             rt.VERSIONS["closed"], backend="torch", device="cuda",
             categorical=CAT, factorized=fact, use_kernel=not fact,
         )
-        r = timed(f"categorical {leg}",
-                  functools.partial(rt.linear_regression, store, vorder, feats, label, cfg))
+        with (cap_multi if leg == "materialized" else contextlib.nullcontext()):
+            r = timed(f"categorical {leg}", functools.partial(
+                rt.linear_regression, store, vorder, feats, label, cfg))
         log(f"  cofactor={r.seconds_cofactor:.3f}s solve={r.seconds_gd:.3f}s")
         if r.theta.shape != (N_CAT_PARAMS,) or not np.all(np.isfinite(r.theta)):
             raise AssertionError(f"categorical {leg}: bad theta shape {r.theta.shape}")
@@ -1112,8 +1206,10 @@ def categorical_phase(rt, bundle) -> dict:
         rt.cofactors_streaming, x, cols, chunk_rows=STREAM_ROWS, device="cuda"))
     check_cofactors("streaming vs one-shot", stream, one, count_exact=True)
     n_items = store.attr_domain("item_nbr")
-    groups = timed("cofactors_grouped by item_nbr", functools.partial(
-        rt.cofactors_grouped, x, joined.column("item_nbr"), n_items, cols, device="cuda"))
+    with Capture(rt.kops, ("segment_gram",)) as cap_sg:
+        groups = timed("cofactors_grouped by item_nbr", functools.partial(
+            rt.cofactors_grouped, x, joined.column("item_nbr"), n_items, cols,
+            device="cuda"))
     total = groups[0]
     for g in groups[1:]:
         total = total + g
@@ -1127,7 +1223,78 @@ def categorical_phase(rt, bundle) -> dict:
     missing = [k for k in PHASE4_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched in phase 4: {missing}")
-    return counts
+    del joined, x, one, stream
+
+    # after the counts: the factorized leg again, profiled, for its
+    # degree-1 calls (the g: queries) on their own arguments
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    t = time.perf_counter()
+    with torch.profiler.profile(activities=activities) as prof, Capture(rt.kops) as cap:
+        rt.linear_regression(store, vorder, feats, label, cfgs["factorized"])
+        torch.cuda.synchronize()
+    log(f"categorical factorized (profiled): {time.perf_counter() - t:.3f}s")
+    views = main_path_kernels(
+        rt, *view1_calls(rt, cap.calls, node_device_ms(prof, cap.calls, rt.sv)), split=False)
+    del prof, cap
+    grams = {"segment_gram": gram_calls(rt, cap_sg.calls),
+             "multi_segment_gram": gram_calls(rt, cap_multi.calls)}
+    return counts, views, grams
+
+
+def gram_bound(x, n_seg: int, groups: int) -> tuple:
+    """(ms, by) of a grouped Gram: x and the ids read once, the [ΣG, K, K]
+    output written once, two flops per product and column."""
+    m, k = x.shape
+    s = x.element_size()
+    return bound_ms(m * k * s + m * n_seg * 4 + groups * k * k * s,
+                    m * n_seg * k * (k + 1))
+
+
+def gram_calls(rt, calls) -> dict:
+    """Each captured ``segment_gram`` / ``multi_segment_gram`` call of phase
+    4 again through ``ops``, on its own arguments: against its plain version
+    in float64 on the same values (KERNEL_RTOL; the store band sums 345 K
+    unscaled rows a group, where the float32 plain version's own rounding
+    reaches ~7e-5 of the largest sum, so float64 keeps the error the
+    kernel's), its launches (the plan's chunks) apart from the call, and
+    timed per call and back to back beside its float32 plain version and
+    bound."""
+    kops, ref = rt.kops, rt.ref
+    out = []
+    for name, args, _ in calls:
+        x = args[0]
+        ids = torch.as_tensor(args[1], device=x.device)
+        ids = (ids if ids.dtype == torch.int32 else ids.to(torch.int32)).contiguous()
+        groups = args[2]
+        if name == "segment_gram":
+            kern = functools.partial(kops.segment_gram, x, ids, groups)
+            plain = functools.partial(ref.segment_gram_ref, x, ids, groups)
+            n_seg, total = 1, int(groups)
+        else:
+            kern = functools.partial(kops.multi_segment_gram, x, ids, groups)
+            plain = functools.partial(ref.multi_segment_gram_ref, x, ids, groups)
+            n_seg, total = len(groups), sum(int(g) for g in groups)
+        kops.reset_launch_counts()
+        got = kern()
+        launches = kops.launch_counts()[name]
+        got = [g.double() for g in (got if isinstance(got, list) else [got])]
+        want = plain.func(x.double(), *plain.args[1:])
+        err, scale = max_err(got, want if isinstance(want, list) else [want])
+        tol = KERNEL_RTOL * max(1.0, scale)
+        if not err <= tol:
+            raise AssertionError(f"{name} at its phase-4 arguments: error {err} > {tol}")
+        del got, want
+        b, by = gram_bound(x, n_seg, total)
+        row = dict(rows=x.shape[0], k=x.shape[1], groups=groups, launches=launches,
+                   max_abs_err=err, tol=tol, ms=time_ms(kern),
+                   ms_back_to_back=time_ms_back_to_back(kern),
+                   plain_ms=time_ms(plain, reps=3), bound_ms=b, bound_by=by)
+        log(f"  {name} M {row['rows']} K {row['k']} G {groups}: {launches} launch(es), "
+            f"ms={row['ms']:.4f} back-to-back {row['ms_back_to_back']:.4f} "
+            f"plain_ms={row['plain_ms']:.4f} bound_ms={b:.4f} ({by}) "
+            f"max_abs_err={err:.3e} tol={tol:.3e}")
+        out.append(row)
+    return dict(calls=len(calls), nodes=out)
 
 
 # -- phase 5: the float64 oracle ------------------------------------------------
@@ -1431,6 +1598,7 @@ def main() -> None:
     from repro_torch.kernels import _build, ops as kops, ref
     from repro_torch.kernels import flash as kflash
     from repro_torch.kernels import moments as mom
+    from repro_torch.kernels import segment_gram as sg
     from repro_torch.kernels import segment_view as sv
     from repro_torch.configs import get_config
     from repro_torch.models import model as lm_model
@@ -1474,13 +1642,13 @@ def main() -> None:
                     print(f"  {name}: {line.strip()}")
 
     log("phase 2: kernels vs plain versions")
-    rows = kernel_phase(ref, sv, mom, kops, kflash)
+    rows = kernel_phase(ref, sv, sg, mom, kops, kflash)
 
     bundle = favorita(rt)
     log("phase 3: main path")
-    counts, traversal = main_path(rt, bundle)
+    counts3, traversal = main_path(rt, bundle)
     for name in PHASE3_KERNELS:
-        rows[name]["launches"] = counts[name]
+        rows[name]["launches"] = counts3[name]
     for name in ("segment_view", "segment_reduce"):
         rows[name]["main_path"] = dict(
             nodes=[{k: v for k, v in nd.items() if k != "kernel"}
@@ -1490,9 +1658,20 @@ def main() -> None:
     rows["segment_reduce"]["main_path"]["split_us"] = traversal["transactions_split"]
 
     log("phase 4: categorical regression and cofactor baselines")
-    counts = categorical_phase(rt, bundle)
+    counts4, views4, grams = categorical_phase(rt, bundle)
     for name in PHASE4_KERNELS[len(PHASE3_KERNELS):]:
-        rows[name]["launches"] = counts[name]
+        rows[name]["launches"] = counts4[name]
+    for name in PHASE4_KERNELS:
+        rows[name]["launches_by_phase"] = dict(phase3=counts3[name], phase4=counts4[name])
+    # segment_view1 on its own paths: the degree-1 batch (phase 3) and the
+    # categorical factorized leg's g: queries (phase 4)
+    rows["segment_view1"]["main_path"] = {
+        phase: dict(nodes=[{k: v for k, v in nd.items() if k != "kernel"}
+                           for nd in got["nodes"]],
+                    per_traversal=got["per_traversal"].get("segment_view1"))
+        for phase, got in (("phase3", traversal["degree1"]), ("phase4", views4))}
+    for name, got in grams.items():
+        rows[name]["main_path"] = dict(phase4=got)
     del bundle
 
     log("phase 5: float64 oracle")

@@ -11,26 +11,29 @@
 // the bordered (k+2)x(k+2) matrix [[c, xc, l'], [xc, x2c, (xl)'], [l, xl, q]]
 // in the compact order [c, xc, x*xc, l(k), x*l(k), q(k*k)] of width
 // W = 3 + 2k + k*k, and writes them into the blocks c' [G], l' [G, k+1],
-// q' [G, k+1, k+1] (the x*l sums twice, by symmetry).  The blocks payload
-// sums [c, l(k), q(k*k)] (up to its degree) into c' [G], l' [G, k],
-// q' [G, k, k].  Degree 1 sums [c, xc, l(k)] into a compact [G, k+2].  Rows
-// whose segment id lies outside [0, G) contribute nothing.
+// q' [G, k+1, k+1] (the x*l sums twice, by symmetry).  Degree 1 sums
+// [c, xc, l(k)] of width W = k+2 into c' [G] and l' [G, k+1].  The blocks
+// payload sums [c, l(k), q(k*k)] (up to its degree) into c' [G], l' [G, k],
+// q' [G, k, k].  Rows whose segment id lies outside [0, G) contribute
+// nothing.
 //
 // What bounds them on an H100 (3.35 TB/s, 67 TFLOP/s fp32 off the tensor
 // cores).  Each row is read once and each of the G*W sums written once; a
 // row costs ~W flops, far under one flop per byte, so all are memory-bound.
 // The TPU kernels kept the whole [G, W] accumulator in VMEM and added rows
-// with a one-hot matmul.  Here the degree-2 and blocks kernels take one of
-// two paths per call (plan(); kernels/segment_view.py:plan mirrors it):
+// with a one-hot matmul.  Here every payload (degree 2, degree 1, the
+// blocks) takes one of two paths per call (plan();
+// kernels/segment_view.py:plan mirrors it):
 //
 //   A  one row per group.  The caller passes ``order``, each group's row
 //      (the ids are then a permutation: the traversal's first feature
-//      nodes and every regroup of the main path, whose device sort has
-//      it).  One thread per group gathers its row and stores its values
-//      straight into the final blocks, coalesced: no atomics, no zero
-//      fill, no second pass, and the result is the same bit for bit from
-//      run to run.
-//   C  otherwise (item_nbr: 18.6 M rows into 90,936 groups of W 11).  Lanes
+//      nodes of either degree and every regroup of the main path, whose
+//      device sort has it).  One thread per group gathers its row and
+//      stores its values straight into the final blocks, coalesced: no
+//      atomics, no zero fill, no second pass, and the result is the same
+//      bit for bit from run to run.
+//   C  otherwise (item_nbr: 18.6 M rows into 90,936 groups of W 11 at
+//      degree 2, W 4 at degree 1: one vector reduction a row).  Lanes
 //      of a warp that share a segment first combine their values
 //      (__match_any_sync and a shuffle tree); each leader then adds four
 //      values at a time with Hopper's vector reduction (atomicAdd on a
@@ -39,13 +42,9 @@
 //      finishing kernel writes the blocks at G size.  float64 adds its four
 //      values with scalar atomics.
 //
-// Degree 1 keeps the first design (segment_rows<T, kView1>): one thread per
-// row, scalar atomics into a zeroed [G, k+2], a warp-wide shuffle sum when
-// all 32 rows of a warp fall in one segment.
-//
-// Atomics add in an order that changes from run to run (path C and
-// degree 1): fp32 results agree with a sequential sum to a few ulps of
-// the segment's sum of magnitudes.
+// Atomics add in an order that changes from run to run (path C): fp32
+// results agree with a sequential sum to a few ulps of the segment's sum of
+// magnitudes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,61 +59,10 @@ enum Payload { kView2 = 0, kView1 = 1, kBlocks = 2 };
 enum Path { kOneRow = 0, kAtomic = 1 };
 
 // ---------------------------------------------------------------------------
-// degree 1: one thread per row, scalar atomics into a zeroed [G, k+2]
+// the payloads' rows and blocks, paths A and C
 
 template <typename T>
-__device__ __forceinline__ T view1_value(int j, int64_t row, int k, T cv,
-                                         T xc, const T* l) {
-  if (j == 0) return cv;
-  if (j == 1) return xc;
-  return l[row * k + (j - 2)];
-}
-
-// Grid-stride.  Every lane of a warp runs the same number of iterations
-// (the loop bound is per block), so the warp-wide ballots and shuffles
-// below always see all 32 lanes.
-template <typename T, int P>
-__global__ void __launch_bounds__(kThreads)
-segment_rows(const T* __restrict__ c, const T* __restrict__ x,
-             const T* __restrict__ l, const int32_t* __restrict__ seg,
-             int64_t m, int k, int w, int64_t g, T* __restrict__ out) {
-  static_assert(P == kView1, "segment_rows serves degree 1");
-  const int lane = threadIdx.x & 31;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t base = (int64_t)blockIdx.x * blockDim.x; base < m;
-       base += stride) {
-    const int64_t row = base + threadIdx.x;
-    int32_t s = -1;
-    if (row < m) s = seg[row];
-    const bool valid = s >= 0 && (int64_t)s < g;
-    const unsigned vmask = __ballot_sync(kFull, valid);
-    if (vmask == 0) continue;  // warp-uniform
-    const int32_t s0 = __shfl_sync(kFull, s, __ffs(vmask) - 1);
-    const bool uniform = __all_sync(kFull, !valid || s == s0);
-    T cv = 0, xv = 0;
-    if (valid) {
-      cv = c[row];
-      xv = x[row];
-    }
-    const T xc = xv * cv;
-    for (int j = 0; j < w; ++j) {
-      T v = valid ? view1_value<T>(j, row, k, cv, xc, l) : T(0);
-      if (uniform) {
-        for (int off = 16; off > 0; off >>= 1)
-          v += __shfl_down_sync(kFull, v, off);
-        if (lane == 0) atomicAdd(out + (int64_t)s0 * w + j, v);
-      } else if (valid) {
-        atomicAdd(out + (int64_t)s * w + j, v);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// degree 2 and the blocks payload: paths A and C
-
-template <typename T>
-struct Rows {  // the input rows; x only for kView2, deg only for kBlocks
+struct Rows {  // the input rows; x only for the views, deg only for kBlocks
   const T* c;
   const T* x;
   const T* l;
@@ -135,6 +83,7 @@ struct Blocks {  // the outputs c', l', q'
 template <int P>
 __host__ __device__ __forceinline__ int width(int k, int deg) {
   if (P == kView2) return 3 + 2 * k + k * k;
+  if (P == kView1) return 2 + k;
   return 1 + (deg >= 1 ? k : 0) + (deg == 2 ? k * k : 0);
 }
 
@@ -153,6 +102,9 @@ __device__ __forceinline__ T value(const Rows<T>& in, int64_t row, int j,
     if (j < k) return xv * in.l[row * k + j];
     j -= k;
     return in.q[row * (int64_t)k * k + j];
+  } else if constexpr (P == kView1) {
+    if (j == 1) return xc;
+    return in.l[row * k + (j - 2)];
   } else {
     j -= 1;
     const int kl = in.deg >= 1 ? k : 0;
@@ -162,7 +114,8 @@ __device__ __forceinline__ T value(const Rows<T>& in, int64_t row, int j,
 }
 
 // put(p) at each place of the blocks that compact entry j of group s goes
-// to: one place, two for degree 2's x*l entries
+// to: one place, two for degree 2's x*l entries; degree 1's [xc, l] is
+// its l' row as it stands
 template <typename T, int P, typename Put>
 __device__ __forceinline__ void to_blocks(const Blocks<T>& o, int64_t s,
                                           int j, int k, int deg, Put put) {
@@ -187,6 +140,8 @@ __device__ __forceinline__ void to_blocks(const Blocks<T>& o, int64_t s,
       j -= k;
       put(qs + (1 + j / k) * kk + 1 + j % k);
     }
+  } else if constexpr (P == kView1) {
+    put(o.l + s * (k + 1) + (j - 1));
   } else {
     j -= 1;
     const int kl = deg >= 1 ? k : 0;
@@ -210,7 +165,7 @@ seg_store(Rows<T> in, const int32_t* __restrict__ order, int64_t g, int w,
     if (row < 0 || row >= in.m) continue;
     const T cv = in.c[row];
     T xv = 0;
-    if constexpr (P == kView2) xv = in.x[row];
+    if constexpr (P != kBlocks) xv = in.x[row];
     const T xc = xv * cv;
     for (int j = 0; j < w; ++j) {
       const T v = value<T, P>(in, row, j, cv, xv, xc);
@@ -271,7 +226,7 @@ seg_atomic(Rows<T> in, int64_t g, int w, int wp, T* __restrict__ acc) {
     T cv = 0, xv = 0;
     if (valid) {
       cv = in.c[row];
-      if constexpr (P == kView2) xv = in.x[row];
+      if constexpr (P != kBlocks) xv = in.x[row];
     }
     const T xc = xv * cv;
     for (int j0 = 0; j0 < w; j0 += 4) {
@@ -310,7 +265,9 @@ struct Plan {
 // each group's row (``order``); kernels/segment_view.py:plan is its mirror.
 Plan plan(int payload, int k, int deg, bool one_row) {
   Plan p;
-  p.w = payload == kView2 ? width<kView2>(k, deg) : width<kBlocks>(k, deg);
+  p.w = payload == kView2   ? width<kView2>(k, deg)
+        : payload == kView1 ? width<kView1>(k, deg)
+                            : width<kBlocks>(k, deg);
   p.wp = (p.w + 3) / 4 * 4;
   p.path = one_row ? kOneRow : kAtomic;
   return p;
@@ -345,15 +302,6 @@ int run(const Rows<T>& in, const int32_t* order, int64_t g, int path,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_view1(const T* c, const T* x, const T* l, const int32_t* seg,
-                 int64_t m, int k, int64_t g, T* out, cudaStream_t stream) {
-  if (m <= 0) return 0;
-  segment_rows<T, kView1><<<(unsigned)grid(m), kThreads, 0, stream>>>(
-      c, x, l, seg, m, k, k + 2, g, out);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // C interface for ctypes.  Every pointer is device memory on the caller's
@@ -369,13 +317,13 @@ int launch_view1(const T* c, const T* x, const T* l, const int32_t* seg,
                           path, Blocks<T>{out_c, out_l, out_q}, acc,        \
                           (cudaStream_t)stream);                            \
   }                                                                         \
-  /* out: a zeroed [g, k + 2] */                                            \
-  extern "C" int segment_view1_##SUFFIX(const T* c, const T* x, const T* l, \
-                                        const int32_t* seg, int64_t m,      \
-                                        int k, int64_t g, T* out,           \
-                                        void* stream) {                     \
-    return launch_view1<T>(c, x, l, seg, m, k, g, out,                      \
-                           (cudaStream_t)stream);                           \
+  extern "C" int segment_view1_##SUFFIX(                                    \
+      const T* c, const T* x, const T* l, const int32_t* seg,               \
+      const int32_t* order, int64_t m, int k, int64_t g, int path,          \
+      T* out_c, T* out_l, T* acc, void* stream) {                           \
+    return run<T, kView1>(Rows<T>{c, x, l, nullptr, seg, m, k, 1}, order,   \
+                          g, path, Blocks<T>{out_c, out_l, nullptr}, acc,   \
+                          (cudaStream_t)stream);                            \
   }                                                                         \
   extern "C" int segment_blocks_##SUFFIX(                                   \
       const T* c, const T* l, const T* q, const int32_t* seg,               \
@@ -390,11 +338,12 @@ SEGMENT_VIEW_API(float, f32)
 SEGMENT_VIEW_API(double, f64)
 
 // The plan for a call: out = {path, W, padded W}.  payload 0 is degree 2
-// (segment_view2_*), 2 the blocks payload (segment_blocks_*); one_row
-// states that the call passes ``order``.
+// (segment_view2_*), 1 degree 1 (segment_view1_*), 2 the blocks payload
+// (segment_blocks_*); one_row states that the call passes ``order``.
 extern "C" int segment_view_plan(int payload, int k, int degree, int one_row,
                                  int* out) {
-  if (payload != kView2 && payload != kBlocks) return (int)cudaErrorInvalidValue;
+  if (payload != kView2 && payload != kView1 && payload != kBlocks)
+    return (int)cudaErrorInvalidValue;
   const Plan p = plan(payload, k, degree, one_row != 0);
   out[0] = p.path;
   out[1] = p.w;

@@ -10,16 +10,17 @@ Unlike the TPU wrappers there is no padding to block multiples: the CUDA
 kernels take any row count.  The segment-view family writes any number of
 groups: each call takes one of two paths (``segment_view.plan``), chosen
 by whether the caller passes ``order``, each group's one row.  The grouped
-Grams keep the TPU wrappers' budget contract, as a shared-memory budget
-(``smem_budget``, default and cap ``SMEM_ACC_BYTES``): ``segment_gram``
-processes groups in chunks whose ``[G_chunk, K(K+1)/2]`` accumulator fits
-it, with ids rebased per chunk, and ``multi_segment_gram`` falls back to one
-``segment_gram`` per column when the fused ``[ΣG, K(K+1)/2]`` accumulator
-does not fit.  Both paths (kernel and plain version) chunk alike, and both
-refuse a width whose single group exceeds the budget (K > 313 in float32,
-K > 221 in float64 at the default).  ``flash_attention`` reads the
-model's ``[B, S, H, D]`` layout and the KV heads of GQA in place: no
-transposes, no repeated K/V, no padding.
+Grams take as many groups a launch as its plan holds
+(``segment_gram.plan``, ``most``): ``segment_gram`` processes more in
+chunks, with ids rebased per chunk, and ``multi_segment_gram`` falls back to
+one ``segment_gram`` per column when the fused ``[ΣG, K(K+1)/2]``
+accumulator does not fit one launch.  ``smem_budget`` keeps the TPU
+wrappers' budget contract: it forces chunks whose ``[G_chunk, K(K+1)/2]``
+accumulator fits it.  Both paths (kernel and plain version) chunk alike,
+and both refuse a width whose single group exceeds the budget or
+``GROUP_BYTES`` (K > 313 in float32, K > 221 in float64).
+``flash_attention`` reads the model's ``[B, S, H, D]`` layout and the KV
+heads of GQA in place: no transposes, no repeated K/V, no padding.
 """
 
 from __future__ import annotations
@@ -37,7 +38,6 @@ from . import segment_gram as _sg
 from . import segment_view as _sv
 
 __all__ = [
-    "SMEM_ACC_BYTES",
     "FLASH_MAX_HEAD_DIM",
     "fast_device_grouping",
     "flash_attention",
@@ -53,7 +53,6 @@ __all__ = [
     "segment_view",
 ]
 
-SMEM_ACC_BYTES = _sg.SMEM_ACC_BYTES
 _COUNTERS = (
     _sv.launches, _moments.launches, _gram.launches, _sg.launches, _flash.launches,
 )
@@ -170,11 +169,21 @@ def gram(x: torch.Tensor) -> torch.Tensor:
     return impl(x)
 
 
-def _group_budget(x: torch.Tensor, smem_budget: Optional[int]) -> tuple:
-    """(budget bytes, accumulator bytes per group) of the grouped Grams."""
-    budget = min(smem_budget or SMEM_ACC_BYTES, SMEM_ACC_BYTES)
+def _chunk_groups(x: torch.Tensor, total: int, n_seg: int,
+                  smem_budget: Optional[int]) -> int:
+    """Groups one grouped-Gram launch takes: what its plan holds, cut to
+    ``smem_budget`` where given; raises where one group's accumulator
+    exceeds the budget or ``GROUP_BYTES``."""
     k = x.shape[1]
-    return budget, max(k * (k + 1) // 2 * x.element_size(), 1)
+    per_group = max(k * (k + 1) // 2 * x.element_size(), 1)
+    cap = min(smem_budget or _sg.GROUP_BYTES, _sg.GROUP_BYTES)
+    if per_group > cap:
+        raise ValueError(
+            f"one group's accumulator ({per_group} bytes at K = {k}) "
+            f"exceeds the {cap}-byte budget"
+        )
+    most = _sg.plan(k, total, x.element_size(), n_seg)["most"]
+    return min(most, smem_budget // per_group) if smem_budget else most
 
 
 def segment_gram(
@@ -187,18 +196,12 @@ def segment_gram(
     """Per-group Gram ``out[g] = Σ_{seg=g} x xᵀ`` for any ``[M, K]`` and
     segment ids ``seg [M]`` (a host array moves to ``x``'s device): ``[G, K,
     K]`` in ``x``'s dtype.  Ids outside ``[0, G)`` add nothing.  When the
-    ``[G, K(K+1)/2]`` accumulator exceeds the budget, groups are processed
-    in chunks with ids rebased per chunk."""
+    ``[G, K(K+1)/2]`` accumulator exceeds one launch or the budget, groups
+    are processed in chunks with ids rebased per chunk."""
     x = _gram_input(x)
     seg = _seg_ids(seg, x).contiguous()
     num_groups = int(num_groups)
-    budget, per_group = _group_budget(x, smem_budget)
-    if per_group > budget:
-        raise ValueError(
-            f"one group's accumulator ({per_group} bytes at K = {x.shape[1]}) "
-            f"exceeds the {budget}-byte budget"
-        )
-    g_chunk = min(num_groups, budget // per_group)
+    g_chunk = min(num_groups, _chunk_groups(x, num_groups, 1, smem_budget))
     impl = _sg.segment_gram if x.is_cuda else ref.segment_gram_ref
     if g_chunk >= num_groups:
         return impl(x, seg, num_groups)
@@ -221,8 +224,8 @@ def multi_segment_gram(
     """Per-group Grams for SEVERAL segment-id columns from one read of
     ``x``: ``segs [M, n_seg]``, column ``i``'s ids in ``[0, num_groups[i])``.
     Returns a list of ``[G_i, K, K]`` in ``x``'s dtype.  If the fused
-    ``[ΣG, K(K+1)/2]`` accumulator exceeds the budget, falls back to one
-    (chunked) ``segment_gram`` per column."""
+    ``[ΣG, K(K+1)/2]`` accumulator exceeds one launch or the budget, falls
+    back to one (chunked) ``segment_gram`` per column."""
     x = _gram_input(x)
     num_groups = [int(g) for g in num_groups]
     segs = _seg_ids(segs, x)
@@ -233,8 +236,8 @@ def multi_segment_gram(
         )
     if not num_groups:
         return []
-    budget, per_group = _group_budget(x, smem_budget)
-    if sum(num_groups) * per_group > budget:
+    total = sum(num_groups)
+    if total > _chunk_groups(x, total, len(num_groups), smem_budget):
         return [
             segment_gram(x, segs[:, i], g, smem_budget=smem_budget)
             for i, g in enumerate(num_groups)

@@ -7,12 +7,12 @@
 * :func:`segment_blocks` — segment-sum a view's c, l and q blocks through
   one ``segment_blocks_*`` launch.  Replaces ``segment_reduce_kernel_call``.
 
-Degree 2 and the blocks take one of two paths per call (:func:`plan`, the
-mirror of ``plan`` in the source): A, one row per group, when the caller
-passes ``order`` (each group's row, so the ids are a permutation): one
-thread per group gathers its row and stores it into ``torch.empty``
-blocks; C otherwise: warp-combined vector atomics into a zeroed ``[G,
-Wp]`` accumulator, then a finishing kernel.
+Degree 2, degree 1 and the blocks take one of two paths per call
+(:func:`plan`, the mirror of ``plan`` in the source): A, one row per group,
+when the caller passes ``order`` (each group's row, so the ids are a
+permutation): one thread per group gathers its row and stores it into
+``torch.empty`` blocks; C otherwise: warp-combined vector atomics into a
+zeroed ``[G, Wp]`` accumulator, then a finishing kernel.
 
 The functions take CUDA tensors only and raise on anything else; their
 plain PyTorch versions with the same signatures are
@@ -45,24 +45,25 @@ __all__ = [
 #: launches per kernel since the last reset (chip_smoke.py zeroes and reads)
 launches = {"segment_view": 0, "segment_view1": 0, "segment_reduce": 0}
 
-#: the paths of degree 2 and the blocks, by the number the library uses
+#: the paths of every payload, by the number the library uses
 PATHS = ("one_row", "atomic")
 #: prefixes of the device kernels' names, as a profiler reports them
 KERNEL_NAMES = {
     "segment_view": ("seg_store<float, 0>", "seg_atomic<float, 0>",
                      "seg_finish<float, 0>"),
-    "segment_view1": ("segment_rows<float, 1>",),
+    "segment_view1": ("seg_store<float, 1>", "seg_atomic<float, 1>",
+                      "seg_finish<float, 1>"),
     "segment_reduce": ("seg_store<float, 2>", "seg_atomic<float, 2>",
                        "seg_finish<float, 2>"),
 }
-_PAYLOAD = {"view": 0, "blocks": 2}
+_PAYLOAD = {"view": 0, "view1": 1, "blocks": 2}
 
 _P, _I32, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _ARGTYPES = {
     # (c, x, l, q, seg, order, m, k, g, path, out_c, out_l, out_q, acc, stream)
     "segment_view2": [_P] * 6 + [_I64, _I32, _I64, _I32] + [_P] * 5,
-    # (c, x, l, seg, m, k, g, out, stream)
-    "segment_view1": [_P, _P, _P, _P, _I64, _I32, _I64, _P, _P],
+    # (c, x, l, seg, order, m, k, g, path, out_c, out_l, acc, stream)
+    "segment_view1": [_P] * 5 + [_I64, _I32, _I64, _I32] + [_P] * 4,
     # (c, l, q, seg, order, m, k, degree, g, path, out_c, out_l, out_q, acc,
     #  stream)
     "segment_blocks": [_P] * 5 + [_I64, _I32, _I32, _I64, _I32] + [_P] * 5,
@@ -73,15 +74,18 @@ _fns = {}  # (symbol, dtype) -> the loaded C function
 
 def width(payload: str, k: int, degree: int) -> int:
     """Entries of one compact row: ``[c, xc, x·xc, l, x·l, q]`` (view,
-    degree 2) or ``[c, l, q]`` up to ``degree`` (blocks)."""
+    degree 2), ``[c, xc, l]`` (view1, degree 1) or ``[c, l, q]`` up to
+    ``degree`` (blocks)."""
     if payload == "view":
         return 3 + 2 * k + k * k
+    if payload == "view1":
+        return 2 + k
     return 1 + (k if degree >= 1 else 0) + (k * k if degree == 2 else 0)
 
 
 def plan(payload: str, k: int, degree: int, one_row: bool) -> dict:
-    """The path of a degree-2 (``payload="view"``) or blocks call and its
-    layout (``plan`` in ``segment_view.cu``): ``path`` (A ``one_row`` when
+    """The path of a degree-2 (``payload="view"``), degree-1 (``"view1"``)
+    or blocks call and its layout (``plan`` in ``segment_view.cu``): ``path`` (A ``one_row`` when
     the caller passes each group's row, else C ``atomic``), the compact
     ``width`` W and its ``padded`` width (a multiple of 4, path C's
     accumulator rows)."""
@@ -150,9 +154,9 @@ def _launch(kernel: str, symbol: str, like: torch.Tensor, *args) -> None:
 
 def _run(kernel, symbol, c, ptrs, seg, order, dims, g, w, shapes):
     """Check the ids, allocate and launch a degree-2 (``ptrs`` of c, x, l,
-    q; ``dims`` (k,)) or blocks (c, l, q; (k, degree)) call of compact
-    width ``w``; returns the blocks of ``shapes`` (None where a shape is
-    None).  Kept lean: on the main path's regroups this host work is the
+    q; ``dims`` (k,)), degree-1 (c, x, l; (k,)) or blocks (c, l, q; (k,
+    degree)) call of compact width ``w``; returns the blocks of ``shapes``
+    (None where a shape is None).  Kept lean: on the main path's regroups this host work is the
     whole cost of a call."""
     m, index = c.shape[0], c.get_device()
     seg_p, order_p = _check_ids("seg", seg, index, m), None
@@ -185,7 +189,7 @@ def segment_view(
     ``x [M]`` and int32 ``seg [M]`` become ``(c' [G], l' [G, k+1],
     q' [G, k+1, k+1])`` (``q'`` None at degree 1), feature prepended.
     ``order`` (int32 ``[M]``), where given, lists each group's one row
-    (path A at degree 2; degree 1 keeps its one kernel and ignores it)."""
+    (path A)."""
     if degree not in (1, 2):
         raise ValueError(f"segment_view needs degree 1 or 2, got {degree}")
     _check_lead("c", c, 1)
@@ -201,14 +205,10 @@ def segment_view(
         ptrs = (c.data_ptr(), x.data_ptr(), l.data_ptr(), q.data_ptr())
         return tuple(_run("segment_view", "segment_view2", c, ptrs, seg, order, (k,), g,
                           width("view", k, 2), ((g,), (g, k + 1), (g, k + 1, k + 1))))
-    seg_p = _check_ids("seg", seg, c.get_device(), m)
-    s = torch.zeros((g, k + 2), dtype=c.dtype, device=c.device)
-    if m:
-        _launch(
-            "segment_view1", "segment_view1", c,
-            c.data_ptr(), x.data_ptr(), l.data_ptr(), seg_p, m, k, g, s.data_ptr(),
-        )
-    return s[:, 0].contiguous(), s[:, 1:].contiguous(), None
+    ptrs = (c.data_ptr(), x.data_ptr(), l.data_ptr())
+    c1, l1 = _run("segment_view1", "segment_view1", c, ptrs, seg, order, (k,), g,
+                  width("view1", k, 1), ((g,), (g, k + 1)))
+    return c1, l1, None
 
 
 def segment_blocks(

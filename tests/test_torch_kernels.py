@@ -431,6 +431,12 @@ MAIN_PATH_PLANS = [
     ("date", "view", 1_684, 4, 2, 1, False, ("atomic", 27, 28)),
     ("transactions", "blocks", 90_936, 0, 2, 90_936, True, ("one_row", 1, 4)),
     ("cluster", "blocks", 54, 0, 2, 54, True, ("one_row", 1, 4)),
+    # the degree-1 batch's nodes (and the categorical leg's g: queries)
+    ("onpromotion-view1", "view1", 18_641_880, 0, 1, 18_641_880, True, ("one_row", 2, 4)),
+    ("unit_sales-view1", "view1", 18_641_880, 1, 1, 18_641_880, True, ("one_row", 3, 4)),
+    ("item_nbr-view1", "view1", 18_641_880, 2, 1, 90_936, False, ("atomic", 4, 4)),
+    ("store_nbr-view1", "view1", 90_936, 3, 1, 1_684, False, ("atomic", 5, 8)),
+    ("date-view1", "view1", 1_684, 4, 1, 1, False, ("atomic", 6, 8)),
 ]
 
 
@@ -455,6 +461,10 @@ def test_plan_takes_one_row_path_only_with_order(degree):
         assert sv.plan("blocks", k, degree, False)["width"] == (
             1 + (k if degree >= 1 else 0) + (k * k if degree == 2 else 0))
     assert sv.plan("view", 3, 2, True)["path"] == "one_row"
+    for k in (0, 1, 3, 40):  # degree 1: [c, xc, l]
+        assert sv.plan("view1", k, 1, True)["path"] == "one_row"
+        assert sv.plan("view1", k, 1, False)["path"] == "atomic"
+        assert sv.plan("view1", k, 1, False)["width"] == k + 2
     assert sv.PATHS == ("one_row", "atomic")
 
 
@@ -498,6 +508,121 @@ def test_plain_versions_check_the_order_of_groups():
             ops.segment_view(c, x, l, q, seg, 40, order=bad)
         with pytest.raises(ValueError, match="order"):
             ops.segment_blocks(c, l, q, seg, 40, order=bad)
+
+
+@pytest.mark.parametrize("order", ["permutation", "identity"])
+@pytest.mark.parametrize("k", [0, 1, 3])
+def test_segment_view1_order_matches_pallas_interpret(order, k):
+    """Degree 1 with each group's row passed (path A on the card: the
+    onpromotion and unit_sales nodes): the plain version against the
+    reference's ``segment_view1_kernel_call`` in interpret mode."""
+    m = 96
+    seg, g, rows = _ids(order, m, seed=k)
+    c, x, l, _, _ = _inputs(m, k, g, seed=7)
+    got = ops.segment_view(*_t(c, x, l), None, seg, g, degree=1, order=rows)
+    want = rops.segment_view(
+        jnp.asarray(c), jnp.asarray(x), jnp.asarray(l), None, jnp.asarray(seg), g,
+        degree=1, impl="pallas", interpret=True,
+    )
+    assert got[2] is None and tuple(got[1].shape) == (g, k + 1)
+    _assert_blocks(got, want)
+
+
+#: (what, k, groups per column, value bytes) and the grouped-Gram plan each
+#: must take: (split, entries a CTA, launches)
+GRAM_PLANS = [
+    ("multi K 4 store+item", 4, [54, 4_100], 4, (1, 10, 1)),
+    ("K 6 item", 6, [4_100], 4, (2, 11, 1)),
+    ("K 40 chunked", 40, [4_000], 4, (8, 103, 9)),
+    ("K 6 item float64", 6, [4_100], 8, (5, 5, 1)),
+    ("K 313 one group", 313, [1], 4, (2, 24_571, 1)),
+    ("K 2 sixteen columns", 2, [96] * 8 + [48] * 8, 4, (1, 3, 1)),
+]
+
+
+@pytest.mark.parametrize("case", GRAM_PLANS, ids=[c[0] for c in GRAM_PLANS])
+def test_grouped_gram_plan_mirror(case):
+    """The Python mirror of the grouped-Gram launch plan (``chip_smoke.py``
+    holds it equal to the library's ``segment_gram_plan``): a split of one
+    where one CTA holds the accumulator (K 4, G 54 + 4,100), one launch of
+    two CTAs at K 6 and G 4,100, chunks at K 40 and G 4,000; and the layout
+    fits a Hopper block."""
+    _, k, groups, elem, (split, entries, chunks) = case
+    total = sum(groups)
+    p = sg.plan(k, total, elem, len(groups))
+    assert (p["split"], p["entries"], p["chunks"]) == (split, entries, chunks)
+    nt = k * (k + 1) // 2
+    assert p["split"] * p["entries"] >= nt > (p["split"] - 1) * p["entries"]
+    assert p["rows"] % 4 == 0 and p["rows"] >= 4 and p["stages"] in (1, 2, 4, 8)
+    g = min(total, p["most"])
+    ring = p["stages"] * p["rows"] * (k * elem + 4 * len(groups))
+    assert p["smem"] == 128 + ring + (g * p["entries"] + 3) // 4 * 4 * elem <= 232_448
+    assert (p["chunks"] == 1) == (total <= p["most"])
+    if split > 1 and chunks == 1:  # the least split that holds it
+        fewer = -(-nt // (split - 1))
+        assert total * fewer * elem > 232_448 - 128 - ring - 3 * elem
+
+
+def test_segment_gram_chunks_where_one_launch_cannot_hold():
+    """More groups than a split of 8 holds at K 6 (16,969): the ops layer
+    chunks by the plan, on both paths, and the result equals the
+    reference's."""
+    m, k, g = 300, 6, 17_200
+    assert sg.plan(k, g, 4)["chunks"] == 2
+    x = _gram_x(m, k, seed=3)
+    seg = np.random.default_rng(3).integers(0, g, m).astype(np.int32)
+    got = ops.segment_gram(torch.from_numpy(x), seg, g)
+    want = rref.segment_gram_ref(jnp.asarray(x), jnp.asarray(seg), g)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-3)
+
+
+def test_multi_segment_gram_falls_back_where_one_launch_cannot_hold():
+    """A fused accumulator over what one launch holds (K 6, 17,100 groups
+    in two columns) falls back to one segment_gram per column."""
+    m, k, doms = 200, 6, [17_000, 100]
+    assert sg.plan(k, sum(doms), 4, 2)["chunks"] > 1
+    x = torch.from_numpy(_gram_x(m, k, seed=4))
+    rng = np.random.default_rng(4)
+    segs = np.stack([rng.integers(0, d, m) for d in doms], axis=1).astype(np.int32)
+    got = ops.multi_segment_gram(x, segs, doms)
+    for i, (a, d) in enumerate(zip(got, doms)):
+        want = rref.segment_gram_ref(jnp.asarray(x.numpy()), jnp.asarray(segs[:, i]), d)
+        np.testing.assert_allclose(a.numpy(), np.asarray(want), rtol=1e-5, atol=1e-3)
+
+
+def _tool(name):
+    """``tools/<name>.py`` (a script, not a package) as a module."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _tool_arms():
+    out = []
+    for tool in ("segment_gram_variants", "segment_view_variants"):
+        for arm, spec in _tool(tool).EDITS.items():
+            pairs = spec.items() if isinstance(spec, dict) else [spec]
+            out += [(tool, arm, kind, edits) for kind, edits in pairs]
+    return out
+
+
+@pytest.mark.parametrize("tool,arm,kind,edits", _tool_arms(),
+                         ids=[f"{t}:{a}:{k}" for t, a, k, _ in _tool_arms()])
+def test_ablation_tool_edits_apply_to_the_checkout(tool, arm, kind, edits):
+    """Each ablation arm's (old text, new text) edits name text that the
+    checkout's kernel source or wrapper holds exactly once, so the arm
+    still builds from today's source."""
+    mod = _tool(tool)
+    base = (_build.CSRC / f"{tool.split('_variants')[0]}.cu" if kind == "cu"
+            else mod.WRAPPER).read_text()
+    for old, _ in edits:
+        assert base.count(old) == 1, (arm, old)
+    assert mod.edited(arm, kind, edits) != base
 
 
 def test_build_targets_hopper_from_repo_sources(monkeypatch, tmp_path):
@@ -583,14 +708,14 @@ def test_segment_gram_forced_chunking_matches_unchunked(budget):
 
 
 def test_segment_gram_group_chunking_at_default_budget():
-    """4000 groups of k = 40 (820 distinct values each) exceed the default
-    budget: the chunked result equals the reference's oracle."""
+    """4000 groups of k = 40 (820 distinct values each) exceed what one
+    launch holds: the chunked result equals the reference's oracle."""
     m, k, g = 64, 40, 4000
     x = _gram_x(m, k, seed=5)
     seg = np.random.default_rng(5).integers(0, g, m).astype(np.int32)
     got = ops.segment_gram(torch.from_numpy(x), seg, g)
     want = rref.segment_gram_ref(jnp.asarray(x), jnp.asarray(seg), g)
-    assert g * k * (k + 1) // 2 * 4 > ops.SMEM_ACC_BYTES
+    assert sg.plan(k, g, 4)["chunks"] > 1
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-3)
 
 

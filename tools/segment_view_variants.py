@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Ablation of the segment_view (degree 2) and segment_blocks kernels on one
-GPU, on the main path's own inputs.
+"""Ablation of the segment_view (degrees 2 and 1) and segment_blocks kernels
+on one GPU, on the main path's own inputs.
 
     python3 tools/segment_view_variants.py OLD_CU OLD_PY     # from the repo root
 
@@ -8,7 +8,8 @@ GPU, on the main path's own inputs.
 ``kernels/segment_view.py`` wrapper with the same interface as the first
 design's (from ``git show REV:PATH``, kept under a gitignored directory):
 one per-row atomic kernel into a zeroed compact ``[G, W]`` output,
-expanded in PyTorch.
+expanded in PyTorch (the port's first design; for degree 1, the kernel the
+degree-1 paths A and C replaced).
 
 The script builds, at once and with the port's ``nvcc`` flags, into
 ``chiprun_out/segment_view_variants/``:
@@ -32,7 +33,9 @@ without ``order``, that is through path C.
 
 It then captures the arguments of every ``segment_view`` and
 ``segment_blocks`` call of one closed-form ``linear_regression`` traversal of
-``chip_smoke.py``'s 18.6 M-row Favorita bundle and, node by node, holds each
+``chip_smoke.py``'s 18.6 M-row Favorita bundle, of its degree-1 batch (phase
+3) and the degree-1 ``segment_view`` calls of the categorical factorized leg
+(phase 4, the ``g:`` queries) and, node by node, holds each
 arm that applies to the node's path to the plain version (``KERNEL_RTOL``)
 and times it with CUDA events (median of single calls and the mean of calls
 queued back to back), in two rounds, the second in reverse order.  Last, the
@@ -62,7 +65,12 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
-from repro_torch.core import VERSIONS, linear_regression  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    VERSIONS,
+    AggregateQuery,
+    FactorizedEngine,
+    linear_regression,
+)
 from repro_torch.data import favorita_like  # noqa: E402
 from repro_torch.kernels import _build, ops as kops, ref  # noqa: E402
 from repro_torch.kernels import segment_view as sv  # noqa: E402
@@ -232,12 +240,24 @@ def main() -> None:
     cfg = dataclasses.replace(VERSIONS["closed"], backend="torch", device="cuda",
                               use_kernel=True)
     with cs.Capture(kops) as cap:
-        linear_regression(bundle.store, bundle.vorder, bundle.features, bundle.label, cfg)
+        r = linear_regression(bundle.store, bundle.vorder, bundle.features, bundle.label, cfg)
         torch.cuda.synchronize()
-    del bundle
-    cs.log(f"captured {len(cap.calls)} calls")
+    # the degree-1 calls: the degree-1 batch (phase 3) and the categorical
+    # factorized leg's g: queries (phase 4)
+    eng = FactorizedEngine(bundle.store, bundle.vorder, bundle.features + [bundle.label],
+                           scale=r.factors, device="cuda")
+    with cs.Capture(kops) as cap1:
+        eng.run_batch([AggregateQuery("deg1", (), 1)])
+    cat = dataclasses.replace(cfg, categorical=cs.CAT, factorized=True, use_kernel=False)
+    with cs.Capture(kops) as cap4:
+        linear_regression(bundle.store, bundle.vorder, bundle.features, bundle.label, cat)
+        torch.cuda.synchronize()
+    del bundle, eng
+    calls = cap.calls + [c for c in cap1.calls + cap4.calls
+                         if cs.call_node(sv, *c)["kernel"] == "segment_view1"]
+    cs.log(f"captured {len(calls)} calls")
     results = []
-    for name, args, kwargs in cap.calls:
+    for name, args, kwargs in calls:
         nd = cs.call_node(sv, name, args, kwargs)
         _, plain = cs.call_pair(sv, ref, name, args, kwargs)
         want = plain()
@@ -261,7 +281,7 @@ def main() -> None:
                    f"{r['ms_back_to_back'][0]:.4f} / {r['ms_back_to_back'][1]:.4f}  "
                    f"bound {row['bound_ms']:.4f}  max_abs_err {r['max_abs_err']:.3e}")
         results.append(row)
-    name, args, kwargs = cs.regroup_args(sv, cap.calls)
+    name, args, kwargs = cs.regroup_args(sv, calls)
     seg = torch.as_tensor(args[-2], device="cuda").long()
     split = cs.host_device_split({
         "new": cs.call_pair(sv, ref, name, args, kwargs)[0],
