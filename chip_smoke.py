@@ -16,8 +16,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    degrees take path A with each group's row where G = M; the blocks
    kernel's paths A and C run at every degree, also in float64, with
    random ids.  The grouped Grams' launch plan (``segment_gram_plan``:
-   CTAs a tile, entry split, chunks) is held equal to its mirror, and
-   segment_gram must take one launch at K = 6, G = 4,100.  Also gram at
+   CTAs a tile, entry split, copies of the hot bands, chunks) is held
+   equal to its mirror, and segment_gram must take one launch at K = 6,
+   G = 4,100.  moments at the date column is held to plain in float32 and
+   float64; it, segment_gram and multi_segment_gram are also timed back
+   to back and profiled.  Also gram at
    K = 130, forced segment_gram group chunking, chunking by the plan at
    K = 40, G = 4,000, a float64 and a K = 313 grouped Gram, the
    multi_segment_gram per-column fallback, and flash at the serving
@@ -36,7 +39,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    beside its bound and its device time in the profiled traversal; then
    the host/device split of one regroup at transactions against
    ``index_add_``.  The degree-1 batch runs profiled, and its
-   ``segment_view`` calls are captured and run again the same way.
+   ``segment_view`` calls are captured and run again the same way.  The
+   profiled closed-form run's ``moments`` calls (one a column) are
+   captured too; each runs again against its plain version, timed per
+   call, back to back and profiled beside its 4·m-byte bound.
 4. Categorical and cofactor baselines, on the same 18.6 M-row bundle:
    ``linear_regression`` closed form with ``categorical=("store_nbr",
    "item_nbr")`` on its factorized leg and on its materialized leg through
@@ -214,6 +220,19 @@ def time_ms_back_to_back(fn, launches: int = 20, warmup: int = 2) -> float:
     return start.elapsed_time(stop) / launches
 
 
+def profiled_ms(fn, calls: int = 20) -> float:
+    """Device ms a call of ``fn``: every kernel, fill and copy the device
+    ran for ``calls`` calls under the profiler, over their count."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return device_busy_ms(prof) / calls
+
+
 def paired_ms(fns: dict, rounds: int = 6, reps: int = 50, launches: int = 200) -> dict:
     """{name: (ms a call, ms back to back)} for calls whose host work is
     their cost: each the median over ``rounds`` in which the calls take
@@ -297,24 +316,29 @@ def plan_check(sv) -> None:
     log(f"{'segment_view':15s} plans of {n} calls as mirrored (path, width, padded)")
 
 
+#: the id columns' group counts gram_plan_check sweeps (the main path's
+#: among them: item; store and item; sixteen small bands)
+PLAN_GROUPS = ([1], [54], [4_100], [54, 4_100], [17_200], [90_936],
+               [96] * 8 + [48] * 8, [256, 257], [8] * 8)
+
+
 def gram_plan_check(sg) -> None:
     """The grouped Grams' launch plan (CTAs a tile, entries a CTA, stages, rows,
-    groups a launch holds, chunks, shared memory): the Python mirror
-    (``kernels/segment_gram.py:plan``, which the CPU tests check) must equal
-    the library's own at every width, group count, type and column count
-    below (the main path's among them)."""
+    copies of the hot bands, groups a launch holds, chunks, shared memory):
+    the Python mirror (``kernels/segment_gram.py:plan``, which the CPU tests
+    check) must equal the library's own at every width, band list and type
+    below."""
     n = 0
     for k in (1, 2, 3, 4, 5, 6, 7, 8, 9, 40, 130, 221, 313):
-        for total in (1, 54, 4_100, 4_154, 17_200, 90_936):
+        for groups in PLAN_GROUPS:
             for elem in (4, 8):
-                for n_seg in (1, 2, 16):
-                    got, want = sg.kernel_plan(k, total, elem, n_seg), sg.plan(k, total, elem, n_seg)
-                    if got != want:
-                        raise AssertionError(
-                            f"segment_gram plan {(k, total, elem, n_seg)}: {got} != {want}")
-                    n += 1
+                got, want = sg.kernel_plan(k, groups, elem), sg.plan(k, groups, elem)
+                if got != want:
+                    raise AssertionError(
+                        f"segment_gram plan {(k, groups[:4], elem)}: {got} != {want}")
+                n += 1
     log(f"{'segment_gram':15s} plans of {n} shapes as mirrored; K 6, G 4,100: "
-        f"{sg.plan(6, 4_100, 4)}; K 4, G 54 + 4,100: {sg.plan(4, 4_154, 4, 2)}")
+        f"{sg.plan(6, 4_100, 4)}; K 4, G 54 + 4,100: {sg.plan(4, [54, 4_100], 4)}")
 
 
 # (node, rows M, features k, groups G) of the main path's traversal
@@ -448,15 +472,23 @@ def kernel_phase(ref, sv, sg, mom, kops, kflash) -> dict:
     log(f"{'moments':15s} {'date column':13s} max_abs_err={err:.3e} tol={tol:.3e}")
     if not err <= tol:
         raise AssertionError(f"moments: sum error {err} > {tol}")
+    x64 = x.double()
+    (ks64, kmx64, _), (ps64, pmx64, _) = mom.moments(x64), ref.moments_ref(x64)
+    err64 = abs(float(ks64) - float(ps64))
+    log(f"{'moments':15s} {'date float64':13s} max_abs_err={err64:.3e}")
+    if not (err64 <= F64_RTOL * abs(float(ps64)) and float(kmx64) == float(pmx64)):
+        raise AssertionError(f"moments float64: sum error {err64}")
+    del x64
     b, by = bound_ms(m * 4 + 8, 2 * m)
     rows["moments"] = dict(
         name="moments", route="cuda",
         source="src/repro_torch/csrc/moments.cu",
         replaces="src/repro/kernels/moments.py:41 moments_kernel_call",
         shape=dict(column="date", rows=m),
-        max_abs_err=err, tol=tol,
+        max_abs_err=err, tol=tol, max_abs_err_f64=err64,
         ms=time_ms(kern), plain_ms=time_ms(plain),
         bound_ms=b, bound_by=by, library_ms=None,
+        ms_back_to_back=time_ms_back_to_back(kern), device_ms_profiled=profiled_ms(kern),
     )
     for r in rows.values():
         log(
@@ -525,8 +557,8 @@ def gram_family(ref, kops, sg, gen, check) -> dict:
         shape=dict(rows=m, k=6, groups=g_item), max_abs_err=max(err, errc), tol=tol,
         ms=time_ms(kern), plain_ms=time_ms(plain, reps=3),
         bound_ms=b, bound_by=by, library_ms=None,
-        ms_back_to_back=time_ms_back_to_back(kern), launches_per_call=n_launch,
-        plan=sg.plan(6, g_item, 4), also=other,
+        ms_back_to_back=time_ms_back_to_back(kern), device_ms_profiled=profiled_ms(kern),
+        launches_per_call=n_launch, plan=sg.plan(6, g_item, 4), also=other,
     )
 
     u4 = u[:, :4].contiguous()
@@ -548,7 +580,8 @@ def gram_family(ref, kops, sg, gen, check) -> dict:
         shape=dict(rows=m, k=4, groups=groups), max_abs_err=max(err, errf), tol=tol,
         ms=time_ms(kern), plain_ms=time_ms(plain, reps=3),
         bound_ms=b, bound_by=by, library_ms=None,
-        ms_back_to_back=time_ms_back_to_back(kern), plan=sg.plan(4, sum(groups), 4, 2),
+        ms_back_to_back=time_ms_back_to_back(kern), device_ms_profiled=profiled_ms(kern),
+        plan=sg.plan(4, groups, 4),
     )
     return rows
 
@@ -836,7 +869,7 @@ def main_path(rt, bundle) -> dict:
         # the peak memory of the path is read)
         peak = torch.cuda.max_memory_allocated()
         with torch.profiler.profile(activities=activities) as prof, \
-                Capture(rt.kops) as cap:
+                Capture(rt.kops) as cap, Capture(rt.kops, ("moments",)) as cap_m:
             rt.linear_regression(store, vorder, feats, label, cfg)
             torch.cuda.synchronize()
         busy = device_busy_ms(prof) / 1e3
@@ -854,6 +887,7 @@ def main_path(rt, bundle) -> dict:
         for name, us in device_ops(prof)[:12]:
             log(f"  device {us / 1e3:10.3f} ms  {name[:100]}")
         node_ms = node_device_ms(prof, cap.calls, rt.sv)
+        scale_ms = kernel_device_ms(prof, "moments_kernel")
         # one degree-1 batch: every feature node through segment_view1
         cols = feats + [label]
         factors = results["closed"].factors
@@ -881,7 +915,8 @@ def main_path(rt, bundle) -> dict:
     traversal = main_path_kernels(rt, cap.calls, node_ms)
     traversal["degree1"] = main_path_kernels(rt, *view1_calls(rt, cap1.calls, node_ms1),
                                              split=False)
-    del cap, cap1
+    traversal["moments"] = moments_calls(rt, cap_m.calls, feats + [label], scale_ms)
+    del cap, cap1, cap_m
 
     # the degree-1 aggregates over the join equal float64 sums of the fact
     # table: every sale joins exactly one row of each dimension
@@ -894,6 +929,53 @@ def main_path(rt, bundle) -> dict:
         if not abs(got - expect) <= ORACLE_RTOL * np.abs(terms).sum():
             raise AssertionError(f"degree-1 Σ{f}: {got} vs {expect}")
     return counts, traversal
+
+
+def kernel_device_ms(prof, name: str) -> list:
+    """Device ms of each launch of the kernels whose name holds ``name`` in
+    a profiled run, in launch order."""
+    return [us / 1e3 for _, us in sorted(
+        (e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+        if e.device_type != torch.autograd.DeviceType.CPU and name in e.name)]
+
+
+def moments_calls(rt, calls, columns, device_ms) -> list:
+    """Each captured ``moments`` call of the profiled closed-form run (one
+    a column, in ``columns``' order) again, on its own column: against its
+    plain version (count and max equal, the sum within KERNEL_RTOL of
+    Σ|x|), whether two calls give bitwise-equal sums, timed per call, back
+    to back and profiled (all the call's device work), beside its bound (4·m
+    bytes read) and its kernel's device time in the profiled run."""
+    if len(calls) != len(columns):
+        raise AssertionError(f"{len(calls)} moments calls for the columns {columns}")
+    if len(device_ms) != len(calls):
+        log(f"  {len(device_ms)} profiled moments launches for {len(calls)} calls: "
+            "no per-call device time")
+        device_ms = [None] * len(calls)
+    out = []
+    for (_, args, _), col, dev_ms in zip(calls, columns, device_ms):
+        x = args[0]
+        kern = functools.partial(rt.kops.moments, x)
+        (ks, kmx, kn), (ps, pmx, pn) = kern(), rt.ref.moments_ref(x)
+        err = abs(float(ks) - float(ps))
+        tol = KERNEL_RTOL * float(x.double().abs().sum())
+        if kn != pn or float(kmx) != float(pmx) or not err <= tol:
+            raise AssertionError(f"moments at {col}: ({float(ks)}, {float(kmx)}, {kn}) vs "
+                                 f"({float(ps)}, {float(pmx)}, {pn}), tol {tol}")
+        b, by = bound_ms(4 * x.shape[0], 2 * x.shape[0])
+        row = dict(column=col, rows=int(x.shape[0]), max_abs_err=err, tol=tol,
+                   bitwise_equal=bool(torch.equal(ks, kern()[0])),
+                   ms=time_ms(kern), ms_back_to_back=time_ms_back_to_back(kern),
+                   device_ms_call=profiled_ms(kern), device_ms_profiled=dev_ms,
+                   plain_ms=time_ms(functools.partial(rt.ref.moments_ref, x)),
+                   bound_ms=b, bound_by=by)
+        dev = "not attributed" if dev_ms is None else f"{dev_ms:.4f}"
+        log(f"  moments {col:12s} M {row['rows']}: ms={row['ms']:.4f} back-to-back "
+            f"{row['ms_back_to_back']:.4f} profiled {row['device_ms_call']:.4f} (in the run "
+            f"{dev}) plain_ms={row['plain_ms']:.4f} bound_ms={b:.4f} ({by}) "
+            f"max_abs_err={err:.3e} tol={tol:.3e} bitwise_equal={row['bitwise_equal']}")
+        out.append(row)
+    return out
 
 
 def call_node(sv, name, args, kwargs) -> dict:
@@ -1656,6 +1738,7 @@ def main() -> None:
             per_traversal=traversal["per_traversal"][name],
         )
     rows["segment_reduce"]["main_path"]["split_us"] = traversal["transactions_split"]
+    rows["moments"]["main_path"] = dict(phase3=traversal["moments"])
 
     log("phase 4: categorical regression and cofactor baselines")
     counts4, views4, grams = categorical_phase(rt, bundle)

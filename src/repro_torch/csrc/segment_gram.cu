@@ -17,23 +17,24 @@
 // and n_seg ids) and costs K(K+1)/2 products, added to n_seg groups: a few
 // flops per byte, so the bound is bytes (Favorita's 18.6 M rows: 522 MB at
 // K = 6, n_seg = 1; 447 MB at K = 4, n_seg = 2 — 0.13 to 0.16 ms).  What
-// limits a design is the adds: 391 M at K = 6, into an accumulator of
-// ΣG·K(K+1)/2 values (344,400 bytes at G = 4,100) that has to live in shared
-// memory.  sm_90 has no shared-memory float add: atomicAdd and
-// red.shared.add.f32 compile to a compare-and-swap loop (ATOMS.CAST.SPIN),
-// which an SM runs at ~1.9 adds a clock with 1024 threads
+// limits a design is the adds: 373 M to 391 M on the main path's shapes,
+// into an accumulator of ΣG·K(K+1)/2 values (344,400 bytes at G = 4,100)
+// that has to live in shared memory.  sm_90 has no shared-memory float add:
+// atomicAdd and red.shared.add.f32 compile to a compare-and-swap loop
+// (ATOMS.CAST.SPIN), and every form of add is bounded by the shared
+// memory's banks, which lanes of random groups hit several at a time
 // (tools/segment_gram_variants.py measures the rates and shows the SASS).
 //
 // Design.  The TPU kernel adds rows with a one-hot matmul into a VMEM-resident
 // [G, K, K] accumulator; the H100 has no use for that O(M·G) product.
 //
-//  * One launch reads x and the ids once.  The accumulator [ΣG, K(K+1)/2]
-//    is split by triangle entries over a crew of C = `split` CTAs, C the
-//    least that holds it (plan(); kernels/segment_gram.py:plan mirrors it):
-//    CTA b (of crew b / C, rank r = b % C) owns entries [r·E, (r+1)·E) of
-//    every group, E = ceil(K(K+1)/2 / C), so a skewed key weighs on every
-//    CTA alike.  Each CTA reads every row of its crew's tiles and adds its
-//    own products only: the CTAs exchange nothing, so a plain grid launches
+//  * One launch reads x and the ids once.  The accumulator is split by
+//    triangle entries over a crew of C = `split` CTAs, C the least that
+//    holds it (plan(); kernels/segment_gram.py:plan mirrors it): CTA b
+//    (of crew b / C, rank r = b % C) owns entries [r·E, (r+1)·E) of every
+//    group, E = ceil(K(K+1)/2 / C), so a skewed key weighs on every CTA
+//    alike.  Each CTA reads every row of its crew's tiles and adds its own
+//    products only: the CTAs exchange nothing, so a plain grid launches
 //    them, all resident at once, and L2 serves a tile's second read (a
 //    thread-block cluster that co-schedules each crew is no faster:
 //    tools/segment_gram_variants.py, arm cluster_launch).  An accumulator
@@ -43,19 +44,34 @@
 //    teams, each with one stage of R rows (x and ids) that cp.async.bulk
 //    fills on an mbarrier; the team's first thread refills it as soon as the
 //    team is done with it, and while one team waits the others add.
-//  * Lanes of a warp whose rows share a group first sum their products
-//    (__match_any_sync and a shuffle tree), so a hot group costs a warp one
-//    add.  The leader of each group then adds its products kBatch at a
-//    time: the shared loads, then the compare-and-swaps, all in flight at
-//    once; a swap that lost a race goes through atomicAdd's own loop.
-//    Against atomicAdd alone this is faster where swaps rarely collide
-//    (random ids over 4,100 groups) and as fast where they do (54 hot
-//    groups).  Rows of K <= 8 keep their values in registers; wider rows
-//    read them from the stage.
-//  * Each CTA then adds its slab [ΣG, E] of sums (contiguous in the compact
-//    result [C, ΣG, E]) to global memory with vector atomics (float4; double
-//    adds one value at a time), and a last small kernel expands the compact
-//    sums into the symmetric [ΣG, K, K] output.
+//  * Each band (the groups of one id column) has its own region.  A hot
+//    band (at most 256 groups, such as Favorita's 54 stores) is where the
+//    lanes of a CTA meet: 32 warps adding random rows to 54 groups lose
+//    many of their compare-and-swaps.  It is kept in up to 16 copies, lane
+//    l adding to copy l % 16, interleaved so that the copies of an entry
+//    lie side by side (entry t of group g, copy q at (g·E' + t)·16 + q, E'
+//    = E made odd): lanes then rarely share an address and mostly hit
+//    banks of their own.  The plan keeps as many copies (16, 8, 4, 2) as
+//    fit beside the rest, and the flush sums them.  A band of more groups
+//    (Favorita's 4,100 items) is one copy: its lanes rarely meet.
+//  * Every lane adds its own products: merging the lanes of a group first
+//    (__match_any_sync and a shuffle tree) costs more than the copies leave
+//    it to save, on random ids and on the join's order alike
+//    (tools/segment_gram_variants.py, arm merge_hot).  A lane adds
+//    one entry at a time, a shared load and a compare-and-swap (two or
+//    four in flight only add registers: arms batch2, batch4); a swap that
+//    lost a race goes through atomicAdd's own loop.  Rows of K <= 8 keep
+//    their values in registers; wider rows read them from the stage.
+//  * A band of one copy keeps each group's E entries rotated by a few
+//    slots (Args::rot_shift), so that where E is even the groups of a
+//    warp's lanes still start on all 32 banks (arm no_rotation).
+//  * The group counts travel as kernel arguments (no copy to the device),
+//    and the scratch of crew sums is zeroed on the stream inside the C
+//    function.  Each CTA then adds its slab [ΣG, E] of sums (contiguous in
+//    the compact result [C, ΣG, E], copies summed) to global memory with
+//    vector atomics (float4; double adds one value at a time), and a last
+//    small kernel expands the compact sums into the symmetric [ΣG, K, K]
+//    output.
 //
 // float inputs accumulate in float, double in double.  The adds land in an
 // order that changes from run to run.
@@ -73,7 +89,10 @@ constexpr int kMaxSplit = 8;        // the most CTAs a tile's entries split over
 constexpr int kMaxStages = 8;       // teams (one stage each) a CTA
 constexpr int kMaxRows = 128;       // rows a stage
 constexpr int kCacheK = 8;          // rows up to this width live in registers
-constexpr int kBatch = 2;           // compare-and-swaps in flight a thread
+constexpr int kBatch = 1;           // compare-and-swaps in flight a thread
+constexpr int kMaxBands = 32;       // id columns one launch takes
+constexpr int kHotGroups = 256;     // a band this small is hot
+constexpr int kMaxCopies = 16;      // copies of the hot bands, at most
 constexpr unsigned kFull = 0xffffffffu;
 
 __host__ __device__ __forceinline__ int64_t tri(int i, int j, int k) {
@@ -97,19 +116,41 @@ struct Plan {
   int entries;   // triangle entries a CTA owns (E)
   int stages;    // teams, each with one stage, a CTA
   int rows;      // rows a stage
+  int copies;    // copies of each hot band (1: none)
   int64_t most;    // groups (ΣG) one launch holds
   int64_t chunks;  // launches the caller makes (ceil(ΣG / most), at least 1)
   int64_t smem;    // dynamic shared memory of a CTA
 };
 
-// The launch of a [M, k] grouped Gram over n_seg id columns and ΣG = total
-// groups of elem-byte values: the least split whose CTAs hold their
-// entries of every group beside the stages, else the widest one, chunked.
+__host__ __device__ __forceinline__ bool hot(int64_t groups) {
+  return groups <= kHotGroups;
+}
+
+// the accumulator's values: each band's groups at e entries a group; a hot
+// band in `copies` copies, its groups at an odd stride where copies > 1
+int64_t acc_len(const int64_t* groups, int n_seg, int64_t e, int copies) {
+  int64_t n = 0;
+  for (int c = 0; c < n_seg; ++c)
+    n += hot(groups[c]) && copies > 1 ? groups[c] * (e | 1) * copies
+                                      : groups[c] * e;
+  return n;
+}
+
+// The launch of a [M, k] grouped Gram over n_seg id columns of groups[c]
+// groups of elem-byte values: the least split whose CTAs hold their entries
+// of every group (ΣG = total) beside the stages, else the widest one,
+// chunked; in one launch, the most copies of the hot bands that still fit.
 // kernels/segment_gram.py:plan is its mirror.
-Plan plan(int k, int n_seg, int64_t total, int elem) {
+Plan plan(int k, int n_seg, const int64_t* groups, int elem) {
   const int64_t nt = (int64_t)k * (k + 1) / 2;
   const int64_t row_bytes = (int64_t)k * elem + 4LL * n_seg;
-  Plan p{0, 0, 0, 0, 0, 0, 0};
+  int64_t total = 0;
+  bool any_hot = false;
+  for (int c = 0; c < n_seg; ++c) {
+    total += groups[c];
+    any_hot = any_hot || hot(groups[c]);
+  }
+  Plan p{0, 0, 0, 0, 0, 0, 0, 0};
   for (int c = 1; c <= kMaxSplit; ++c) {
     const int64_t e = (nt + c - 1) / c;
     int stages = kMaxStages;
@@ -124,10 +165,18 @@ Plan plan(int k, int n_seg, int64_t total, int elem) {
     const int64_t avail = (kSmemBlock - kBarBytes - ring) / elem;
     const int64_t most = (avail - 3) / (e > 0 ? e : 1);
     if (most < 1) continue;
-    const int64_t g = total < most ? total : most;
-    p = Plan{c, (int)e, stages, (int)rows, most,
+    int copies = 1;
+    int64_t len = (total < most ? total : most) * e;
+    if (total <= most) {
+      for (copies = any_hot ? kMaxCopies : 1;
+           copies > 1 && acc_len(groups, n_seg, e, copies) + 3 > avail;
+           copies /= 2) {
+      }
+      len = acc_len(groups, n_seg, e, copies);
+    }
+    p = Plan{c, (int)e, stages, (int)rows, copies, most,
              total > most ? (total + most - 1) / most : 1,
-             kBarBytes + ring + (g * e + 3) / 4 * 4 * elem};
+             kBarBytes + ring + (len + 3) / 4 * 4 * elem};
     if (total <= most) break;
   }
   return p;
@@ -214,69 +263,61 @@ __device__ __forceinline__ void cas_add(T* acc, const int (&at)[kBatch],
     if (pend >> u & 1) atomicAdd(acc + at[u], p[u]);
 }
 
+// Band c (id column c) in a CTA's accumulator: entry t of its group g lies
+// at base[c] + (g * stride[c] + slot) * step + copy.  A hot band kept in
+// copies has step = copies, copy = the adding lane % copies and slot =
+// t - t0; a band of one copy has step 1, copy 0 and its slots rotated
+// (rot_shift below).
 template <typename T>
 struct Args {
   const T* x;
   const int32_t* segs;
-  const int64_t* bands;  // [2 n_seg]: groups of each column, then its offset
-  T* compact;            // [C, slab] zeroed: CTA r's [ΣG, E] sums, padded
+  T* compact;  // [C, slab] zeroed: CTA r's [ΣG, E] sums, padded
   int64_t m, slab;
-  int k, n_seg, nt, entries, split, stages, rows;
+  int k, n_seg, nt, entries, split, stages, rows, copies, acc_len;
+  // a one-copy band's group g keeps its E entries rotated by (g >> rot_shift)
+  // & rot_mask slots, so that the groups of a warp's lanes start on all 32
+  // banks where E is even (E = 10 alone would start them on 16)
+  int rot_shift, rot_mask;
+  uint32_t hot;  // bit c: band c is hot
+  int32_t groups[kMaxBands], first[kMaxBands], base[kMaxBands],
+      stride[kMaxBands];  // first: the band's offset in the ΣG groups
 };
 
-// Sum v over each lane's peers (the lanes of its group) into the peer with
-// the lowest lane: a shuffle tree of log2(peers) steps (all 32 lanes take
-// part; lanes without a group form one of their own and sum zeros).  Lanes
-// other than the lowest of each group end with partial sums.
-template <typename T>
-__device__ __forceinline__ void reduce_peers(unsigned peers, int lane,
-                                             T (&v)[kBatch]) {
-  int rank = __popc(peers & ((1u << lane) - 1));
-  unsigned above = peers & (0xfffffffeu << lane);
-  while (__any_sync(kFull, above)) {
-    const int next = __ffs(above);  // 1 + the next peer's lane, 0 if none
-#pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      const T o = __shfl_sync(kFull, v[u], (next - 1) & 31);
-      if (next) v[u] += o;
-    }
-    above &= ~__ballot_sync(kFull, rank & 1);
-    rank >>= 1;
-  }
+// A lane's row in one id column: entry t0 of its group lies at acc[base],
+// entry t at acc[base + (t - t0) * step]; valid false where the id is
+// outside the band (the row adds nothing there).
+struct Lane {
+  int base, step;
+  int rot, e;  // entry t lies at slot (t - t0 + rot) mod e of the group
+  bool valid;
+};
+
+// slot (t - t0 + rot) mod e of entry t, 0 <= t - t0 < e
+__device__ __forceinline__ int slot(const Lane& ln, int t) {
+  const int q = t + ln.rot;
+  return q >= ln.e ? q - ln.e : q;
 }
 
-// A warp's lanes and their groups in one id column: the lanes that share a
-// group (peers) sum their products before the lowest of them (the leader)
-// adds; merge is false, and costs nothing, where no two lanes share one.
-struct Lanes {
-  int lane, base;  // base: the lane's group's run of E values in acc
-  unsigned peers;
-  bool valid, merge, leader;
-};
-
-// One batch of products p of entries at[u] (on: those of this CTA), summed
-// over each group's lanes and added by its leader
+// One batch of products p of entries at[u] (on: those of this CTA) added
 template <typename T>
-__device__ __forceinline__ void add_batch(T* acc, const Lanes& ln,
+__device__ __forceinline__ void add_batch(T* acc, const Lane& ln,
                                           const int (&at)[kBatch],
-                                          T (&p)[kBatch], unsigned on) {
-  if (ln.merge) reduce_peers(ln.peers, ln.lane, p);  // warp-uniform
+                                          const T (&p)[kBatch], unsigned on) {
   unsigned pend = 0;
-  if (ln.leader) {
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u)
-      if ((on >> u & 1) && p[u] != T(0)) pend |= 1u << u;
-  }
+  for (int u = 0; u < kBatch; ++u)
+    if ((on >> u & 1) && p[u] != T(0)) pend |= 1u << u;
   cas_add(acc, at, p, pend);
 }
 
 // Entries [t0, t1) of a row whose K = KC values are v; entry t goes to
-// acc[base + t - t0], in batches of kBatch consecutive entries.  Every index
+// acc[base + (t - t0) * step], in batches of kBatch consecutive entries.  Every index
 // is a compile-time constant, so v and the batch stay in registers; t0 and
 // t1 are the same for the whole CTA, so the skipped batches cost no
 // divergence.
 template <typename T, int KC>
-__device__ __forceinline__ void add_cached(T* acc, const Lanes& ln,
+__device__ __forceinline__ void add_cached(T* acc, const Lane& ln,
                                            const T (&v)[kCacheK], int t0,
                                            int t1) {
   constexpr int kNT = KC * (KC + 1) / 2;
@@ -288,11 +329,11 @@ __device__ __forceinline__ void add_cached(T* acc, const Lanes& ln,
 #pragma unroll
     for (int j = i; j < KC; ++j) {
       const int t = (int)tri(i, j, KC), u = t % kBatch;
-      at[u] = ln.base + t - t0;
+      at[u] = ln.base + slot(ln, t - t0) * ln.step;
       p[u] = ln.valid ? v[i] * v[j] : T(0);
       if (t >= t0 && t < t1) on |= 1u << u;
       if (u == kBatch - 1 || t == kNT - 1) {  // a batch is complete
-        if (on) add_batch(acc, ln, at, p, on);
+        if (on) add_batch<T>(acc, ln, at, p, on);
         on = 0;
 #pragma unroll
         for (int w = 0; w < kBatch; ++w) p[w] = T(0);
@@ -304,7 +345,7 @@ __device__ __forceinline__ void add_cached(T* acc, const Lanes& ln,
 // The same for a row of any width, its values read where they lie;
 // (i0, j0) is entry t0's place
 template <typename T>
-__device__ __forceinline__ void add_wide(T* acc, const Lanes& ln,
+__device__ __forceinline__ void add_wide(T* acc, const Lane& ln,
                                          const T* xr, int k, int t0, int t1,
                                          int i0, int j0) {
   int i = i0, j = j0;
@@ -314,7 +355,7 @@ __device__ __forceinline__ void add_wide(T* acc, const Lanes& ln,
     unsigned on = 0;
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      at[u] = ln.base + tb + u - t0;
+      at[u] = ln.base + slot(ln, tb + u - t0) * ln.step;
       p[u] = T(0);
       if (tb + u < t1) {
         if (ln.valid) p[u] = xr[i] * xr[j];
@@ -322,7 +363,7 @@ __device__ __forceinline__ void add_wide(T* acc, const Lanes& ln,
         if (++j == k) j = ++i;
       }
     }
-    add_batch(acc, ln, at, p, on);
+    add_batch<T>(acc, ln, at, p, on);
   }
 }
 
@@ -338,17 +379,21 @@ __device__ __forceinline__ void add_rows(const Args<T>& a, T* acc,
 #pragma unroll
     for (int i = 0; i < KC; ++i) v[i] = in ? xr[i] : T(0);
   }
-  Lanes ln;
-  ln.lane = threadIdx.x & 31;
-  for (int c = 0; c < a.n_seg; ++c) {
-    const int64_t s = in ? ids[c] : -1;
-    ln.valid = s >= 0 && s < __ldg(a.bands + c);
-    if (!__any_sync(kFull, ln.valid)) continue;  // warp-uniform
-    const int gid = ln.valid ? (int)(__ldg(a.bands + a.n_seg + c) + s) : -1;
-    ln.peers = __match_any_sync(kFull, gid);
-    ln.merge = __any_sync(kFull, ln.valid && ln.peers != (1u << ln.lane));
-    ln.leader = ln.valid && __ffs(ln.peers) - 1 == ln.lane;
-    ln.base = gid * a.entries;
+  Lane ln;
+  ln.e = a.entries;
+  for (int c = 0; c < a.n_seg; ++c) {  // warp-uniform
+    const int s = in ? ids[c] : -1;
+    ln.valid = (unsigned)s < (unsigned)a.groups[c];
+    if (!__any_sync(kFull, ln.valid)) continue;
+    int copy = 0;
+    ln.step = 1;
+    ln.rot = ln.valid ? (s >> a.rot_shift) & a.rot_mask : 0;
+    if (a.hot >> c & 1 && a.copies > 1) {  // lane l adds to copy l % copies
+      ln.step = a.copies;                   // (a power of two)
+      ln.rot = 0;
+      copy = threadIdx.x & (a.copies - 1);
+    }
+    ln.base = a.base[c] + (ln.valid ? s : 0) * a.stride[c] * ln.step + copy;
     if constexpr (KC > 0)
       add_cached<T, KC>(acc, ln, v, t0, t1);
     else
@@ -356,12 +401,36 @@ __device__ __forceinline__ void add_rows(const Args<T>& a, T* acc,
   }
 }
 
+// The sum over its copies of compact entry e (group e / E of ΣG, its entry
+// t0 + e % E); 0 past the last group
+template <typename T>
+__device__ __forceinline__ T entry_sum(const Args<T>& a, const T* acc,
+                                       int64_t e, int64_t filled) {
+  if (e >= filled) return T(0);
+  int g = (int)(e / a.entries);
+  const int t = (int)(e % a.entries);
+  int c = 0;
+  while (g >= a.first[c] + a.groups[c]) ++c;
+  g -= a.first[c];
+  const int step = (a.hot >> c & 1) ? a.copies : 1;
+  int q = t;
+  if (step == 1) {  // the group's entries rotated (Lane::rot)
+    q += (g >> a.rot_shift) & a.rot_mask;
+    if (q >= a.entries) q -= a.entries;
+  }
+  const T* src = acc + a.base[c] + ((int64_t)g * a.stride[c] + q) * step;
+  T sum = src[0];
+  for (int q = 1; q < step; ++q) sum += src[q];
+  return sum;
+}
+
 // A persistent crew walks tiles cr, cr + n_cr, ... of R rows; each team of
 // the CTA takes every S-th of them through its own stage.  The rows after
 // the last whole tile, fewer than a stage holds, are read from global
 // memory by the first crew.
 template <typename T, int KC>
-__global__ void __launch_bounds__(kThreads, 1) gram_rows(Args<T> a) {
+__global__ void __launch_bounds__(kThreads, 1)
+    gram_rows(const __grid_constant__ Args<T> a) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int rank = blockIdx.x % a.split;
   const int64_t cr = blockIdx.x / a.split, n_cr = gridDim.x / a.split;
@@ -378,7 +447,7 @@ __global__ void __launch_bounds__(kThreads, 1) gram_rows(Args<T> a) {
   const uint32_t full = smem_u32(bars + team);
   unsigned char* stage = ring + team * stage_bytes;
 
-  for (int64_t e = threadIdx.x; e < a.slab; e += kThreads) acc[e] = T(0);
+  for (int e = threadIdx.x; e < a.acc_len; e += kThreads) acc[e] = T(0);
   if (threadIdx.x == 0) {
     for (int s = 0; s < a.stages; ++s) mbar_init(smem_u32(bars + s), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -417,16 +486,24 @@ __global__ void __launch_bounds__(kThreads, 1) gram_rows(Args<T> a) {
   }
   __syncthreads();
 
+  // compact[rank][(first[c] + g) E + t - t0] += the copies' sums of entry t
+  // of group g of band c
   T* dst = a.compact + rank * a.slab;
-  if constexpr (sizeof(T) == 4) {
-    for (int64_t e = 4 * threadIdx.x; e < a.slab; e += 4 * kThreads) {
-      const float4 v = *reinterpret_cast<const float4*>(acc + e);
-      if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)
-        atomicAdd(reinterpret_cast<float4*>(dst + e), v);
+  const int64_t filled = (int64_t)(a.first[a.n_seg - 1] + a.groups[a.n_seg - 1]) *
+                         a.entries;
+  for (int64_t e0 = 4 * threadIdx.x; e0 < a.slab; e0 += 4 * kThreads) {
+    T v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = entry_sum(a, acc, e0 + q, filled);
+    if constexpr (sizeof(T) == 4) {
+      if (v[0] != 0.f || v[1] != 0.f || v[2] != 0.f || v[3] != 0.f)
+        atomicAdd(reinterpret_cast<float4*>(dst + e0),
+                  make_float4(v[0], v[1], v[2], v[3]));
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (v[q] != T(0)) atomicAdd(dst + e0 + q, v[q]);
     }
-  } else {
-    for (int64_t e = threadIdx.x; e < a.slab; e += kThreads)
-      if (acc[e] != T(0)) atomicAdd(dst + e, acc[e]);
   }
 }
 
@@ -471,29 +548,58 @@ int launch_rows(const Args<T>& a, const Plan& p, cudaStream_t s) {
 
 template <typename T>
 int launch(const T* x, const int32_t* segs, int64_t m, int k, int n_seg,
-           const int64_t* bands, int64_t total, int split, T* compact,
-           T* out, cudaStream_t s) {
-  if (k <= 0 || total <= 0 || n_seg <= 0) return (int)cudaErrorInvalidValue;
-  const Plan p = plan(k, n_seg, total, (int)sizeof(T));
+           const int64_t* groups, int split, T* compact, T* out,
+           cudaStream_t s) {
+  if (k <= 0 || n_seg <= 0 || n_seg > kMaxBands)
+    return (int)cudaErrorInvalidValue;
+  int64_t total = 0;
+  for (int c = 0; c < n_seg; ++c) {
+    if (groups[c] < 0) return (int)cudaErrorInvalidValue;
+    total += groups[c];
+  }
+  if (total <= 0 || total > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const Plan p = plan(k, n_seg, groups, (int)sizeof(T));
   // the caller's plan (the mirror's) sized ``compact``: it must be this one
   if (p.split != split || p.chunks != 1) return (int)cudaErrorInvalidValue;
   const int64_t slab = (total * p.entries + 3) / 4 * 4;
+  cudaError_t err =
+      cudaMemsetAsync(compact, 0, (size_t)(p.split * slab) * sizeof(T), s);
+  if (err != cudaSuccess) return (int)err;
   if (m > 0) {
-    const Args<T> a{x, segs, bands, compact, m, slab, k, n_seg,
-                    k * (k + 1) / 2, p.entries, p.split, p.stages, p.rows};
-    int err;
-    switch (k) {
-      case 1: err = launch_rows<T, 1>(a, p, s); break;
-      case 2: err = launch_rows<T, 2>(a, p, s); break;
-      case 3: err = launch_rows<T, 3>(a, p, s); break;
-      case 4: err = launch_rows<T, 4>(a, p, s); break;
-      case 5: err = launch_rows<T, 5>(a, p, s); break;
-      case 6: err = launch_rows<T, 6>(a, p, s); break;
-      case 7: err = launch_rows<T, 7>(a, p, s); break;
-      case 8: err = launch_rows<T, 8>(a, p, s); break;
-      default: err = launch_rows<T, 0>(a, p, s); break;
+    // d = gcd(E, 32): groups g and g + 32 / d start on the same bank
+    int d = 1;
+    while (d < 32 && p.entries % (2 * d) == 0) d *= 2;
+    int shift = 0;
+    while ((1 << shift) < 32 / d) ++shift;
+    Args<T> a{x, segs, compact, m, slab, k, n_seg, k * (k + 1) / 2, p.entries,
+              p.split, p.stages, p.rows, p.copies, 0, shift, d - 1, 0u,
+              {}, {}, {}, {}};
+    int64_t first = 0, base = 0;
+    for (int c = 0; c < n_seg; ++c) {
+      const bool h = hot(groups[c]);
+      const int step = h ? p.copies : 1;
+      a.groups[c] = (int32_t)groups[c];
+      a.first[c] = (int32_t)first;
+      a.base[c] = (int32_t)base;
+      a.stride[c] = step > 1 ? (p.entries | 1) : p.entries;
+      if (h) a.hot |= 1u << c;
+      first += groups[c];
+      base += groups[c] * a.stride[c] * step;
     }
-    if (err != 0) return err;
+    a.acc_len = (int)base;
+    int e;
+    switch (k) {
+      case 1: e = launch_rows<T, 1>(a, p, s); break;
+      case 2: e = launch_rows<T, 2>(a, p, s); break;
+      case 3: e = launch_rows<T, 3>(a, p, s); break;
+      case 4: e = launch_rows<T, 4>(a, p, s); break;
+      case 5: e = launch_rows<T, 5>(a, p, s); break;
+      case 6: e = launch_rows<T, 6>(a, p, s); break;
+      case 7: e = launch_rows<T, 7>(a, p, s); break;
+      case 8: e = launch_rows<T, 8>(a, p, s); break;
+      default: e = launch_rows<T, 0>(a, p, s); break;
+    }
+    if (e != 0) return e;
   }
   const int64_t n = total * k * k;
   int64_t blocks = (n + 255) / 256;
@@ -506,46 +612,49 @@ int launch(const T* x, const int32_t* segs, int64_t m, int k, int n_seg,
 }  // namespace
 
 // C interface for ctypes.  ``x`` is a contiguous [m, k] matrix, ``segs`` a
-// contiguous [m, n_seg] int32 matrix, both 16-byte aligned; ``bands`` [2 *
-// n_seg] int64 device values (groups of each column, then band offsets;
-// total = Σ groups); ``split`` the caller's plan; ``compact`` a zeroed
-// [split, slab] buffer, slab = total · entries rounded up to 4; ``out``
-// the [total, k, k] result (every entry written).  The plan must hold all
-// groups in one launch (chunks 1).  Device memory on the caller's stream;
+// contiguous [m, n_seg] int32 matrix, both 16-byte aligned device memory;
+// ``groups`` (host memory) the n_seg <= 32 columns' group counts, total =
+// their sum; ``split`` the caller's plan; ``compact`` a [split, slab]
+// scratch buffer (zeroed here), slab = total · entries rounded up to 4;
+// ``out`` the [total, k, k] result (every entry written).  The plan must
+// hold all groups in one launch (chunks 1).  Runs on the caller's stream;
 // returns a cudaError_t.
 #define SEGMENT_GRAM_API(T, SUFFIX)                                          \
-  extern "C" int segment_gram_##SUFFIX(                                      \
-      const T* x, const int32_t* seg, int64_t m, int k, int64_t g,           \
-      const int64_t* bands, int split, T* compact, T* out, void* stream) {   \
-    return launch<T>(x, seg, m, k, 1, bands, g, split, compact, out,         \
+  extern "C" int segment_gram_##SUFFIX(const T* x, const int32_t* seg,       \
+                                       int64_t m, int k, int64_t g,          \
+                                       int split, T* compact, T* out,        \
+                                       void* stream) {                       \
+    return launch<T>(x, seg, m, k, 1, &g, split, compact, out,               \
                      (cudaStream_t)stream);                                  \
   }                                                                          \
   extern "C" int multi_segment_gram_##SUFFIX(                                \
       const T* x, const int32_t* segs, int64_t m, int k, int n_seg,          \
-      const int64_t* bands, int64_t total, int split, T* compact, T* out,    \
-      void* stream) {                                                        \
-    return launch<T>(x, segs, m, k, n_seg, bands, total, split, compact,     \
-                     out, (cudaStream_t)stream);                             \
+      const int64_t* groups, int split, T* compact, T* out, void* stream) {  \
+    return launch<T>(x, segs, m, k, n_seg, groups, split, compact, out,      \
+                     (cudaStream_t)stream);                                  \
   }
 
 SEGMENT_GRAM_API(float, f32)
 SEGMENT_GRAM_API(double, f64)
 
 // The launch plan of a grouped Gram: out = {split, entries a CTA, stages
-// (teams) a CTA, rows a stage, groups one launch holds, launches, dynamic
-// shared memory bytes} for width k, n_seg id columns, total groups and
-// elem-byte values.
-extern "C" int segment_gram_plan(int k, int n_seg, int64_t total, int elem,
-                                 int64_t* out) {
-  if (k < 0 || n_seg < 1 || total < 0 || (elem != 4 && elem != 8))
+// (teams) a CTA, rows a stage, copies of each hot band, groups one launch
+// holds, launches, dynamic shared memory bytes} for width k, n_seg id
+// columns of groups[c] groups (host memory) and elem-byte values.
+extern "C" int segment_gram_plan(int k, int n_seg, const int64_t* groups,
+                                 int elem, int64_t* out) {
+  if (k < 0 || n_seg < 1 || (elem != 4 && elem != 8))
     return (int)cudaErrorInvalidValue;
-  const Plan p = plan(k, n_seg, total, elem);
+  for (int c = 0; c < n_seg; ++c)
+    if (groups[c] < 0) return (int)cudaErrorInvalidValue;
+  const Plan p = plan(k, n_seg, groups, elem);
   out[0] = p.split;
   out[1] = p.entries;
   out[2] = p.stages;
   out[3] = p.rows;
-  out[4] = p.most;
-  out[5] = p.chunks;
-  out[6] = p.smem;
+  out[4] = p.copies;
+  out[5] = p.most;
+  out[6] = p.chunks;
+  out[7] = p.smem;
   return 0;
 }

@@ -14,7 +14,8 @@ Grams take as many groups a launch as its plan holds
 (``segment_gram.plan``, ``most``): ``segment_gram`` processes more in
 chunks, with ids rebased per chunk, and ``multi_segment_gram`` falls back to
 one ``segment_gram`` per column when the fused ``[ΣG, K(K+1)/2]``
-accumulator does not fit one launch.  ``smem_budget`` keeps the TPU
+accumulator does not fit one launch or there are more than
+``segment_gram.MAX_BANDS`` columns.  ``smem_budget`` keeps the TPU
 wrappers' budget contract: it forces chunks whose ``[G_chunk, K(K+1)/2]``
 accumulator fits it.  Both paths (kernel and plain version) chunk alike,
 and both refuse a width whose single group exceeds the budget or
@@ -169,7 +170,7 @@ def gram(x: torch.Tensor) -> torch.Tensor:
     return impl(x)
 
 
-def _chunk_groups(x: torch.Tensor, total: int, n_seg: int,
+def _chunk_groups(x: torch.Tensor, groups: List[int],
                   smem_budget: Optional[int]) -> int:
     """Groups one grouped-Gram launch takes: what its plan holds, cut to
     ``smem_budget`` where given; raises where one group's accumulator
@@ -182,7 +183,7 @@ def _chunk_groups(x: torch.Tensor, total: int, n_seg: int,
             f"one group's accumulator ({per_group} bytes at K = {k}) "
             f"exceeds the {cap}-byte budget"
         )
-    most = _sg.plan(k, total, x.element_size(), n_seg)["most"]
+    most = _sg.plan(k, groups, x.element_size())["most"]
     return min(most, smem_budget // per_group) if smem_budget else most
 
 
@@ -201,7 +202,7 @@ def segment_gram(
     x = _gram_input(x)
     seg = _seg_ids(seg, x).contiguous()
     num_groups = int(num_groups)
-    g_chunk = min(num_groups, _chunk_groups(x, num_groups, 1, smem_budget))
+    g_chunk = min(num_groups, _chunk_groups(x, [num_groups], smem_budget))
     impl = _sg.segment_gram if x.is_cuda else ref.segment_gram_ref
     if g_chunk >= num_groups:
         return impl(x, seg, num_groups)
@@ -224,8 +225,9 @@ def multi_segment_gram(
     """Per-group Grams for SEVERAL segment-id columns from one read of
     ``x``: ``segs [M, n_seg]``, column ``i``'s ids in ``[0, num_groups[i])``.
     Returns a list of ``[G_i, K, K]`` in ``x``'s dtype.  If the fused
-    ``[ΣG, K(K+1)/2]`` accumulator exceeds one launch or the budget, falls
-    back to one (chunked) ``segment_gram`` per column."""
+    ``[ΣG, K(K+1)/2]`` accumulator exceeds one launch or the budget, or
+    there are more than ``MAX_BANDS`` columns, falls back to one (chunked)
+    ``segment_gram`` per column."""
     x = _gram_input(x)
     num_groups = [int(g) for g in num_groups]
     segs = _seg_ids(segs, x)
@@ -236,8 +238,8 @@ def multi_segment_gram(
         )
     if not num_groups:
         return []
-    total = sum(num_groups)
-    if total > _chunk_groups(x, total, len(num_groups), smem_budget):
+    if (len(num_groups) > _sg.MAX_BANDS
+            or sum(num_groups) > _chunk_groups(x, num_groups, smem_budget)):
         return [
             segment_gram(x, segs[:, i], g, smem_budget=smem_budget)
             for i, g in enumerate(num_groups)

@@ -259,6 +259,25 @@ def test_moments_empty_and_fp64():
     assert float(mx) == np.abs(x).max()
 
 
+@pytest.mark.parametrize("offset,m,dtype", [(1, 4_001, np.float32), (3, 4_098, np.float32),
+                                            (0, 4_099, np.float32), (1, 333, np.float64)])
+def test_moments_of_column_views(offset, m, dtype):
+    """A column that is a view starting past a 16-byte boundary (the
+    ``offset``-th value of its storage), and lengths that are not a
+    multiple of 4: the count, max and sum of the reference's kernel."""
+    base = np.random.default_rng(offset + m).normal(2.0, 5.0, m + offset).astype(dtype)
+    col = torch.from_numpy(base)[offset:]
+    assert col.is_contiguous() and (col.data_ptr() % 16 != 0) == (offset != 0)
+    s, mx, n = ops.moments(col)
+    assert n == m and s.dtype == col.dtype and float(mx) == np.abs(base[offset:]).max()
+    if dtype == np.float32:
+        rs, rmx, rn = rops.moments(jnp.asarray(base[offset:]), interpret=True)
+        assert rn == m and float(mx) == float(rmx)
+        np.testing.assert_allclose(float(s), float(rs), rtol=1e-5, atol=1e-3)
+    else:
+        np.testing.assert_allclose(float(s), base[offset:].sum(), rtol=1e-13)
+
+
 @pytest.mark.parametrize("n,dom", [(1, 1), (37, 5), (500, 40), (64, 64)])
 def test_group_ids_device_matches_np_unique(n, dom):
     """Stable-sort grouping is bit-compatible with np.unique: same ids,
@@ -529,38 +548,54 @@ def test_segment_view1_order_matches_pallas_interpret(order, k):
 
 
 #: (what, k, groups per column, value bytes) and the grouped-Gram plan each
-#: must take: (split, entries a CTA, launches)
+#: must take: (split, entries a CTA, launches, copies of each hot band)
 GRAM_PLANS = [
-    ("multi K 4 store+item", 4, [54, 4_100], 4, (1, 10, 1)),
-    ("K 6 item", 6, [4_100], 4, (2, 11, 1)),
-    ("K 40 chunked", 40, [4_000], 4, (8, 103, 9)),
-    ("K 6 item float64", 6, [4_100], 8, (5, 5, 1)),
-    ("K 313 one group", 313, [1], 4, (2, 24_571, 1)),
-    ("K 2 sixteen columns", 2, [96] * 8 + [48] * 8, 4, (1, 3, 1)),
+    ("multi K 4 store+item", 4, [54, 4_100], 4, (1, 10, 1, 16)),
+    ("K 6 item", 6, [4_100], 4, (2, 11, 1, 1)),
+    ("K 40 chunked", 40, [4_000], 4, (8, 103, 9, 1)),
+    ("K 6 item float64", 6, [4_100], 8, (5, 5, 1, 1)),
+    ("K 313 one group", 313, [1], 4, (2, 24_571, 1, 1)),
+    ("K 2 sixteen columns", 2, [96] * 8 + [48] * 8, 4, (1, 3, 1, 8)),
+    ("K 4 store float64", 4, [54], 8, (1, 10, 1, 16)),
+    ("hot at 256 groups, four copies fit", 4, [256, 4_000], 4, (1, 10, 1, 4)),
+    ("not hot at 257 groups", 4, [257, 4_000], 4, (1, 10, 1, 1)),
 ]
+
+
+def _gram_acc_len(groups, e, copies):
+    return sum(g * (e | 1) * copies if g <= 256 and copies > 1 else g * e for g in groups)
 
 
 @pytest.mark.parametrize("case", GRAM_PLANS, ids=[c[0] for c in GRAM_PLANS])
 def test_grouped_gram_plan_mirror(case):
     """The Python mirror of the grouped-Gram launch plan (``chip_smoke.py``
     holds it equal to the library's ``segment_gram_plan``): a split of one
-    where one CTA holds the accumulator (K 4, G 54 + 4,100), one launch of
-    two CTAs at K 6 and G 4,100, chunks at K 40 and G 4,000; and the layout
-    fits a Hopper block."""
-    _, k, groups, elem, (split, entries, chunks) = case
+    where one CTA holds the accumulator (K 4, G 54 + 4,100) with sixteen
+    copies of the hot store band (at most 256 groups), one launch of two
+    CTAs at K 6 and G 4,100 (no hot band: one copy), chunks at K 40 and G
+    4,000, fewer copies where sixteen do not fit; and the layout fits a
+    Hopper block."""
+    _, k, groups, elem, (split, entries, chunks, copies) = case
     total = sum(groups)
-    p = sg.plan(k, total, elem, len(groups))
-    assert (p["split"], p["entries"], p["chunks"]) == (split, entries, chunks)
+    p = sg.plan(k, groups, elem)
+    assert (p["split"], p["entries"], p["chunks"], p["copies"]) == (
+        split, entries, chunks, copies)
     nt = k * (k + 1) // 2
     assert p["split"] * p["entries"] >= nt > (p["split"] - 1) * p["entries"]
     assert p["rows"] % 4 == 0 and p["rows"] >= 4 and p["stages"] in (1, 2, 4, 8)
-    g = min(total, p["most"])
     ring = p["stages"] * p["rows"] * (k * elem + 4 * len(groups))
-    assert p["smem"] == 128 + ring + (g * p["entries"] + 3) // 4 * 4 * elem <= 232_448
+    avail = (232_448 - 128 - ring) // elem
+    n = (_gram_acc_len(groups, p["entries"], p["copies"]) if chunks == 1
+         else min(total, p["most"]) * p["entries"])
+    assert p["smem"] == 128 + ring + (n + 3) // 4 * 4 * elem <= 232_448
     assert (p["chunks"] == 1) == (total <= p["most"])
     if split > 1 and chunks == 1:  # the least split that holds it
         fewer = -(-nt // (split - 1))
         assert total * fewer * elem > 232_448 - 128 - ring - 3 * elem
+    if chunks == 1 and copies < 16 and min(groups) <= 256:  # the most copies that fit
+        assert _gram_acc_len(groups, p["entries"], 2 * copies) + 3 > avail
+    # ops chunks by ``most``: the total and the number of columns set it
+    assert sg.plan(k, [total] + [0] * (len(groups) - 1), elem)["most"] == p["most"]
 
 
 def test_segment_gram_chunks_where_one_launch_cannot_hold():
@@ -580,7 +615,7 @@ def test_multi_segment_gram_falls_back_where_one_launch_cannot_hold():
     """A fused accumulator over what one launch holds (K 6, 17,100 groups
     in two columns) falls back to one segment_gram per column."""
     m, k, doms = 200, 6, [17_000, 100]
-    assert sg.plan(k, sum(doms), 4, 2)["chunks"] > 1
+    assert sg.plan(k, doms, 4)["chunks"] > 1
     x = torch.from_numpy(_gram_x(m, k, seed=4))
     rng = np.random.default_rng(4)
     segs = np.stack([rng.integers(0, d, m) for d in doms], axis=1).astype(np.int32)

@@ -4,36 +4,43 @@ GPU, at phase 2's shapes and on phase 4's own arguments.
 
     python3 tools/segment_gram_variants.py OLD_CU OLD_PY     # from the repo root
 
-``OLD_CU`` / ``OLD_PY`` are an earlier ``csrc/segment_gram.cu`` and its
-``kernels/segment_gram.py`` wrapper of the first design's interface (from
-``git show REV:PATH``, kept under a gitignored directory): one block of 512
-threads per SM adding each row with ``atomicAdd`` into a ``[G, K(K+1)/2]``
-shared accumulator of at most 192 KiB, which the ``ops`` layer of that
-design (:func:`old_segment_gram`) fits by chunking the groups, ids rebased
-per chunk.
+``OLD_CU`` / ``OLD_PY`` are the earlier design's ``csrc/segment_gram.cu``
+and its ``kernels/segment_gram.py`` wrapper (from ``git show REV:PATH``,
+kept under a gitignored directory): one copy of every band, the lanes of
+a warp that share a group merged (``__match_any_sync`` and a shuffle
+tree) before their lowest adds two compare-and-swaps at a time, the group
+counts copied to the device on each call.
 
 The script builds, at once and with the port's ``nvcc`` flags, into
 ``chiprun_out/segment_gram_variants/``:
 
 * ``new``            the checkout's ``csrc/segment_gram.cu`` (the port's build)
-* ``old``            ``OLD_CU``, driven through ``OLD_PY`` and the old chunking
-* the checkout's source edited by :data:`EDITS` (old text, new text), driven
-  through the checkout's wrapper (``second_pass`` also edits the wrapper):
+* ``old``            ``OLD_CU``, driven through ``OLD_PY``
+* ``OLD_CU`` edited by :data:`OLD_EDITS`, timing only but ``old_rows256``:
+  what the earlier design spends besides its adds
 
+  - ``old_loads_only``        the ring, its mbarrier waits and the flush alone
+  - ``old_adds_off``          also ids, products, match_any and the shuffle tree
+  - ``old_adds_off_no_match`` ids and products, without the merging
+  - ``old_flush_off`` / ``old_expand_off``  no global adds / no expand kernel
+  - ``old_rows256`` / ``old_loads_only_rows256``  stages of up to 256 rows
+
+* the checkout's source edited by :data:`EDITS` (old text, new text), driven
+  through the checkout's wrapper (edited too where the plan changes):
+
+  - ``one_copy`` / ``copies8``  the hot bands in 1 / at most 8 copies, not 16
+  - ``merge_hot``      the hot bands' lanes of a group merged first
+  - ``odd_stride``     every band at an odd stride, no rotation
+  - ``no_rotation``    one-copy bands' entries not rotated across the banks
   - ``atomicAdd``      every add through atomicAdd (no compare-and-swaps)
   - ``cas_retry``      a lost compare-and-swap swaps again, not atomicAdd
-  - ``no_match_any``   no combining of a warp's rows that share a group
+  - ``batch2`` / ``batch4``  two / four compare-and-swaps in flight a lane
   - ``cluster_launch`` each crew (the CTAs that read the same tiles) a
                        thread-block cluster, co-scheduled, in place of a
                        plain grid
-  - ``split_groups``   the crew's CTAs split the groups, each holding
-                       every entry of its range, not the triangle entries
-  - ``multicast``      on a cluster launch, each CTA of the cluster loads a
-                       slice of every tile and multicasts it to all, in
-                       place of each CTA loading every tile itself
-                       (cluster-wide empty barriers)
-  - ``second_pass``    each CTA stores its sums, and a second kernel adds
-                       the crews' slabs, in place of global atomics
+  - ``loads_only``     timing only: the ring, its waits and the flush
+  - ``no_loads``       timing only: each team adds its first tile over and
+                       over (the adds without the memory's waits)
   - ``flush_off``      timing only: no global adds (the flush's cost)
   - ``adds_off``       timing only: no shared adds (loads, ids and flush)
 
@@ -87,7 +94,9 @@ from repro_torch.kernels import _build, ops as kops, ref  # noqa: E402
 OUT = ROOT / "chiprun_out" / "segment_gram_variants"
 WRAPPER = ROOT / "src/repro_torch/kernels/segment_gram.py"
 RATES = ROOT / "tools/smem_add_rates.cu"
-TIMING_ONLY = ("flush_off", "adds_off")
+TIMING_ONLY = ("loads_only", "no_loads", "flush_off", "adds_off", "old_loads_only", "old_adds_off",
+               "old_adds_off_no_match", "old_flush_off", "old_expand_off",
+               "old_loads_only_rows256")
 
 _CAS_FIRST = """  U old[kBatch];
 #pragma unroll
@@ -104,29 +113,6 @@ _FALLBACK = """#pragma unroll
   for (int u = 0; u < kBatch; ++u)
     if (pend >> u & 1) atomicAdd(acc + at[u], p[u]);
 """
-_FLUSH = """  T* dst = a.compact + rank * a.slab;
-  if constexpr (sizeof(T) == 4) {
-    for (int64_t e = 4 * threadIdx.x; e < a.slab; e += 4 * kThreads) {
-      const float4 v = *reinterpret_cast<const float4*>(acc + e);
-      if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)
-        atomicAdd(reinterpret_cast<float4*>(dst + e), v);
-    }
-  } else {
-    for (int64_t e = threadIdx.x; e < a.slab; e += kThreads)
-      if (acc[e] != T(0)) atomicAdd(dst + e, acc[e]);
-  }"""
-_LOAD = """  auto load = [&](int64_t tile) {
-    mbar_expect_tx(full, stage_bytes);
-    bulk_load(smem_u32(stage), a.x + tile * a.rows * a.k, x_bytes, full);
-    bulk_load(smem_u32(stage + x_bytes), a.segs + tile * a.rows * a.n_seg,
-              stage_bytes - x_bytes, full);
-  };
-  int64_t tile = cr + n_cr * team;
-  if (tid == 0 && tile < n_full) load(tile);
-  for (uint32_t turn = 0; tile < n_full; ++turn, tile += step) {"""
-_REFILL = """    team_sync(1 + team, team_size);  // the team is done with the stage
-    if (tid == 0 && tile + step < n_full) load(tile + step);
-  }"""
 _GRID = """  // as many whole crews as run at once, and no more than there are tiles
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
@@ -165,9 +151,112 @@ _CLUSTER = [(_GRID, """  cudaLaunchAttribute attr[1];
   return (int)cudaLaunchKernelEx(&cfg, kern, a);
 """)]
 
+_ADDS_OFF = ("  cas_add(acc, at, p, pend);\n}\n\n// Entries [t0, t1)",
+             "  if (ln.base < -(1 << 30)) cas_add(acc, at, p, pend);\n}\n\n// Entries [t0, t1)")
+_NO_MATCH = ("    ln.peers = __match_any_sync(kFull, gid);\n"
+             "    ln.merge = __any_sync(kFull, ln.valid && ln.peers != (1u << ln.lane));\n",
+             "    ln.peers = 1u << ln.lane;\n    ln.merge = false;\n")
+_LOADS_ONLY = ("      add_rows<T, KC>(a, acc, xs + r * a.k, ids + r * a.n_seg,\n"
+               "                      r0 + tid < a.rows, t0, t1, i0, j0);\n", "      (void)r;\n")
+_ROWS256 = {"cu": [("constexpr int kMaxRows = 128;", "constexpr int kMaxRows = 256;")],
+            "py": [("_MAX_ROWS = 128", "_MAX_ROWS = 256")]}
+
+# the hot bands' lanes of a group sum their products (match_any and a
+# shuffle tree, as the earlier design did on every band) before the lowest adds
+_MERGE_HOT = [(
+    "  int rot, e;  // entry t lies at slot (t - t0 + rot) mod e of the group\n  bool valid;\n};\n",
+    "  int rot, e;  // entry t lies at slot (t - t0 + rot) mod e of the group\n"
+    "  bool valid, merge, leader;\n  unsigned peers;\n};\n"), (
+    """  unsigned pend = 0;
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u)
+    if ((on >> u & 1) && p[u] != T(0)) pend |= 1u << u;
+  cas_add(acc, at, p, pend);""", """  T q[kBatch];
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) q[u] = p[u];
+  if (ln.merge) {  // warp-uniform
+    const int lane = threadIdx.x & 31;
+    int rank = __popc(ln.peers & ((1u << lane) - 1));
+    unsigned above = ln.peers & (0xfffffffeu << lane);
+    while (__any_sync(kFull, above)) {
+      const int next = __ffs(above);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const T o = __shfl_sync(kFull, q[u], (next - 1) & 31);
+        if (next) q[u] += o;
+      }
+      above &= ~__ballot_sync(kFull, rank & 1);
+      rank >>= 1;
+    }
+  }
+  unsigned pend = 0;
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u)
+    if (ln.leader && (on >> u & 1) && q[u] != T(0)) pend |= 1u << u;
+  cas_add(acc, at, q, pend);"""), (
+    "    int copy = 0;\n    ln.step = 1;\n",
+    """    ln.peers = 1u << (threadIdx.x & 31);
+    ln.merge = false;
+    ln.leader = ln.valid;
+    if (a.hot >> c & 1) {
+      ln.peers = __match_any_sync(kFull, ln.valid ? s : -1);
+      ln.merge = __any_sync(kFull, ln.valid && ln.peers != (1u << (threadIdx.x & 31)));
+      ln.leader = ln.valid && __ffs(ln.peers) - 1 == (int)(threadIdx.x & 31);
+    }
+    int copy = 0;
+    ln.step = 1;
+""")]
+
+#: The earlier design's source (``OLD_CU``, its wrapper ``OLD_PY``) edited, for the
+#: breakdown of what it spends besides the shared adds: name -> {"cu":
+#: edits of OLD_CU, "py": edits of OLD_PY}
+OLD_EDITS = {
+    # the ring and its mbarrier waits, the flush of zeros and expand_sym
+    "old_loads_only": {"cu": [_LOADS_ONLY]},
+    # the same with ids, products, match_any and reduce_peers: "adds off"
+    "old_adds_off": {"cu": [_ADDS_OFF]},
+    # ids and products, without match_any and reduce_peers
+    "old_adds_off_no_match": {"cu": [_ADDS_OFF, _NO_MATCH]},
+    "old_flush_off": {"cu": [(
+        "      if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)\n",
+        "      if (v.x == -1234.5f)\n")]},
+    "old_expand_off": {"cu": [(
+        "  expand_sym<T><<<(unsigned)blocks, 256, 0, s>>>(",
+        "  if (blocks < 0) expand_sym<T><<<(unsigned)blocks, 256, 0, s>>>(")]},
+    # stages of up to 256 rows: twice the bytes in flight where rows are narrow
+    "old_rows256": _ROWS256,
+    "old_loads_only_rows256": {"cu": _ROWS256["cu"] + [_LOADS_ONLY], "py": _ROWS256["py"]},
+}
+
 #: name -> {"cu": edits of the kernel source, "py": edits of its wrapper},
 #: each edit (old text, new text)
 EDITS = {
+    # what each choice of the shipped design buys
+    "one_copy": {"cu": [("constexpr int kMaxCopies = 16;", "constexpr int kMaxCopies = 1;")],
+                 "py": [("_MAX_COPIES = 16", "_MAX_COPIES = 1")]},
+    "copies8": {"cu": [("constexpr int kMaxCopies = 16;", "constexpr int kMaxCopies = 8;")],
+                "py": [("_MAX_COPIES = 16", "_MAX_COPIES = 8")]},
+    "merge_hot": {"cu": _MERGE_HOT},
+    "odd_stride": {"cu": [(
+        "      a.stride[c] = step > 1 ? (p.entries | 1) : p.entries;\n",
+        "      a.stride[c] = p.entries | 1;\n"), (
+        "    n += hot(groups[c]) && copies > 1 ? groups[c] * (e | 1) * copies\n"
+        "                                      : groups[c] * e;\n",
+        "    n += hot(groups[c]) && copies > 1 ? groups[c] * (e | 1) * copies\n"
+        "                                      : groups[c] * (e | 1);\n"), (
+        "    const int64_t most = (avail - 3) / (e > 0 ? e : 1);\n",
+        "    const int64_t most = (avail - 3) / (e | 1);\n"), (
+        "    int64_t len = (total < most ? total : most) * e;\n",
+        "    int64_t len = (total < most ? total : most) * (e | 1);\n")],
+        "py": [(
+            "    return sum(g * (e | 1) * copies if g <= _HOT_GROUPS and copies > 1 else g * e\n",
+            "    return sum(g * (e | 1) * copies if g <= _HOT_GROUPS and copies > 1 else g * (e | 1)\n"), (
+            "        most = (avail - 3) // max(e, 1)\n", "        most = (avail - 3) // (e | 1)\n"), (
+            "        copies, n = 1, min(total, most) * e\n",
+            "        copies, n = 1, min(total, most) * (e | 1)\n")]},
+    "no_rotation": {"cu": [
+        ("    ln.rot = ln.valid ? (s >> a.rot_shift) & a.rot_mask : 0;\n", "    ln.rot = 0;\n"),
+        ("    q += (g >> a.rot_shift) & a.rot_mask;\n", "    q += 0;\n")]},
     "atomicAdd": {"cu": [(_CAS_FIRST, "")]},
     "cas_retry": {"cu": [(_FALLBACK, """  while (pend) {
 #pragma unroll
@@ -183,153 +272,20 @@ EDITS = {
     }
   }
 """)]},
-    "no_match_any": {"cu": [(
-        "    ln.peers = __match_any_sync(kFull, gid);\n"
-        "    ln.merge = __any_sync(kFull, ln.valid && ln.peers != (1u << ln.lane));\n",
-        "    ln.peers = 1u << ln.lane;\n    ln.merge = false;\n")]},
+    "batch2": {"cu": [("constexpr int kBatch = 1;", "constexpr int kBatch = 2;")]},
+    "batch4": {"cu": [("constexpr int kBatch = 1;", "constexpr int kBatch = 4;")]},
     "cluster_launch": {"cu": _CLUSTER},
-    "split_groups": {"cu": [
-        ("    const int64_t e = (nt + c - 1) / c;\n", "    const int64_t e = nt;\n"),
-        ("    const int64_t most = (avail - 3) / (e > 0 ? e : 1);\n",
-         "    const int64_t most = (avail - 3) / (e > 0 ? e : 1) * c;\n"),
-        ("             kBarBytes + ring + (g * e + 3) / 4 * 4 * elem};",
-         "             kBarBytes + ring + ((g + c - 1) / c * e + 3) / 4 * 4 * elem};"),
-        ("  const int t0 = rank * a.entries;\n", "  const int t0 = 0;\n"),
-        ("    if (!__any_sync(kFull, ln.valid)) continue;  // warp-uniform\n"
-         "    const int gid = ln.valid ? (int)(__ldg(a.bands + a.n_seg + c) + s) : -1;\n",
-         "    const int64_t total = __ldg(a.bands + 2 * a.n_seg - 1) + __ldg(a.bands + a.n_seg - 1);\n"
-         "    const int64_t gpc = (total + a.split - 1) / a.split;\n"
-         "    const int64_t g0 = (blockIdx.x % a.split) * gpc;\n"
-         "    int gid = ln.valid ? (int)(__ldg(a.bands + a.n_seg + c) + s) : -1;\n"
-         "    if (gid < g0 || gid >= g0 + gpc) { ln.valid = false; gid = -1; }\n"
-         "    if (!__any_sync(kFull, ln.valid)) continue;  // warp-uniform\n"),
-        ("    ln.base = gid * a.entries;\n", "    ln.base = (gid - (int)g0) * a.entries;\n"),
-        ("    out[idx] = compact[(t / e) * slab + g * e + t % e];\n",
-         "    const int64_t gpc = slab / e;\n"
-         "    out[idx] = compact[(g / gpc) * slab + (g % gpc) * e + t];\n"),
-        ("  const int64_t slab = (total * p.entries + 3) / 4 * 4;\n",
-         "  const int64_t slab = ((total + p.split - 1) / p.split * p.entries + 3) / 4 * 4;\n"),
-    ]},
-    "multicast": {"cu": _CLUSTER + [
-        ("      rows = kRingBytes / stages / row_bytes / 4 * 4;\n"
-         "      if (rows > kMaxRows) rows = kMaxRows;\n"
-         "      if (rows >= 4) break;\n",
-         "      rows = kRingBytes / stages / row_bytes / (4 * c) * (4 * c);\n"
-         "      if (rows > kMaxRows) rows = kMaxRows / (4 * c) * (4 * c);\n"
-         "      if (rows >= 4 * c) break;\n"),
-        ("    if (rows < 4) continue;  // a row wider than the ring\n",
-         "    if (rows < 4 * c) continue;\n"),
-        ("__device__ __forceinline__ void team_sync(int id, int threads) {\n",
-         """__device__ __forceinline__ void bulk_load_mc(uint32_t dst, const void* src,
-                                             int bytes, uint32_t bar,
-                                             uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1], %2, [%3], %4;\\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar), "h"(mask)
-      : "memory");
-}
-
-__device__ __forceinline__ void arrive_remote(uint32_t bar, int cta) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\\n"
-               : "=r"(remote) : "r"(bar), "r"(cta));
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\\n"
-               ::"r"(remote) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
-  uint32_t done, tries = 0;
-  do {
-    if (++tries == (1u << 22)) __trap();
-    asm volatile(
-        "{\\n.reg .pred p;\\n"
-        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\\n"
-        "selp.u32 %0, 1, 0, p;\\n}\\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\\n"
-               "barrier.cluster.wait.acquire.aligned;\\n" ::: "memory");
-}
-
-__device__ __forceinline__ void team_sync(int id, int threads) {
-"""),
-        ("    for (int s = 0; s < a.stages; ++s) mbar_init(smem_u32(bars + s), 1);\n",
-         "    for (int s = 0; s < a.stages; ++s) {\n"
-         "      mbar_init(smem_u32(bars + s), 1);\n"
-         "      mbar_init(smem_u32(bars + a.stages + s), a.split);\n"
-         "    }\n"),
-        ("    asm volatile(\"fence.mbarrier_init.release.cluster;\\n\" ::: \"memory\");\n"
-         "  }\n  __syncthreads();\n",
-         "    asm volatile(\"fence.mbarrier_init.release.cluster;\\n\" ::: \"memory\");\n"
-         "  }\n  __syncthreads();\n  cluster_sync();\n"),
-        (_LOAD, """  const uint32_t empty = smem_u32(bars + a.stages + team);
-  const uint16_t mask = (uint16_t)((1u << a.split) - 1);
-  const int slice = a.rows / a.split, r_first = rank * slice;
-  auto load = [&](int64_t tile, uint32_t turn) {
-    if (turn > 0) mbar_wait_cluster(empty, (turn - 1) & 1);
-    mbar_expect_tx(full, stage_bytes);
-    const int64_t row = tile * a.rows + r_first;
-    bulk_load_mc(smem_u32(stage) + r_first * a.k * (int)sizeof(T),
-                 a.x + row * a.k, slice * a.k * (int)sizeof(T), full, mask);
-    bulk_load_mc(smem_u32(stage + x_bytes) + r_first * a.n_seg * 4,
-                 a.segs + row * a.n_seg, slice * a.n_seg * 4, full, mask);
-  };
-  int64_t tile = cr + n_cr * team;
-  if (tid == 0 && tile < n_full) load(tile, 0);
-  for (uint32_t turn = 0; tile < n_full; ++turn, tile += step) {"""),
-        (_REFILL, """    team_sync(1 + team, team_size);  // the team is done with the stage
-    if (tid == 0) {
-      for (int r = 0; r < a.split; ++r) arrive_remote(empty, r);
-      if (tile + step < n_full) load(tile + step, turn + 1);
-    }
-  }"""),
-        ("  __syncthreads();\n\n  T* dst = a.compact + rank * a.slab;\n",
-         "  __syncthreads();\n  cluster_sync();\n\n  T* dst = a.compact + rank * a.slab;\n"),
-    ]},
-    "second_pass": {
-        "cu": [
-            (_FLUSH, """  T* dst = a.compact + (cr * a.split + rank) * a.slab;
-  if constexpr (sizeof(T) == 4) {
-    for (int64_t e = 4 * threadIdx.x; e < a.slab; e += 4 * kThreads)
-      *reinterpret_cast<float4*>(dst + e) = *reinterpret_cast<const float4*>(acc + e);
-  } else {
-    for (int64_t e = threadIdx.x; e < a.slab; e += kThreads) dst[e] = acc[e];
-  }"""),
-            ("// out[g, i, j] = the sum of entry t", """// the crews' slabs summed into the first: compact[i] += Σ compact[p n + i]
-template <typename T>
-__global__ void sum_slabs(T* compact, int64_t n, int parts) {
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (int64_t)gridDim.x * blockDim.x) {
-    T s = compact[i];
-    for (int p = 1; p < parts; ++p) s += compact[p * n + i];
-    compact[i] = s;
-  }
-}
-
-int last_crews = 1;
-
-// out[g, i, j] = the sum of entry t"""),
-            ("  kern<<<(unsigned)(n_cr * p.split), kThreads, (size_t)p.smem, s>>>(a);\n",
-             "  last_crews = (int)n_cr;\n"
-             "  kern<<<(unsigned)(n_cr * p.split), kThreads, (size_t)p.smem, s>>>(a);\n"),
-            ("  const int64_t n = total * k * k;\n  int64_t blocks",
-             "  if (m > 0) sum_slabs<T><<<132 * 8, 256, 0, s>>>(compact, p.split * slab,\n"
-             "                                               last_crews);\n"
-             "  const int64_t n = total * k * k;\n  int64_t blocks"),
-        ],
-        "py": [("    compact = torch.zeros(p[\"split\"] * slab, dtype=x.dtype, device=x.device)",
-                "    compact = torch.zeros(132 * p[\"split\"] * slab, dtype=x.dtype, device=x.device)")],
-    },
+    # timing only
+    "loads_only": {"cu": [_LOADS_ONLY]},
+    # each team adds its first tile over and over: the adds without the
+    # memory's waits
+    "no_loads": {"cu": [
+        ("    mbar_wait(full, turn & 1);\n", "    if (turn == 0) mbar_wait(full, 0);\n"),
+        ("    if (tid == 0 && tile + step < n_full) load(tile + step);\n", "")]},
     "flush_off": {"cu": [(
-        "      if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)\n",
-        "      if (v.x == -1234.5f)\n")]},
-    "adds_off": {"cu": [(
-        "  cas_add(acc, at, p, pend);\n}\n\n// Entries [t0, t1)",
-        "  if (ln.base < -(1 << 30)) cas_add(acc, at, p, pend);\n}\n\n// Entries [t0, t1)")]},
+        "      if (v[0] != 0.f || v[1] != 0.f || v[2] != 0.f || v[3] != 0.f)\n",
+        "      if (v[0] == -1234.5f)\n")]},
+    "adds_off": {"cu": [_ADDS_OFF]},
 }
 
 
@@ -356,9 +312,12 @@ def load_wrapper(path: Path, name: str, lib: Path):
     return mod
 
 
-def edited(name: str, kind: str, edits) -> str:
-    """The checkout's kernel source or wrapper with ``edits`` made."""
-    text = (_build.CSRC / "segment_gram.cu" if kind == "cu" else WRAPPER).read_text()
+def edited(name: str, kind: str, edits, base: str = None) -> str:
+    """``base`` (by default the checkout's kernel source or wrapper) with
+    ``edits`` made."""
+    if base is None:
+        base = (_build.CSRC / "segment_gram.cu" if kind == "cu" else WRAPPER).read_text()
+    text = base
     for old, new in edits:
         if text.count(old) != 1:
             raise SystemExit(f"{name}: {old!r} is not in the {kind} source once")
@@ -370,6 +329,8 @@ def sources(old_cu: Path) -> dict:
     out = {"new": (_build.CSRC / "segment_gram.cu").read_text(), "old": old_cu.read_text()}
     for name, files in EDITS.items():
         out[name] = edited(name, "cu", files["cu"])
+    for name, files in OLD_EDITS.items():
+        out[name] = edited(name, "cu", files["cu"], base=out["old"])
     return out
 
 
@@ -395,8 +356,9 @@ def ptxas_lines(log: str) -> list:
 
 
 def sass_ops(binary: Path, pattern: str) -> dict:
-    """{kernel: {opcode: count}} of the atomic, reduction and bulk-copy
-    instructions in the SASS of the kernels whose names match ``pattern``."""
+    """{kernel: {opcode: count}} of the atomic, reduction, bulk-copy and
+    shared-store instructions in the SASS of the kernels whose names match
+    ``pattern``."""
     sass = subprocess.run([str(Path(_build._nvcc()).parent / "cuobjdump"), "-sass",
                            str(binary)], capture_output=True, text=True).stdout
     out, cur = {}, None
@@ -406,32 +368,9 @@ def sass_ops(binary: Path, pattern: str) -> dict:
             cur = m.group(1) if re.search(pattern, m.group(1)) else None
             continue
         if cur:
-            for op in re.findall(r"\b((?:ATOMS|ATOM|RED|REDG|UBLKCP|MATCH)\.?[A-Z0-9_.]*)", line):
+            for op in re.findall(r"\b((?:ATOMS|ATOM|RED|REDG|UBLKCP|MATCH|STS)\.?[A-Z0-9_.]*)", line):
                 out.setdefault(cur, collections.Counter())[op] += 1
     return {k: dict(v) for k, v in out.items()}
-
-
-def old_segment_gram(mod, x, seg, g):
-    """The first design's ops layer: groups chunked so that each
-    ``[G_chunk, K(K+1)/2]`` accumulator fits its 192 KiB, ids rebased."""
-    k = x.shape[1]
-    g_chunk = min(g, mod.SMEM_ACC_BYTES // (k * (k + 1) // 2 * x.element_size()))
-    if g_chunk >= g:
-        return mod.segment_gram(x, seg, g)
-    outs = []
-    for g0 in range(0, g, g_chunk):
-        gn = min(g_chunk, g - g0)
-        inside = (seg >= g0) & (seg < g0 + gn)
-        outs.append(mod.segment_gram(x, torch.where(inside, seg - g0, -1).to(torch.int32), gn))
-    return torch.cat(outs, dim=0)
-
-
-def old_multi_segment_gram(mod, x, segs, groups):
-    k = x.shape[1]
-    if sum(groups) * k * (k + 1) // 2 * x.element_size() > mod.SMEM_ACC_BYTES:
-        return [old_segment_gram(mod, x, segs[:, i].contiguous(), g)
-                for i, g in enumerate(groups)]
-    return mod.multi_segment_gram(x, segs, groups)
 
 
 def inputs() -> list:
@@ -479,7 +418,7 @@ def main() -> None:
     card = cs.card_line()
     cs.log(f"card: {card}")
     libs, report = {}, dict(card=card, ptxas={}, sass={})
-    with ThreadPoolExecutor(len(EDITS) + 3) as pool:
+    with ThreadPoolExecutor(len(EDITS) + len(OLD_EDITS) + 3) as pool:
         rates = pool.submit(subprocess.run, [_build._nvcc(), *_build.FLAGS[:5], "-o",
                                              str(OUT / "rates"), str(RATES)],
                             capture_output=True, text=True)
@@ -501,28 +440,25 @@ def main() -> None:
         cs.log(f"shared-memory adds: {line}")
     cs.log(f"shared-memory adds, SASS: {report['rates_sass']}")
 
-    old = load_wrapper(old_py, "_sg_old", libs["old"])
-    arms = {"new": load_wrapper(WRAPPER, "_sg_new", libs["new"])}
-    for name, files in EDITS.items():
-        path = WRAPPER
-        if "py" in files:
-            path = OUT / f"{name}.py"
-            path.write_text(edited(name, "py", files["py"]))
-        arms[name] = load_wrapper(path, f"_sg_{name}", libs[name])
+    arms = {"new": load_wrapper(WRAPPER, "_sg_new", libs["new"]),
+            "old": load_wrapper(old_py, "_sg_old", libs["old"])}
+    for edits, wrapper in ((EDITS, WRAPPER), (OLD_EDITS, old_py)):
+        for name, files in edits.items():
+            path = wrapper
+            if "py" in files:
+                path = OUT / f"{name}.py"
+                path.write_text(edited(name, "py", files["py"], base=wrapper.read_text()))
+            arms[name] = load_wrapper(path, f"_sg_{name}", libs[name])
 
     report["inputs"] = []
     for what, kernel, x, ids, groups in inputs():
         if kernel == "segment_gram":
             calls = {n: functools.partial(mod.segment_gram, x, ids, groups)
                      for n, mod in arms.items()}
-            calls["old (first design, chunked)"] = functools.partial(old_segment_gram, old, x, ids,
-                                                              groups)
             want = [ref.segment_gram_ref(x, ids, groups)]
         else:
             calls = {n: functools.partial(mod.multi_segment_gram, x, ids, groups)
                      for n, mod in arms.items()}
-            calls["old (first design, chunked)"] = functools.partial(old_multi_segment_gram, old, x,
-                                                              ids, groups)
             want = ref.multi_segment_gram_ref(x, ids, groups)
         n_seg = 1 if kernel == "segment_gram" else len(groups)
         total = groups if kernel == "segment_gram" else sum(groups)

@@ -16,6 +16,16 @@
 //   CAS, atomicAdd  the same, but a lost race goes through atomicAdd
 //   cluster atomicAdd  atomicAdd into the other CTA of a cluster of two
 //                   (distributed shared memory)
+//   plain, routed   plain adds where each lane's group lies in its own
+//                   bank: entry-major [E, G'] (G' = G rounded up to 32) and
+//                   the group's low five bits the lane's (as if rows were
+//                   routed to lanes by group): the rate without conflicts
+//   CAS, routed     CAS, atomicAdd on that layout
+//   CAS64, CAS128   12 floats a group (E + 1, padded), added two or four at
+//                   a time by 64- or 128-bit compare-and-swaps, retried
+//   match, private  one copy of the [G, E] sums a warp (G = 54 only):
+//                   __match_any_sync, the shuffle tree that sums a group's
+//                   lanes, and plain adds by each group's lowest lane
 // `tools/segment_gram_variants.py` builds and runs it and prints its SASS.
 
 #include <cooperative_groups.h>
@@ -28,7 +38,53 @@ namespace cg = cooperative_groups;
 
 constexpr int kEntries = 11, kIters = 2048, kThreads = 1024;
 
-enum Form { kAtomic, kRed, kPlain, kBatchedCas, kCasThenAdd, kCluster };
+enum Form {
+  kAtomic, kRed, kPlain, kBatchedCas, kCasThenAdd, kCluster, kPlainRouted,
+  kCasRouted, kMatchPrivate, kCas64, kCas128
+};
+constexpr int kWide = 12;  // floats a group of the 64- and 128-bit forms
+
+// 128-bit compare-and-swap of shared memory at p: (lo, hi) expected, set
+// to what was there; true where it swapped
+__device__ __forceinline__ bool cas128(void* p, unsigned long long& lo,
+                                       unsigned long long& hi,
+                                       unsigned long long nlo,
+                                       unsigned long long nhi) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  unsigned long long rlo, rhi;
+  asm volatile(
+      "{\n .reg .b128 d, b, c;\n mov.b128 b, {%2, %3};\n"
+      " mov.b128 c, {%4, %5};\n atom.shared.cas.b128 d, [%6], b, c;\n"
+      " mov.b128 {%0, %1}, d;\n}\n"
+      : "=l"(rlo), "=l"(rhi)
+      : "l"(lo), "l"(hi), "l"(nlo), "l"(nhi), "r"(a)
+      : "memory");
+  const bool ok = rlo == lo && rhi == hi;
+  lo = rlo;
+  hi = rhi;
+  return ok;
+}
+
+// two floats plus v, as the bits of one 64-bit word
+__device__ __forceinline__ unsigned long long add2(unsigned long long w,
+                                                   float v) {
+  return (unsigned long long)__float_as_uint(__uint_as_float((unsigned)w) + v) |
+         (unsigned long long)__float_as_uint(
+             __uint_as_float((unsigned)(w >> 32)) + v) << 32;
+}
+
+// the adds an iteration of form f makes a thread
+__host__ __device__ constexpr int entries(int f) {
+  return f == kCas64 || f == kCas128 ? kWide : kEntries;
+}
+constexpr unsigned kFull = 0xffffffffu;
+
+// the floats a CTA's accumulator of `groups` takes in form F
+__host__ __device__ constexpr int acc_floats(int f, int groups) {
+  return f == kPlainRouted || f == kCasRouted ? (groups + 31) / 32 * 32 * kEntries
+         : f == kMatchPrivate                 ? kThreads / 32 * groups * kEntries
+                                              : groups * entries(f);
+}
 
 __device__ __forceinline__ uint32_t rnd(uint32_t& s) {
   s ^= s << 13;
@@ -39,16 +95,94 @@ __device__ __forceinline__ uint32_t rnd(uint32_t& s) {
 
 template <int F>
 __global__ void __launch_bounds__(kThreads, 1) adds(int groups, float* out) {
-  extern __shared__ float acc[];
-  for (int e = threadIdx.x; e < groups * kEntries; e += blockDim.x) acc[e] = 0.f;
+  extern __shared__ __align__(16) float acc[];
+  const int n_acc = acc_floats(F, groups);
+  for (int e = threadIdx.x; e < n_acc; e += blockDim.x) acc[e] = 0.f;
   __syncthreads();
   if (F == kCluster) cg::this_cluster().sync();
   uint32_t s = 12345u + threadIdx.x * 7919u + blockIdx.x * 104729u;
   const float v = threadIdx.x * 1e-3f;
   for (int it = 0; it < kIters; ++it) {
-    const int g = (int)(((rnd(s) & 0xFFFFu) * (uint32_t)groups) >> 16);
+    int g = (int)(((rnd(s) & 0xFFFFu) * (uint32_t)groups) >> 16);
+    const int lane = threadIdx.x & 31, padded = (groups + 31) / 32 * 32;
+    if (F == kPlainRouted || F == kCasRouted) g = (g & ~31) | lane;
     float* p = acc + g * kEntries;
-    if (F == kAtomic) {
+    if (F == kCas64) {
+      unsigned long long* q =
+          reinterpret_cast<unsigned long long*>(acc + g * kWide);
+      unsigned long long old[kWide / 2];
+      unsigned pend = (1u << (kWide / 2)) - 1;
+#pragma unroll
+      for (int t = 0; t < kWide / 2; ++t)
+        old[t] = ((volatile unsigned long long*)q)[t];
+      while (pend) {
+#pragma unroll
+        for (int t = 0; t < kWide / 2; ++t) {
+          if (pend >> t & 1) {
+            const unsigned long long got = atomicCAS(q + t, old[t], add2(old[t], v));
+            if (got == old[t])
+              pend &= ~(1u << t);
+            else
+              old[t] = got;
+          }
+        }
+      }
+    } else if (F == kCas128) {
+      float* q = acc + g * kWide;
+      unsigned long long lo[kWide / 4], hi[kWide / 4];
+      unsigned pend = (1u << (kWide / 4)) - 1;
+#pragma unroll
+      for (int t = 0; t < kWide / 4; ++t) {
+        lo[t] = ((volatile unsigned long long*)q)[2 * t];
+        hi[t] = ((volatile unsigned long long*)q)[2 * t + 1];
+      }
+      while (pend) {
+#pragma unroll
+        for (int t = 0; t < kWide / 4; ++t)
+          if ((pend >> t & 1) &&
+              cas128(q + 4 * t, lo[t], hi[t], add2(lo[t], v), add2(hi[t], v)))
+            pend &= ~(1u << t);
+      }
+    } else if (F == kPlainRouted) {
+#pragma unroll
+      for (int t = 0; t < kEntries; ++t) acc[t * padded + g] += v;
+    } else if (F == kCasRouted) {
+      unsigned* q = reinterpret_cast<unsigned*>(acc);
+      unsigned old[kEntries], pend = 0;
+#pragma unroll
+      for (int t = 0; t < kEntries; ++t) old[t] = ((volatile unsigned*)q)[t * padded + g];
+#pragma unroll
+      for (int t = 0; t < kEntries; ++t)
+        if (atomicCAS(q + t * padded + g, old[t],
+                      __float_as_uint(__uint_as_float(old[t]) + v)) != old[t])
+          pend |= 1u << t;
+#pragma unroll
+      for (int t = 0; t < kEntries; ++t)
+        if (pend >> t & 1) atomicAdd(acc + t * padded + g, v);
+    } else if (F == kMatchPrivate) {
+      float* mine = acc + (threadIdx.x >> 5) * groups * kEntries + g * kEntries;
+      const unsigned peers = __match_any_sync(kFull, g);
+      float val[kEntries];
+#pragma unroll
+      for (int t = 0; t < kEntries; ++t) val[t] = v + t;
+      int rank = __popc(peers & ((1u << lane) - 1));
+      unsigned above = peers & (0xfffffffeu << lane);
+      while (__any_sync(kFull, above)) {
+        const int next = __ffs(above);
+#pragma unroll
+        for (int t = 0; t < kEntries; ++t) {
+          const float o = __shfl_sync(kFull, val[t], (next - 1) & 31);
+          if (next) val[t] += o;
+        }
+        above &= ~__ballot_sync(kFull, rank & 1);
+        rank >>= 1;
+      }
+      if (__ffs(peers) - 1 == lane) {
+#pragma unroll
+        for (int t = 0; t < kEntries; ++t) mine[t] += val[t];
+      }
+      __syncwarp();
+    } else if (F == kAtomic) {
 #pragma unroll
       for (int t = 0; t < kEntries; ++t) atomicAdd(p + t, v);
     } else if (F == kRed) {
@@ -95,14 +229,14 @@ __global__ void __launch_bounds__(kThreads, 1) adds(int groups, float* out) {
   __syncthreads();
   if (F == kCluster) cg::this_cluster().sync();
   float sum = 0.f;
-  for (int e = threadIdx.x; e < groups * kEntries; e += blockDim.x) sum += acc[e];
+  for (int e = threadIdx.x; e < n_acc; e += blockDim.x) sum += acc[e];
   atomicAdd(out, sum);
 }
 
 template <int F>
 void run(const char* name, int groups, float* out, int clock_khz) {
   auto k = adds<F>;
-  const int smem = groups * kEntries * 4;
+  const int smem = acc_floats(F, groups) * 4;
   cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -127,7 +261,7 @@ void run(const char* name, int groups, float* out, int clock_khz) {
   float ms;
   cudaEventElapsedTime(&ms, a, b);
   ms /= reps;
-  const double adds = (double)kThreads * kIters * kEntries;  // a CTA, an SM
+  const double adds = (double)kThreads * kIters * entries(F);  // a CTA, an SM
   printf("%-18s G %5d: %.4f ms, %.3f adds a clock per SM (at the %d MHz clock; %s)\n",
          name, groups, ms, adds / (ms * 1e-3 * clock_khz * 1e3), clock_khz / 1000,
          cudaGetErrorString(cudaGetLastError()));
@@ -145,6 +279,11 @@ int main() {
     run<kBatchedCas>("batched CAS", groups, out, clock_khz);
     run<kCasThenAdd>("CAS, atomicAdd", groups, out, clock_khz);
     run<kCluster>("cluster atomicAdd", groups, out, clock_khz);
+    run<kPlainRouted>("plain, routed", groups, out, clock_khz);
+    run<kCasRouted>("CAS, routed", groups, out, clock_khz);
+    if (groups == 54) run<kMatchPrivate>("match, private", groups, out, clock_khz);
+    run<kCas64>("CAS64, 12 a group", groups, out, clock_khz);
+    run<kCas128>("CAS128, 12 a group", groups, out, clock_khz);
   }
   return cudaDeviceSynchronize() != cudaSuccess;
 }
