@@ -57,14 +57,37 @@ Phases, in order; any failed check raises and the script exits non-zero:
    degree-1 ``segment_view`` calls (the ``g:`` queries), and the
    ``segment_gram`` and ``multi_segment_gram`` calls of the grouped and
    materialized paths are captured; each runs again against its plain
-   version and is timed beside its bound.
-5. Oracle: the torch engine on the card against the port's float64 numpy
+   version and is timed beside its bound.  Before each profiled rerun
+   (phases 3 and 4) the store's view cache is evicted, so that no node is
+   served from it and every kernel of the rerun launches.
+5. Incremental maintenance, on a fresh lazy ``Store`` over the same
+   relations: cold continuous and categorical ``sufficient_stats`` (torch
+   backend) publish their views to the 256 MB view cache (the 18.6 M-row
+   views exceed it and are dropped); then one new day (11,070 sales rows,
+   54 transactions, 1 oil price, drawn as ``favorita_like`` draws, the
+   dates new to the date dictionary) is appended to three relations, and
+   drained by ``flush`` with the launch counters zeroed before and read
+   after: ``segment_view``, ``segment_view1`` and ``segment_reduce`` must
+   launch.  The read after the drain must visit no node, and the drained
+   statistics must equal a cold recompute on the merged catalog (a fresh
+   store, ``refresh=True``) within 1e-4 of the largest cofactor.  The same
+   again for a batch of 9 more days (99,630 sales rows in 27 appends,
+   below the compaction ratio, so they fold).  Each ``segment_blocks`` call of the drains'
+   ``_merge_views`` (cached view ⊎ delta view) runs again against its
+   plain version, timed beside its bound and ``index_add_``.  On the
+   oracle cell (below) the same appends drain on the float64 numpy engine
+   to a cold numpy recompute within 1e-12, the float32 torch drain equals
+   the float64 one within 1e-4, and the warm closed form
+   (``use_cache=True``) equals the cold one within 1e-8.
+6. Oracle: the torch engine on the card against the port's float64 numpy
    engine on the 410-item bundle (1,864,188 sales rows), for the continuous
    and the categorical closed form; and the FD leg on ``fd_star_schema``
    (8 categorical keys, each determining a second one): FD-reduced equals
    full at 1e-10 on the numpy engine and predicts alike through the
-   float32 ``multi_segment_gram`` kernel.
-6. LM serving: smollm-135m at its full published width and depth (30
+   float32 ``multi_segment_gram`` kernel.  The categorical torch leg
+   starts from an empty view cache (else the numpy leg's float64 views
+   would serve it).
+7. LM serving: smollm-135m at its full published width and depth (30
    layers, d_model 576, 9 query / 3 KV heads, vocab 49,152, bf16; random
    weights from a seeded generator) behind the continuous-batching
    ``Engine`` (4 slots, prompts padded to 4,096 tokens, a 4,160-slot
@@ -106,6 +129,7 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 N_SALES = 18_641_880  # favorita_like(1684, 54, 4100, 0.05) fact rows
+SALES_FRACTION = 0.05  # the cut's share of (date, store, item) triples
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12  # H100 SXM, off the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM, dense tensor cores
@@ -140,7 +164,16 @@ GRAM_WIDE = (1_000_000, 130)  # the reference's widest gram test, scaled up
 # and phase 4 (all seven)
 PHASE3_KERNELS = ("segment_view", "segment_view1", "segment_reduce", "moments")
 PHASE4_KERNELS = PHASE3_KERNELS + ("gram", "segment_gram", "multi_segment_gram")
-ALL_KERNELS = PHASE4_KERNELS + ("flash",)  # phase 6 launches flash
+ALL_KERNELS = PHASE4_KERNELS + ("flash",)  # phase 7 launches flash
+# phase 5: every drain folds through these
+INGEST_KERNELS = ("segment_view", "segment_view1", "segment_reduce")
+INGEST_BATCH_DAYS = 9  # the second append: ~100 K sales rows, under compaction
+# float64 drain vs float64 cold recompute, of the largest cofactor: the
+# same sums in another order
+INGEST_F64_RTOL = 1e-12
+# warm closed form (float64 cofactors rescaled) vs cold (scaled traversal):
+# the reference's own bound for the warm retrain
+WARM_THETA_RTOL = 1e-8
 # flash vs its plain version; three bounds must all hold.  Elementwise
 # |a - b| <= tol·(1 + |b|): the reference's own flash tolerances
 # (tests/test_kernels.py).  Those floors are as large as the outputs once an
@@ -154,7 +187,7 @@ ALL_KERNELS = PHASE4_KERNELS + ("flash",)  # phase 6 launches flash
 FLASH_TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-2}
 FLASH_ROW_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 FLASH_NORM_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
-# phase 6: smollm-135m behind the engine
+# phase 7: smollm-135m behind the engine
 LM_ARCH = "smollm-135m"
 LM_SERVE = dict(slots=4, prefill_len=4_096, max_len=4_160)
 LM_REQUESTS, LM_NEW, LM_PROMPT = 8, 32, (2_049, 4_096)
@@ -823,7 +856,7 @@ def device_busy_ms(prof) -> float:
 
 def favorita(rt):
     t0 = time.perf_counter()
-    bundle = rt.favorita_like(1684, 54, 4100, 0.05, seed=SEED)
+    bundle = rt.favorita_like(1684, 54, 4100, SALES_FRACTION, seed=SEED)
     n = bundle.store.get("SalesF").num_rows
     log(f"data: {n} sales rows, {bundle.store.total_rows()} rows in all, "
           f"{time.perf_counter() - t0:.2f}s to generate")
@@ -888,9 +921,12 @@ def main_path(rt, bundle) -> dict:
             log(f"  device {us / 1e3:10.3f} ms  {name[:100]}")
         node_ms = node_device_ms(prof, cap.calls, rt.sv)
         scale_ms = kernel_device_ms(prof, "moments_kernel")
-        # one degree-1 batch: every feature node through segment_view1
+        # one degree-1 batch: every feature node through segment_view1.
+        # The store's view cache is evicted first, so that no node is
+        # served from it (a scaled engine opts out of it anyway).
         cols = feats + [label]
         factors = results["closed"].factors
+        store.view_cache.clear()
         eng = rt.FactorizedEngine(
             store, vorder, cols, scale=factors, device="cuda"
         )
@@ -1059,15 +1095,15 @@ def call_pair(sv, ref, name, args, kwargs, dtype=None):
 
 
 def main_path_kernels(rt, calls, device_ms, split: bool = True) -> dict:
-    """Each captured call of the closed-form traversal again, on its own
-    arguments: kernel vs plain version (KERNEL_RTOL), path A bitwise equal
+    """Each captured segment-kernel call (a traversal's, a batch's, a
+    drain's merges) again, on its own arguments: kernel vs plain version (KERNEL_RTOL), path A bitwise equal
     across two calls, one float64 call per (kernel, path) within F64_RTOL;
     timed per call and back to back, beside its plain version, its bound
     and its device time in the profiled traversal; with ``split``, the
     host/device split of the regroup at transactions."""
     sv, ref = rt.sv, rt.ref
     rows, f64_done = [], set()
-    log(f"main path's own segment ids: {len(calls)} captured calls")
+    log(f"{len(calls)} captured calls, again on their own segment ids")
     for (name, args, kwargs), dev_ms in zip(calls, device_ms):
         nd = call_node(sv, name, args, kwargs)
         kern, plain = call_pair(sv, ref, name, args, kwargs)
@@ -1308,7 +1344,10 @@ def categorical_phase(rt, bundle) -> dict:
     del joined, x, one, stream
 
     # after the counts: the factorized leg again, profiled, for its
-    # degree-1 calls (the g: queries) on their own arguments
+    # degree-1 calls (the g: queries) on their own arguments; the first run
+    # published its views to the store's view cache, which would serve
+    # every node of this one, so the cache is evicted first
+    store.view_cache.clear()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     t = time.perf_counter()
     with torch.profiler.profile(activities=activities) as prof, Capture(rt.kops) as cap:
@@ -1379,10 +1418,311 @@ def gram_calls(rt, calls) -> dict:
     return dict(calls=len(calls), nodes=out)
 
 
-# -- phase 5: the float64 oracle ------------------------------------------------
+# -- phase 5: incremental maintenance ---------------------------------------------
+
+def new_days(rt, store, first_date: int, n_days: int, rng) -> dict:
+    """Rows of ``n_days`` new dates from ``first_date`` on for SalesF,
+    Transactions and Oil, drawn as ``favorita_like`` draws its own: the
+    cut's share (SALES_FRACTION) of the (store, item) pairs each day, the
+    same label model, 500–3,000 transactions a store, the oil price's
+    random walk.  The dates are values no relation holds yet, so they extend
+    the date dictionary."""
+    stores, items, oil = (store.get(n) for n in ("Stores", "Items", "Oil"))
+    n_stores, n_items = stores.num_rows, items.num_rows
+    cluster = np.empty(n_stores)
+    cluster[stores.keys["store_nbr"]] = stores.values["cluster"]
+    perishable = np.empty(n_items)
+    perishable[items.keys["item_nbr"]] = items.values["perishable"]
+    last_oil = float(oil.values["dcoilwtico"][np.argmax(oil.keys["date"])])
+    per_day = int(n_stores * n_items * SALES_FRACTION)
+    days = np.arange(first_date, first_date + n_days, dtype=np.int32)
+    flat = np.concatenate([rng.choice(n_stores * n_items, size=per_day, replace=False)
+                           for _ in days])
+    date = np.repeat(days, per_day)
+    s, it = flat // n_items, flat % n_items
+    promo = rng.integers(0, 2, size=flat.size).astype(np.float64)
+    sales = (5.0 + 0.05 * date + 2.0 * cluster[s] + 3.0 * perishable[it] + 4.0 * promo
+             + rng.normal(0, 1.0, size=flat.size))
+    n_dates = first_date + n_days
+    rel = rt.Relation.from_columns
+    return {
+        "SalesF": rel("SalesF", {"date": date, "store_nbr": s, "item_nbr": it},
+                      {"unit_sales": sales, "onpromotion": promo},
+                      {"date": n_dates, "store_nbr": n_stores, "item_nbr": n_items}),
+        "Transactions": rel(
+            "Transactions",
+            {"date": np.repeat(days, n_stores),
+             "store_nbr": np.tile(np.arange(n_stores), n_days)},
+            {"transactions": rng.integers(500, 3000, size=n_days * n_stores) * 1.0},
+            {"date": n_dates, "store_nbr": n_stores}),
+        "Oil": rel("Oil", {"date": days},
+                   {"dcoilwtico": last_oil + np.cumsum(rng.normal(0, 1, size=n_days))},
+                   {"date": n_dates}),
+    }
+
+
+def append_days(rt, stores, first_date: int, n_days: int, rng) -> int:
+    """Append ``n_days`` new days, one day at a time, to SalesF,
+    Transactions and Oil of every store in ``stores`` (the same rows);
+    returns the SalesF rows appended."""
+    rows = 0
+    for d in range(n_days):
+        rels = new_days(rt, stores[0], first_date + d, 1, rng)
+        rows += rels["SalesF"].num_rows
+        for store in stores:
+            for name, rel in rels.items():
+                store.append(name, rel)
+    return rows
+
+
+def sufficient(store, bundle, what=None, **kw) -> tuple:
+    """The continuous and the categorical (CAT) sufficient statistics of the
+    bundle's regression, read through the store (each read's seconds logged
+    under ``what``, if given)."""
+    args = (bundle.vorder, bundle.features, bundle.label)
+    out = []
+    for part, cat in (("continuous", ()), ("categorical", CAT)):
+        t = time.perf_counter()
+        out.append(store.sufficient_stats(*args, categorical=cat, **kw))
+        torch.cuda.synchronize()
+        if what:
+            log(f"{what}, {part}: {time.perf_counter() - t:.3f}s")
+    return tuple(out)
+
+
+def check_stats(what, got, want, rtol) -> None:
+    """Each pair of sufficient statistics within ``rtol`` of the largest
+    cofactor."""
+    for part, g, w in zip(("continuous", "categorical"), got, want):
+        a, b = g.matrix(), w.matrix()
+        err, tol = float(np.abs(a - b).max()), rtol * float(np.abs(b).max())
+        log(f"  {what}, {part}: max_abs_err={err:.3e} tol={tol:.3e}")
+        if a.shape != b.shape or not err <= tol:
+            raise AssertionError(f"{what}, {part}: {err} > {tol}")
+
+
+class StepTimers:
+    """Wall seconds of a store's fold steps, by patching the instance's
+    methods: each relation's whole fold, and within it the view-cache
+    folds and the continuous and categorical result-cache delta passes."""
+
+    STEPS = ("_maintain_view_cache", "_delta_cofactors", "_delta_cat_cofactors")
+
+    def __init__(self, store):
+        self.store, self.folds, self.steps = store, [], {n: 0.0 for n in self.STEPS}
+
+    def __enter__(self):
+        for name in self.STEPS:
+            setattr(self.store, name, self._timed(name, getattr(self.store, name)))
+        fold = self.store._fold_relation
+
+        def timed_fold(name, *args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fold(name, *args, **kwargs)
+            finally:
+                self.folds.append((name, time.perf_counter() - t))
+
+        self.store._fold_relation = timed_fold
+        return self
+
+    def _timed(self, step, fn):
+        def timed(*args, **kwargs):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.steps[step] += time.perf_counter() - t
+        return timed
+
+    def __exit__(self, *exc):
+        for name in self.STEPS + ("_fold_relation",):
+            del self.store.__dict__[name]
+
+
+class MergeCapture:
+    """The ``segment_blocks`` calls a drain makes inside the engine's
+    ``_merge_views`` (a cached view ⊎ its delta view, regrouped), with the
+    cached and delta row counts of each merge, by patching the engine class
+    and the name the engine module calls (as Capture does)."""
+
+    def __init__(self, rt):
+        self.rt, self.calls, self.sizes, self._merging = rt, [], [], None
+
+    def __enter__(self):
+        self.saved = (self.rt.FactorizedEngine._merge_views, self.rt.kops.segment_blocks)
+        merge, blocks = self.saved
+
+        def merge_views(engine, a, b, degree):
+            self._merging = (a.num_rows, b.num_rows)
+            try:
+                return merge(engine, a, b, degree)
+            finally:
+                self._merging = None
+
+        def segment_blocks(*args, **kwargs):
+            if self._merging is not None:
+                self.calls.append(("segment_blocks", args, kwargs))
+                self.sizes.append(self._merging)
+            return blocks(*args, **kwargs)
+
+        self.rt.FactorizedEngine._merge_views = merge_views
+        self.rt.kops.segment_blocks = segment_blocks
+        return self
+
+    def __exit__(self, *exc):
+        self.rt.FactorizedEngine._merge_views, self.rt.kops.segment_blocks = self.saved
+
+
+def drain(rt, store, what: str, profile: bool = False) -> tuple:
+    """Flush ``store``'s pending appends with the launch counters zeroed
+    just before and read just after; the drain must launch the three
+    segment kernels.  Logs the seconds of each relation's fold and of its
+    steps, the engine's host structure work and, with ``profile``, the
+    device's busy time (the profiler's own host cost then inflates the
+    wall).  Returns (launch counts, MergeCapture)."""
+    rt.kops.reset_launch_counts()
+    store.reset_counters()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with MergeCapture(rt) as cap, StepTimers(store) as steps, \
+            HostTimers(rt.fz, rt.kops) as host, \
+            (torch.profiler.profile(activities=activities) if profile
+             else contextlib.nullcontext()) as prof:
+        t = time.perf_counter()
+        drained = store.flush()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+    counts = rt.kops.launch_counts()
+    log(f"{what}: folds " + " ".join(f"{n}={s:.3f}s" for n, s in steps.folds)
+        + "; steps " + " ".join(f"{n.lstrip('_')}={s:.3f}s" for n, s in steps.steps.items())
+        + "; host " + " ".join(f"{n}={s:.3f}s" for n, s in host.seconds.items()))
+    if profile:
+        busy = device_busy_ms(prof) / 1e3
+        log(f"{what}: profiled drain {seconds:.3f}s, device busy {busy:.3f}s, "
+            f"idle_share={1 - busy / seconds:.4f}")
+    info = store.cache_info()
+    log(f"{what}: drained {drained} in {seconds:.3f}s; passes={info['passes']} "
+        f"node_visits={info['node_visits']} cat_passes={info['cat_passes']} "
+        f"cat_node_visits={info['cat_node_visits']} view cache hits={info['view_cache_hits']} "
+        f"misses={info['view_cache_misses']} entries={info['view_cache_entries']} "
+        f"bytes={info['view_cache_bytes']}; delta log "
+        f"{ {k: info[k] for k in ('pending_rows', 'drains', 'drained_rows', 'compactions')} }; "
+        f"merges={len(cap.calls)} launches={counts}")
+    missing = [k for k in INGEST_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels never launched in the drain: {missing}")
+    return counts, cap
+
+
+def merge_calls(rt, calls, sizes) -> list:
+    """Each captured merge regroup again on its own arguments, measured as
+    the main path's calls are (main_path_kernels), with its cached + delta
+    rows and the time of ``index_add_`` over the same ids into the same
+    groups (the blocks laid side by side in one [M, W] tensor beforehand)."""
+    rows = main_path_kernels(rt, calls, [None] * len(calls), split=False)["nodes"]
+    for nd, (_, args, _), (cached, delta) in zip(rows, calls, sizes):
+        seg = torch.as_tensor(args[3], device=args[0].device).long()
+        data = torch.cat([t.reshape(t.shape[0], -1) for t in (args[0][:, None], *args[1:3])
+                          if t is not None], 1).contiguous()
+        lib = functools.partial(library_segment_sum, data, seg, int(args[4]))
+        nd.update(cached_rows=cached, delta_rows=delta, width=int(data.shape[1]),
+                  library_ms=time_ms(lib), library_ms_back_to_back=time_ms_back_to_back(lib))
+        log(f"  merge {cached} + {delta} rows → {nd['groups']} groups, W {nd['width']}, "
+            f"path {nd['path']}: ms={nd['ms']:.4f} back-to-back {nd['ms_back_to_back']:.4f} "
+            f"bound_ms={nd['bound_ms']:.5f} index_add_ {nd['library_ms']:.4f} / "
+            f"{nd['library_ms_back_to_back']:.4f}")
+    return rows
+
+
+def ingest_phase(rt, bundle) -> dict:
+    """One new day, then a batch of INGEST_BATCH_DAYS more, appended to a
+    fresh lazy torch-backend Store over the bundle's relations and drained
+    on the card; after each drain the warm read visits no node and equals a
+    cold recompute on the merged catalog."""
+    store = rt.Store(bundle.store.relations())
+    kw = dict(backend="torch", device="cuda")
+    t = time.perf_counter()
+    sufficient(store, bundle, "cold read", **kw)
+    info = store.cache_info()
+    log(f"cold reads: {time.perf_counter() - t:.3f}s; passes={info['passes']} "
+        f"node_visits={info['node_visits']} view cache entries={info['view_cache_entries']} "
+        f"bytes={info['view_cache_bytes']} misses={info['view_cache_misses']}")
+    rng = np.random.default_rng(SEED + 1)
+    first = store.attr_domain("date")
+    counts, merges, sizes = {k: 0 for k in INGEST_KERNELS}, [], []
+    for n_days in (1, INGEST_BATCH_DAYS):
+        what = f"{n_days} new day(s)"
+        t = time.perf_counter()
+        rows = append_days(rt, [store], first, n_days, rng)
+        info = store.cache_info()
+        log(f"{what}: {rows} sales rows appended in {time.perf_counter() - t:.3f}s; "
+            f"pending relations={info['pending_relations']} rows={info['pending_rows']} "
+            f"appends={info['pending_appends']}")
+        first += n_days
+        # the second drain runs profiled for the device's idle share
+        got, cap = drain(rt, store, what, profile=n_days > 1)
+        for k in counts:
+            counts[k] += got[k]
+        merges += cap.calls
+        sizes += cap.sizes
+        store.reset_counters()
+        t = time.perf_counter()
+        warm = sufficient(store, bundle, **kw)
+        log(f"{what}: read after the drain {time.perf_counter() - t:.3f}s, "
+            f"passes={store.passes} node_visits={store.node_visits}")
+        if store.node_visits != 0:
+            raise AssertionError(f"{what}: the read after the drain visited "
+                                 f"{store.node_visits} nodes")
+        fresh = rt.Store(store.relations())
+        cold = sufficient(fresh, bundle, f"{what}: cold recompute on the merged catalog",
+                          refresh=True, **kw)
+        check_stats(f"{what}: drained vs cold", warm, cold, ORACLE_RTOL)
+        del fresh, cold, warm
+    log(f"phase 5 launches (both drains): {counts}; the drains' merge regroups:")
+    return dict(launches=counts, merges=merge_calls(rt, merges, sizes))
+
+
+def ingest_oracle(rt) -> None:
+    """The same appends on the oracle cell: the float64 numpy drain equals a
+    cold numpy recompute (INGEST_F64_RTOL), the float32 torch drain the
+    float64 one (ORACLE_RTOL), and the warm closed form (``use_cache``)
+    the cold one (WARM_THETA_RTOL)."""
+    bundle = rt.favorita_like(1684, 54, 410, SALES_FRACTION, seed=SEED)
+    kws = {"numpy": dict(backend="numpy"), "torch": dict(backend="torch", device="cuda")}
+    stores = {b: rt.Store(bundle.store.relations()) for b in kws}
+    for b, store in stores.items():
+        sufficient(store, bundle, **kws[b])
+    rng = np.random.default_rng(SEED + 2)
+    first = stores["numpy"].attr_domain("date")
+    for n_days in (1, INGEST_BATCH_DAYS):
+        what = f"oracle cell, {n_days} new day(s)"
+        append_days(rt, list(stores.values()), first, n_days, rng)
+        first += n_days
+        t = time.perf_counter()
+        drained = {b: sufficient(store, bundle, **kws[b]) for b, store in stores.items()}
+        log(f"{what}: drained and read in {time.perf_counter() - t:.3f}s")
+        cold = sufficient(rt.Store(stores["numpy"].relations()), bundle, refresh=True,
+                          **kws["numpy"])
+        check_stats(f"{what}: numpy drained vs numpy cold", drained["numpy"], cold,
+                    INGEST_F64_RTOL)
+        check_stats(f"{what}: torch drained vs numpy drained", drained["torch"],
+                    drained["numpy"], ORACLE_RTOL)
+    cfg = dataclasses.replace(rt.VERSIONS["closed"], backend="numpy", device="cuda")
+    args = (bundle.vorder, bundle.features, bundle.label)
+    warm = rt.linear_regression(stores["numpy"], *args,
+                                dataclasses.replace(cfg, use_cache=True)).theta
+    cold = rt.linear_regression(rt.Store(stores["numpy"].relations()), *args, cfg).theta
+    rel = float(np.max(np.abs(warm - cold) / np.maximum(np.abs(cold), 1e-12)))
+    log(f"oracle cell: warm closed form (use_cache) vs cold, max rel err {rel:.3e} "
+        f"(tol {WARM_THETA_RTOL})")
+    if not rel <= WARM_THETA_RTOL:
+        raise AssertionError(f"warm closed form off the cold one: {rel}")
+
+
+# -- phase 6: the float64 oracle ------------------------------------------------
 
 def oracle_phase(rt) -> None:
-    bundle = rt.favorita_like(1684, 54, 410, 0.05, seed=SEED)
+    bundle = rt.favorita_like(1684, 54, 410, SALES_FRACTION, seed=SEED)
     store, vorder = bundle.store, bundle.vorder
     feats, label = bundle.features, bundle.label
     cols = feats + [label]
@@ -1416,9 +1756,12 @@ def oracle_phase(rt) -> None:
     if not rel <= THETA_RTOL:
         raise AssertionError(f"theta off the fp64 oracle: {rel}")
 
-    # the categorical closed form: torch on the card vs the float64 engine
+    # the categorical closed form: torch on the card vs the float64 engine;
+    # the torch leg starts from an empty view cache, or the numpy leg's
+    # float64 views would serve it
     cat = {}
     for backend in ("numpy", "torch"):
+        store.view_cache.clear()
         cfg = dataclasses.replace(
             rt.VERSIONS["closed"], backend=backend, device="cuda", categorical=CAT
         )
@@ -1461,7 +1804,7 @@ def fd_oracle(rt) -> None:
                        exact, joined, b.label)
 
 
-# -- phase 6: LM serving ---------------------------------------------------------
+# -- phase 7: LM serving ---------------------------------------------------------
 
 def plain_flash(chunked_attention):
     """A stand-in for ``ops.flash_attention`` that runs its plain version on
@@ -1667,6 +2010,8 @@ def main() -> None:
         VERSIONS,
         AggregateQuery,
         FactorizedEngine,
+        Relation,
+        Store,
         cofactors_factorized,
         cofactors_grouped,
         cofactors_materialized,
@@ -1689,7 +2034,7 @@ def main() -> None:
 
     rt = types.SimpleNamespace(
         VERSIONS=VERSIONS, AggregateQuery=AggregateQuery,
-        FactorizedEngine=FactorizedEngine,
+        FactorizedEngine=FactorizedEngine, Relation=Relation, Store=Store,
         compute_scale_factors=compute_scale_factors,
         cofactors_factorized=cofactors_factorized,
         cofactors_grouped=cofactors_grouped,
@@ -1755,13 +2100,23 @@ def main() -> None:
         for phase, got in (("phase3", traversal["degree1"]), ("phase4", views4))}
     for name, got in grams.items():
         rows[name]["main_path"] = dict(phase4=got)
-    del bundle
 
-    log("phase 5: float64 oracle")
+    log("phase 5: incremental maintenance")
+    ingest = ingest_phase(rt, bundle)
+    del bundle
+    ingest_oracle(rt)
+    # the drains are this slice's path: their launches join the main path's
+    for name, n in ingest["launches"].items():
+        rows[name]["launches"] += n
+        rows[name]["launches_by_phase"]["phase5"] = n
+    rows["segment_reduce"]["ingest"] = dict(
+        merges=[{k: v for k, v in nd.items() if k != "kernel"} for nd in ingest["merges"]])
+
+    log("phase 6: float64 oracle")
     oracle_phase(rt)
     fd_oracle(rt)
 
-    log("phase 6: LM serving")
+    log("phase 7: LM serving")
     rows["flash"]["launches"] = lm_phase(lm)
 
     print(json.dumps({"kernels": [rows[n] for n in ALL_KERNELS]}))

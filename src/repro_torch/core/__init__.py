@@ -12,6 +12,10 @@ Layering (paper section in parentheses):
 * ``fd``                        — functional dependencies: catalog,
                                   FD-reduced solving, closed-form recovery
 * ``categorical``               — sparse categorical cofactors (AC/DC-style)
+* ``view_cache``                — persistent cross-batch per-node view cache
+                                  (store-owned, delta-maintained under append)
+* ``delta_log``                 — pending-append log behind lazy maintenance
+                                  (O(delta) writes, read-time draining)
 * ``api``                       — the ``StoreReads`` Protocol
 """
 
@@ -36,6 +40,7 @@ from .cofactor import (
     design_matrix,
     iter_design_chunks,
 )
+from .delta_log import DeltaLog, RelationLog
 from .factorize import (
     AggregateBlock,
     AggregateQuery,
@@ -71,12 +76,14 @@ from .variable_order import (
     validate,
     variable_order_from_store,
 )
+from .view_cache import ViewCache, ViewKey
 
 __all__ = [
     "AggregateBlock",
     "AggregateQuery",
     "CatCofactors",
     "Cofactors",
+    "DeltaLog",
     "Dictionary",
     "FDReduction",
     "FactorizedEngine",
@@ -86,6 +93,7 @@ __all__ = [
     "GroupedView",
     "INTERCEPT",
     "Relation",
+    "RelationLog",
     "RegressionConfig",
     "RegressionResult",
     "ScaleFactors",
@@ -95,6 +103,8 @@ __all__ = [
     "StoreSnapshot",
     "VariableOrder",
     "VERSIONS",
+    "ViewCache",
+    "ViewKey",
     "bgd_cofactor",
     "bgd_data",
     "cat_cofactors_factorized",

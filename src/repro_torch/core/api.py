@@ -1,16 +1,25 @@
 """The store layer's public READ contract, as an explicit Protocol.
 
 ``Store`` and ``StoreSnapshot`` duck-type the same read surface; every
-``FactorizedEngine`` runs against either interchangeably.  This port's
-store carries the catalog, dictionary, statistics and functional-dependency
-reads; the result caches and pending-delta log of the JAX package are not
-part of it yet, so they are absent here.
+``FactorizedEngine`` runs against either interchangeably.
+
+The contract is *reads only*: anything here is safe against a snapshot
+frozen at an old version.  Mutations (``append`` / ``put`` / ``add_fd``)
+and maintenance state (the view cache, the pending-delta log) are
+``Store``-only and deliberately absent.
+
+``flush`` sits on the read surface because draining pending deltas is a
+*read-side* concern under lazy maintenance: a reader that wants warm
+caches folds the log first.  On a stale ``StoreSnapshot`` it is a no-op
+(the snapshot's frozen catalog needs no cache maintenance); on a current
+one it forwards to the parent store.
 """
 
 from __future__ import annotations
 
 from typing import (
     TYPE_CHECKING,
+    Dict,
     List,
     Optional,
     Protocol,
@@ -22,8 +31,10 @@ from typing import (
 import numpy as np
 
 if TYPE_CHECKING:  # typing-only: avoid import cycles at runtime
+    from .factorize import Cofactors
     from .fd import FDReduction, FunctionalDependency
     from .relation import Relation
+    from .variable_order import VariableOrder
 
 __all__ = ["StoreReads"]
 
@@ -58,7 +69,9 @@ class StoreReads(Protocol):
         ...
 
     # -- dictionary encodings --------------------------------------------------
-    def attr_encoding(self, rel_name: str, attr: str) -> np.ndarray:
+    def attr_encoding(
+        self, rel_name: str, attr: str, override: Optional["Relation"] = None
+    ) -> np.ndarray:
         """int32 ids of a relation's column under the store's append-only
         attribute dictionary."""
         ...
@@ -81,6 +94,47 @@ class StoreReads(Protocol):
         """FD reduction plan of a categorical attribute list."""
         ...
 
+    # -- aggregates ------------------------------------------------------------
+    def sufficient_stats(
+        self,
+        vorder: "VariableOrder",
+        features: Sequence[str],
+        label: Optional[str] = None,
+        categorical: Sequence[str] = (),
+        backend: Optional[str] = None,
+        refresh: bool = False,
+        reduce_fds: bool = False,
+        device="cuda",
+    ):
+        """Sufficient statistics (cofactors) for a regression over the
+        factorized join — the single read entry point; see
+        ``Store.sufficient_stats``."""
+        ...
+
+    def cofactors(
+        self,
+        vorder: "VariableOrder",
+        features: Sequence[str],
+        backend: str = "torch",
+        refresh: bool = False,
+        device="cuda",
+    ) -> "Cofactors":
+        """Continuous-only sufficient statistics (thin wrapper)."""
+        ...
+
+    def cat_cofactors(
+        self,
+        vorder: "VariableOrder",
+        cont: Sequence[str],
+        cat: Sequence[str],
+        backend: str = "numpy",
+        refresh: bool = False,
+        reduce_fds: bool = False,
+        device="cuda",
+    ):
+        """Categorical sufficient statistics (thin wrapper)."""
+        ...
+
     def materialize_join(
         self, names: Optional[Sequence[str]] = None
     ) -> "Relation":
@@ -91,4 +145,19 @@ class StoreReads(Protocol):
     def snapshot(self) -> "StoreReads":
         """An immutable read view at the current version (snapshots
         return themselves)."""
+        ...
+
+    @property
+    def live_version(self) -> int:
+        """The live store's current catalog version (a snapshot reaches
+        through to its parent)."""
+        ...
+
+    def flush(self, names: Optional[Sequence[str]] = None) -> Dict[str, int]:
+        """Fold pending appends into the caches (lazy maintenance);
+        no-op and zero-stats on an already-clean or frozen view."""
+        ...
+
+    def cache_info(self) -> Dict[str, int]:
+        """Cache, counter and pending-delta report of the live store."""
         ...

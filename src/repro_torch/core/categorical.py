@@ -42,8 +42,7 @@ stay valid when an append introduces unseen category ids.
 
 The factorized paths take the engine's ``backend`` (``"numpy"`` float64 on
 the host by default, or ``"torch"`` float32 on ``device``, ``"cuda"`` unless
-the caller asks for the CPU).  The delta-engine ``overrides`` and the
-persistent view cache of the JAX package belong to later parts of the port.
+the caller asks for the CPU), and share the store's persistent view cache.
 """
 
 from __future__ import annotations
@@ -310,9 +309,20 @@ class CatCofactors:
 # Computation paths
 # ---------------------------------------------------------------------------
 
-def _store_domains(store: StoreReads, cat: Sequence[str]) -> Dict[str, int]:
-    """Dictionary-domain sizes from the catalog."""
-    return {c: store.attr_domain(c) for c in cat}
+def _store_domains(
+    store: StoreReads,
+    cat: Sequence[str],
+    overrides: Optional[Dict[str, Relation]] = None,
+) -> Dict[str, int]:
+    """Dictionary-domain sizes from the catalog, widened by any override
+    relations (a delta engine's replacement rows may carry category ids
+    past the pre-merge catalog's domains)."""
+    doms = {c: store.attr_domain(c) for c in cat}
+    for rel in (overrides or {}).values():
+        for c in cat:
+            if c in rel.domains:
+                doms[c] = max(doms[c], int(rel.domains[c]))
+    return doms
 
 
 def _checked_ids(g, attr: str, dom: int) -> np.ndarray:
@@ -339,6 +349,8 @@ def cat_cofactors_factorized(
     domains: Optional[Dict[str, int]] = None,
     stats: Optional[Dict[str, int]] = None,
     use_node_kernels: Optional[bool] = None,
+    overrides: Optional[Dict[str, Relation]] = None,
+    use_view_cache: Optional[bool] = None,
     device="cuda",
 ) -> CatCofactors:
     """Categorical cofactors over the **factorized** join — ONE fused pass.
@@ -358,19 +370,27 @@ def cat_cofactors_factorized(
     single-pass claim.  With ``backend="torch"`` the traversal runs on
     ``device``: the base query through ``segment_view``, the GROUP BY c
     queries through ``segment_view1`` and the pair counts through
-    ``segment_reduce``.  The JAX package's ``overrides`` (delta engine) and
-    ``use_view_cache`` arguments belong to the view-cache part of the port
-    and are not taken here.
+    ``segment_reduce``.  ``overrides`` runs the batch as a *delta engine*
+    (relations replaced by their append deltas, cached sibling views
+    reused); ``use_view_cache`` overrides the store's default for the
+    persistent cross-batch view cache — with it on, successive batches
+    over overlapping attribute sets skip finished subtree descents.
     """
     cont = list(cont)
     cat = list(cat)
     k = len(cont)
-    doms = dict(domains) if domains is not None else _store_domains(store, cat)
+    doms = (
+        dict(domains)
+        if domains is not None
+        else _store_domains(store, cat, overrides)
+    )
     engine = FactorizedEngine(
         store,
         vorder,
         cont,
         backend=backend,
+        overrides=overrides,
+        use_view_cache=use_view_cache,
         use_node_kernels=use_node_kernels,
         device=device,
     )
@@ -386,6 +406,8 @@ def cat_cofactors_factorized(
     if stats is not None:
         stats["passes"] = engine.passes
         stats["node_visits"] = engine.node_visits
+        stats["vc_hits"] = engine.vc_hits
+        stats["vc_misses"] = engine.vc_misses
 
     base = out["base"]
     perm = [base.features.index(f) for f in cont]

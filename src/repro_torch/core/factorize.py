@@ -38,8 +38,26 @@ oracle.  Structural index work (joins, group keys) stays on host numpy, as
 in the paper's query executor; with a GPU the GROUP BY ids come from a
 device sort and only the G first-occurrence indices return to the host.
 
-The persistent view cache and append-time delta folds of the JAX package
-are not part of this port yet.
+Cross-batch reuse: when the store owns a
+:class:`repro_torch.core.view_cache.ViewCache` (every ``Store`` does),
+finished subtree views are ALSO published to that persistent cache under a
+store-agnostic key — ``(vorder signature, node preorder index, subtree
+feature subset, live subset, degree, backend/dtype)`` — so a later batch
+(same engine or a brand-new one) starts from the deepest changed node
+instead of the leaves.  A fully-warm batch reports **zero** ``node_visits``
+on unchanged subtrees; persistent hits/misses are counted separately in
+``vc_hits`` / ``vc_misses``.  A cached torch view keeps its blocks on the
+device that built it.  Engines constructed with ``overrides=`` (a relation
+replaced by its append delta) are *delta engines*: they skip the
+persistent cache for every node whose subtree covers an overridden
+relation (those views are deltas, not totals) while still REUSING the
+cached views of untouched sibling subtrees — which is what makes a drain
+cost O(delta root path), not O(tree).  ``fold_delta_view`` merges a
+delta view into a cached total (``_merge_views``: host key columns
+concatenated with numpy, blocks with ``torch.cat`` on the device, then one
+regroup through ``segment_blocks``).
+``use_view_cache=False`` (or ``scale`` being set — scaled views are
+engine-specific) opts a single engine out.
 """
 
 from __future__ import annotations
@@ -52,8 +70,15 @@ import torch
 
 from ..kernels import ops as kernel_ops
 from .api import StoreReads
-from .relation import group_key, join_keys, segment_sum_torch, sort_merge_join
+from .relation import (
+    Relation,
+    group_key,
+    join_keys,
+    segment_sum_torch,
+    sort_merge_join,
+)
 from .variable_order import INTERCEPT, VariableOrder, validate
+from .view_cache import ViewKey
 
 __all__ = [
     "AggregateBlock",
@@ -64,10 +89,16 @@ __all__ = [
     "GroupedView",
     "MergedBatch",
     "cofactors_factorized",
+    "engine_dtype",
     "grouped_cofactors_factorized",
     "merge_batches",
     "scatter_results",
 ]
+
+
+def engine_dtype(backend: str, tag: str):
+    """The engine dtype a view-cache key's ``dtype`` tag names."""
+    return getattr(torch, tag) if backend == "torch" else np.dtype(tag)
 
 
 @dataclasses.dataclass
@@ -351,6 +382,10 @@ class FactorizedEngine:
     numpy) routes feature nodes through the fused ``segment_view`` and
     regroups through one ``segment_blocks`` call instead of one scatter per
     block.
+
+    ``overrides`` makes a delta engine (see the module docstring);
+    ``use_view_cache`` overrides the store's default for the persistent
+    view cache.
     """
 
     def __init__(
@@ -362,13 +397,25 @@ class FactorizedEngine:
         dtype=None,
         scale=None,  # Optional[ScaleFactors] — lazy view rescaling (§4.2)
         group_by: Sequence[str] = (),
+        overrides: Optional[Dict[str, Relation]] = None,
+        use_view_cache: Optional[bool] = None,
         use_node_kernels: Optional[bool] = None,
         device="cuda",
     ) -> None:
         self.store = store
+        # lazy-maintenance read barrier: fold the pending-delta log of the
+        # covered relations BEFORE freezing the catalog, so this engine
+        # probes a warm, up-to-date view cache.  Delta engines (overrides)
+        # skip it — they ARE the drain's workers, and their overridden
+        # relations must keep their recorded pending state.
+        if not overrides:
+            flush = getattr(store, "flush", None)
+            if callable(flush):
+                flush(vorder.relations())
         # freeze the catalog: all *data* reads go through an immutable
-        # snapshot; counters route through ``self.store`` (the snapshot
-        # forwards them), keeping store totals authoritative.
+        # snapshot; counters, the view cache and vorder registration route
+        # through ``self.store`` (the snapshot forwards them), keeping
+        # store totals authoritative.
         snap = getattr(store, "snapshot", None)
         self.data = snap() if callable(snap) else store
         validate(vorder, self.data)
@@ -400,8 +447,19 @@ class FactorizedEngine:
             and kernel_ops.fast_device_grouping(self.device)
         )
         self.group_by = list(group_by)
+        # delta mode: relations replaced by their append delta — the engine
+        # evaluates the join with ``name`` swapped for ``overrides[name]``
+        # against the live store (shared dictionaries, shared view cache).
+        self.overrides = dict(overrides or {})
+        unknown = set(self.overrides) - set(vorder.relations())
+        if unknown:
+            raise ValueError(
+                f"overrides {sorted(unknown)} not in the variable order"
+            )
         self.passes = 0
         self.node_visits = 0
+        self.vc_hits = 0
+        self.vc_misses = 0
         self._check_group_attrs(self.group_by)
         self._index_nodes()
         self._encode_attributes()
@@ -411,22 +469,72 @@ class FactorizedEngine:
                 f"group-by attributes {sorted(missing)} occur in no relation "
                 "of the variable order"
             )
+        # persistent cross-batch view cache (store-owned).  Scaled engines
+        # opt out: their views bake engine-specific affine transforms in.
+        vc = getattr(store, "view_cache", None)
+        if use_view_cache is None:
+            use_view_cache = vc is not None and vc.enabled
+        self._vc = vc if (use_view_cache and vc is not None) else None
+        if scale is not None:
+            self._vc = None
+        self._vc_skip = frozenset(self.overrides)
+        # encoded columns are a SNAPSHOT of the catalog at construction
+        # time: if the store mutates afterwards, this engine's views are
+        # stale-by-design and must neither probe nor publish the shared
+        # cache.  ``live_version`` reaches through a StoreSnapshot to the
+        # parent store's current version.
+        self._vc_version = getattr(self.data, "version", 0)
+        if self._vc is not None and hasattr(store, "_register_vorder"):
+            # append maintenance needs the order to rebuild delta engines
+            store._register_vorder(self.sig, vorder)
         self._leaf_memo: Dict[Tuple[str, int], _View] = {}
+        # shared delta-fold memo; degree safety comes from _execute's
+        # degree-aware acceptance (a low-degree view never serves a
+        # higher-degree fold), so folds at every degree share descents
+        self._maint_memo: Dict[Tuple[int, FrozenSet[str]], _View] = {}
 
     def _index_nodes(self) -> None:
-        """Static subtree summaries: the attribute nodes under each node."""
+        """Assign stable preorder indices and static subtree summaries —
+        the store-agnostic node identity the persistent cache keys on."""
+        self.sig = self.vorder.signature()
+        self._nodes: List[VariableOrder] = []
+        self._node_index: Dict[int, int] = {}
         self._subtree_vars: Dict[int, FrozenSet[str]] = {}
+        self._subtree_rels: Dict[int, FrozenSet[str]] = {}
 
-        def walk(node: VariableOrder) -> set:
+        def walk(node: VariableOrder) -> Tuple[set, set]:
+            self._node_index[id(node)] = len(self._nodes)
+            self._nodes.append(node)
             vs: set = set()
-            if not node.is_relation and node.name != INTERCEPT:
+            rs: set = set()
+            if node.is_relation:
+                rs.add(node.relation)
+            elif node.name != INTERCEPT:
                 vs.add(node.name)
             for ch in node.children:
-                vs |= walk(ch)
+                cv, cr = walk(ch)
+                vs |= cv
+                rs |= cr
             self._subtree_vars[id(node)] = frozenset(vs)
-            return vs
+            self._subtree_rels[id(node)] = frozenset(rs)
+            return vs, rs
 
         walk(self.vorder)
+        feat_set = set(self.features)
+        self._node_feats: Dict[int, Tuple[str, ...]] = {
+            id(n): tuple(sorted(feat_set & self._subtree_vars[id(n)]))
+            for n in self._nodes
+        }
+
+    def _get_rel(self, name: str) -> Relation:
+        if name in self.overrides:
+            return self.overrides[name]
+        return self.data.get(name)
+
+    def _live_version(self) -> int:
+        """The live store's current version (reaches through a snapshot)."""
+        v = getattr(self.store, "live_version", None)
+        return v if v is not None else getattr(self.store, "version", 0)
 
     def _check_group_attrs(self, group_by: Sequence[str]) -> None:
         overlap = set(group_by) & set(self.features)
@@ -439,9 +547,15 @@ class FactorizedEngine:
     # -- dictionary encoding (global, per attribute) --------------------------
     def _encode_attributes(self) -> None:
         """Dictionary-encode every (relation, attribute) column through the
-        store's append-only attribute dictionaries (``attr_encoding``), or,
-        for store-likes without them, with one in-engine ``np.unique`` per
-        attribute."""
+        store's append-only attribute dictionaries (``attr_encoding``; an
+        override relation's columns are encoded through the same
+        dictionaries), or, for store-likes without them, with one in-engine
+        ``np.unique`` per attribute."""
+        self._dtype_tag = (
+            str(self.dtype).removeprefix("torch.")
+            if self.backend == "torch"
+            else str(np.dtype(self.dtype))
+        )
         rel_names = list(dict.fromkeys(self.vorder.relations()))
         self.domains: Dict[str, int] = {}
         self.attr_values: Dict[str, np.ndarray] = {}  # id -> float value
@@ -449,8 +563,10 @@ class FactorizedEngine:
         if hasattr(self.data, "attr_encoding"):
             attrs: set = set()
             for rn in rel_names:
-                for attr in self.data.get(rn).attributes:
-                    self.encoded[(rn, attr)] = self.data.attr_encoding(rn, attr)
+                for attr in self._get_rel(rn).attributes:
+                    self.encoded[(rn, attr)] = self.data.attr_encoding(
+                        rn, attr, override=self.overrides.get(rn)
+                    )
                     attrs.add(attr)
             # capture dictionaries AFTER all columns are encoded
             for attr in attrs:
@@ -460,7 +576,7 @@ class FactorizedEngine:
             return
         cols: Dict[str, List[Tuple[str, np.ndarray]]] = {}
         for rn in rel_names:
-            rel = self.data.get(rn)
+            rel = self._get_rel(rn)
             for attr in rel.attributes:
                 cols.setdefault(attr, []).append((rn, rel.column(attr)))
         for attr, entries in cols.items():
@@ -602,48 +718,179 @@ class FactorizedEngine:
         memo_key = (id(node), keep)
         degree = plan.need[id(node)][keep]
         hit = cache.get(memo_key)
+        # degree-aware acceptance: within one batch the plan pins a single
+        # max degree per (node, keep), so this is always an exact hit; the
+        # shared delta-fold memo also serves lower-degree folds from a
+        # higher-degree view, while a lower-degree memo entry never masks
+        # a degree-2 need.
         if hit is not None and hit.degree >= degree:
             return hit
+        view = self._vc_get(node, keep, degree)
+        if view is None:
+            view = self._evaluate(node, keep, degree, plan, cache)
+            self._vc_put(node, keep, degree, view)
+        cache[memo_key] = view
+        return view
+
+    def _evaluate(
+        self,
+        node: VariableOrder,
+        keep: FrozenSet[str],
+        degree: int,
+        plan: _BatchPlan,
+        cache: Dict[Tuple[int, FrozenSet[str]], _View],
+    ) -> _View:
+        """One ``(node, live-subset)`` view evaluation (a node visit)."""
         self.node_visits += 1
         store_visits = getattr(self.store, "node_visits", None)
         if store_visits is not None:
             self.store.node_visits = store_visits + 1
         if node.is_relation:
-            view = self._leaf_view(node.relation, degree)
-        else:
-            child_views = [
-                self._execute(ch, keep & plan.subtree_vars[id(ch)], plan, cache)
-                for ch in node.children
-            ]
-            view = child_views[0]
-            for other in child_views[1:]:
-                view = self._combine(view, other, degree)
-            if node.name == INTERCEPT:
-                if set(view.keys) != keep:
-                    extra = sorted(set(view.keys) - keep)
-                    raise AssertionError(
-                        f"attributes {extra} survive to the intercept — "
-                        "variable order misses nodes for them"
+            return self._leaf_view(node.relation, degree)
+        child_views = [
+            self._execute(ch, keep & plan.subtree_vars[id(ch)], plan, cache)
+            for ch in node.children
+        ]
+        view = child_views[0]
+        for other in child_views[1:]:
+            view = self._combine(view, other, degree)
+        if node.name == INTERCEPT:
+            if set(view.keys) != keep:
+                extra = sorted(set(view.keys) - keep)
+                raise AssertionError(
+                    f"attributes {extra} survive to the intercept — "
+                    "variable order misses nodes for them"
+                )
+            # canonical key layout: a multi-child intercept leaves the root
+            # view in JOIN order; every other keyed view comes out of
+            # _group_rows in sorted-key order — regroup here too, so cached
+            # views keep one layout and a delta fold (_merge_views, which
+            # regroups over sorted keys) preserves it exactly.
+            if keep and len(child_views) > 1:
+                view = self._group_rows(view, sorted(view.keys), degree)
+            return view
+        if (
+            self.use_node_kernels
+            and node.name in self.features
+            and degree >= 1
+            and view.num_rows > 0
+        ):
+            # fused node: extend + GROUP BY in one kernel pass
+            return self._extend_and_group(view, node.name, keep, degree)
+        if node.name in self.features and degree >= 1:
+            view = self._extend_with_feature(view, node.name, degree)
+        return self._aggregate_out(view, node.name, keep, degree)
+
+    # -- persistent (cross-batch) view cache -----------------------------------
+    def _vc_key(
+        self, node: VariableOrder, keep: FrozenSet[str], degree: int
+    ) -> ViewKey:
+        return ViewKey(
+            vorder_sig=self.sig,
+            backend=self.backend,
+            dtype=self._dtype_tag,
+            node=self._node_index[id(node)],
+            feats=self._node_feats[id(node)],
+            keep=keep,
+            degree=degree,
+        )
+
+    def _vc_eligible(self, node: VariableOrder) -> bool:
+        if self._vc is None:
+            return False
+        # catalog moved on since this engine snapshotted its encodings:
+        # its views describe the OLD catalog — stay out of the cache.
+        if self._live_version() != self._vc_version:
+            return False
+        # Relation leaves are never persisted: a leaf view is ones/zeros
+        # plus references to the (already cached) encoded key columns.
+        if node.is_relation:
+            return False
+        # delta engines: nodes covering an overridden relation hold delta
+        # views, never totals — neither served from nor published to the
+        # persistent cache.  Untouched sibling subtrees remain eligible.
+        return not (self._subtree_rels[id(node)] & self._vc_skip)
+
+    def _vc_get(
+        self, node: VariableOrder, keep: FrozenSet[str], degree: int
+    ) -> Optional[_View]:
+        if not self._vc_eligible(node):
+            return None
+        version = self._vc_version  # eligibility pinned live == frozen
+        for d in range(degree, 3):
+            view = self._vc.get(self._vc_key(node, keep, d), version)
+            if view is not None:
+                self.vc_hits += 1
+                self._vc.note_hit()
+                return self._on_device(self._trim_view(view, degree))
+        # cross-dtype reuse: a float64 view of the same node (any backend)
+        # serves a lower-precision request by casting its blocks — an O(view)
+        # copy instead of a subtree re-descent.  The cast is not
+        # re-published: the fp64 entry stays the single canonical copy.
+        if self._dtype_tag != "float64":
+            base = self._vc_key(node, keep, degree)
+            for backend in dict.fromkeys((self.backend, "torch", "numpy")):
+                for d in range(degree, 3):
+                    key64 = base._replace(
+                        backend=backend, dtype="float64", degree=d
                     )
-                # canonical key layout: a multi-child intercept leaves the
-                # root view in JOIN order; every other keyed view comes out
-                # of _group_rows in sorted-key order — regroup here too.
-                if keep and len(child_views) > 1:
-                    view = self._group_rows(view, sorted(view.keys), degree)
-            elif (
-                self.use_node_kernels
-                and node.name in self.features
-                and degree >= 1
-                and view.num_rows > 0
-            ):
-                # fused node: extend + GROUP BY in one kernel pass
-                view = self._extend_and_group(view, node.name, keep, degree)
-            else:
-                if node.name in self.features and degree >= 1:
-                    view = self._extend_with_feature(view, node.name, degree)
-                view = self._aggregate_out(view, node.name, keep, degree)
-        cache[memo_key] = view
-        return view
+                    view = self._vc.get(key64, version)
+                    if view is not None:
+                        self.vc_hits += 1
+                        self._vc.note_hit()
+                        return self._cast_view(self._trim_view(view, degree))
+        self.vc_misses += 1
+        self._vc.note_miss()
+        return None
+
+    def _on_device(self, view: _View) -> _View:
+        """A view key names no device (as in the reference), so an exact
+        hit may hold torch blocks built on another device: those move onto
+        ``self.device``; a hit already there is served as it is."""
+        if self.backend != "torch":
+            return view
+        dev = view.c.device
+        if dev.type == self.device.type and self.device.index in (
+            None, dev.index
+        ):
+            return view
+        return self._cast_view(view)
+
+    def _cast_view(self, view: _View) -> _View:
+        """Re-express a cached view in this engine's backend, dtype and
+        device.  Key columns are shared (ids are backend-agnostic); value
+        blocks are converted — a float64 numpy view moves onto
+        ``self.device`` in the engine's dtype."""
+        if self.backend == "torch":
+
+            def conv(a):
+                return torch.as_tensor(a, dtype=self.dtype, device=self.device)
+
+        else:
+
+            def conv(a):
+                return self._host(a).astype(self.dtype)
+
+        return _View(
+            keys=view.keys,
+            c=conv(view.c),
+            l=conv(view.l) if view.l is not None else None,
+            q=conv(view.q) if view.q is not None else None,
+            feats=list(view.feats),
+            degree=view.degree,
+        )
+
+    def _vc_put(
+        self, node: VariableOrder, keep: FrozenSet[str], degree: int, view
+    ) -> None:
+        if not self._vc_eligible(node) or not self._vc.enabled:
+            return
+        self._vc.put(
+            self._vc_key(node, keep, degree),
+            view,
+            relations=self._subtree_rels[id(node)],
+            version=self._vc_version,  # eligibility pinned live == frozen
+        )
 
     @staticmethod
     def _trim_view(view: _View, degree: int) -> _View:
@@ -689,7 +936,7 @@ class FactorizedEngine:
                 view = self._trim_view(hit, degree)
                 self._leaf_memo[memo_key] = view
                 return view
-        rel = self.data.get(rel_name)
+        rel = self._get_rel(rel_name)
         n = rel.num_rows
         keys = {a: self.encoded[(rel_name, a)] for a in rel.attributes}
         view = _View(
@@ -875,6 +1122,77 @@ class FactorizedEngine:
             keys=keys, c=c, l=l, q=q, feats=view.feats, degree=degree
         )
 
+    # -- delta-path maintenance (Store drains) ---------------------------------
+    def fold_delta_view(self, key: ViewKey, old_view: _View) -> _View:
+        """Fold this delta engine's view of ``key``'s node into an existing
+        cached total view — the per-node form of Prop. 4.1's union
+        commutativity that the store's drain uses to keep the view cache
+        warm: only the appended relation's root path is recomputed (at
+        delta size), sibling subtrees stay untouched.
+
+        The engine must have been constructed with ``overrides`` mapping
+        the appended relation to its delta rows and ``features`` equal to
+        ``key.feats`` (so block layouts line up)."""
+        node = self._nodes[key.node]
+        if tuple(self._node_feats[id(node)]) != tuple(key.feats):
+            raise ValueError(
+                f"delta engine features {self._node_feats[id(node)]} do not "
+                f"match cached view features {key.feats}"
+            )
+        keep = frozenset(key.keep)
+        plan = self._subtree_plan(node, keep, key.degree)
+        delta = self._execute(node, keep, plan, self._maint_memo)
+        # the memo may hand back a higher-degree delta (shared with an
+        # earlier fold) — trim to the entry's blocks before merging
+        delta = self._trim_view(delta, key.degree)
+        return self._merge_views(old_view, delta, key.degree)
+
+    def _subtree_plan(
+        self, node: VariableOrder, keep: FrozenSet[str], degree: int
+    ) -> _BatchPlan:
+        """A plan covering just ``node``'s subtree at one (keep, degree) —
+        what :meth:`fold_delta_view` hands to the executor."""
+        need: Dict[int, Dict[FrozenSet[str], int]] = {}
+
+        def rec(n: VariableOrder, k: FrozenSet[str]) -> None:
+            at = need.setdefault(id(n), {})
+            at[k] = max(at.get(k, -1), degree)
+            for ch in n.children:
+                rec(ch, k & self._subtree_vars[id(ch)])
+
+        rec(node, keep & self._subtree_vars[id(node)])
+        return _BatchPlan(
+            queries=[], subtree_vars=self._subtree_vars, need=need
+        )
+
+    def _merge_views(self, a: _View, b: _View, degree: int) -> _View:
+        """Union of two keyed views over disjoint row sets: concatenate
+        rows, then re-group over the full key set (duplicated key combos
+        sum — Prop. 4.1).  Key columns are concatenated on the host, value
+        blocks on the blocks' device; the regroup is one ``segment_blocks``
+        launch for the torch backend.  Regrouping runs over
+        ``sorted(keys)`` — the SAME canonical order every keyed view is
+        built with — so folding a delta into a cached view preserves its
+        key layout exactly: same key-dict order, same row order."""
+        if list(a.feats) != list(b.feats) or set(a.keys) != set(b.keys):
+            raise AssertionError(
+                f"cannot merge views: feats {a.feats} vs {b.feats}, "
+                f"keys {sorted(a.keys)} vs {sorted(b.keys)}"
+            )
+        keys = {
+            attr: np.concatenate([a.keys[attr], b.keys[attr]])
+            for attr in a.keys
+        }
+        stacked = _View(
+            keys=keys,
+            c=self._cat([a.c, b.c], 0),
+            l=self._cat([a.l, b.l], 0) if degree >= 1 else None,
+            q=self._cat([a.q, b.q], 0) if degree == 2 else None,
+            feats=list(a.feats),
+            degree=degree,
+        )
+        return self._group_rows(stacked, sorted(keys), degree)
+
     def _segment_sum(self, data, seg, num: int):
         if self.backend == "torch":
             return segment_sum_torch(data, seg, num)
@@ -890,6 +1208,7 @@ def cofactors_factorized(
     backend: str = "torch",
     dtype=None,
     scale=None,
+    use_view_cache: Optional[bool] = None,
     use_node_kernels: Optional[bool] = None,
     device="cuda",
 ) -> Cofactors:
@@ -901,6 +1220,7 @@ def cofactors_factorized(
         backend=backend,
         dtype=dtype,
         scale=scale,
+        use_view_cache=use_view_cache,
         use_node_kernels=use_node_kernels,
         device=device,
     ).cofactors()
@@ -914,6 +1234,7 @@ def grouped_cofactors_factorized(
     backend: str = "torch",
     dtype=None,
     scale=None,
+    use_view_cache: Optional[bool] = None,
     use_node_kernels: Optional[bool] = None,
     device="cuda",
 ) -> GroupedView:
@@ -927,6 +1248,7 @@ def grouped_cofactors_factorized(
         dtype=dtype,
         scale=scale,
         group_by=group_by,
+        use_view_cache=use_view_cache,
         use_node_kernels=use_node_kernels,
         device=device,
     ).grouped_cofactors()

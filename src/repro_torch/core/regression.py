@@ -32,7 +32,12 @@ __all__ = ["RegressionConfig", "RegressionResult", "VERSIONS", "linear_regressio
 @dataclasses.dataclass(frozen=True)
 class RegressionConfig:
     """One row of the paper's Table 2 'version' column, plus the pipeline
-    routing knobs."""
+    routing knobs.
+
+    ``use_cache=True`` reads the store's maintained cofactors, which the
+    store computes and folds on the host in float64 numpy whatever
+    ``backend`` and ``device`` say (see :func:`linear_regression`); only
+    the solve then runs on ``device``."""
 
     name: str = "v1"
     factorized: bool = True  # fact vs noPre
@@ -48,6 +53,7 @@ class RegressionConfig:
     # moments kernel for the scale factors; on the categorical materialized
     # path, the multi_segment_gram kernel for the grouped blocks
     use_kernel: bool = False
+    use_cache: bool = False  # warm-retrain path via sufficient_stats (host)
     categorical: Tuple[str, ...] = ()  # subset of features, sparse blocks
     use_fds: bool = True  # FD-reduced categorical solve
     # fused per-node traversal kernels (repro_torch.kernels.segment_view);
@@ -144,6 +150,18 @@ def linear_regression(
     :class:`RegressionConfig`; its ``device`` (``"cuda"`` by default) is
     where the torch engine, the kernels and BGD run.
 
+    ``use_cache=True`` (factorized mode only) is the **warm-retrain** path:
+    unscaled cofactors come from the store's incrementally-maintained cache
+    (``Store.sufficient_stats``), so after ``Store.append`` a retrain costs
+    only the delta maintenance plus an O(k²) ``Cofactors.rescale`` with the
+    fresh scale factors.  Under lazy maintenance the read itself drains
+    pending deltas first.  The cached aggregates are always maintained with
+    the float64 numpy engine on the host (whatever ``backend`` and
+    ``device`` say): unscaled quad
+    entries grow with data magnitude and ``rescale`` is a cancelling
+    difference, so a long-lived float32 accumulator would leak rounding
+    error into the leading digits.
+
     ``categorical`` declares a subset of ``features`` as categorical: their
     cofactor blocks become group-by aggregates (sparse, one-hot-free — see
     ``repro_torch.core.categorical``) and θ gains one coefficient per
@@ -169,15 +187,20 @@ def linear_regression(
 
     cols = features + [label]  # cofactor ordering: [intercept] + cols
     if cfg.factorized:
-        cof = cofactors_factorized(
-            store,
-            vorder,
-            cols,
-            backend=cfg.backend,
-            scale=factors,
-            use_node_kernels=cfg.use_node_kernels,
-            device=cfg.device,
-        )
+        if cfg.use_cache:
+            cof = store.sufficient_stats(
+                vorder, features, label, backend="numpy"
+            ).rescale(factors)
+        else:
+            cof = cofactors_factorized(
+                store,
+                vorder,
+                cols,
+                backend=cfg.backend,
+                scale=factors,
+                use_node_kernels=cfg.use_node_kernels,
+                device=cfg.device,
+            )
         cof_matrix = cof.matrix()
         t2 = time.perf_counter()
         if cfg.solver == "closed_form":
@@ -247,15 +270,25 @@ def _linear_regression_categorical(
 
     t0 = time.perf_counter()
     if cfg.factorized:
-        cof = cat_cofactors_factorized(
-            store,
-            vorder,
-            cont,
-            run_cat,
-            backend=cfg.backend,
-            use_node_kernels=cfg.use_node_kernels,
-            device=cfg.device,
-        )
+        if cfg.use_cache:
+            cof = store.sufficient_stats(
+                vorder,
+                features,
+                label,
+                categorical=categorical,
+                backend="numpy",
+                reduce_fds=red is not None,
+            )
+        else:
+            cof = cat_cofactors_factorized(
+                store,
+                vorder,
+                cont,
+                run_cat,
+                backend=cfg.backend,
+                use_node_kernels=cfg.use_node_kernels,
+                device=cfg.device,
+            )
     else:
         cof = cat_cofactors_materialized(
             store, cont, run_cat, use_kernel=cfg.use_kernel, device=cfg.device

@@ -27,15 +27,19 @@ F32 = dict(rtol=1e-5, atol=1e-3)
 
 
 def _no_view_cache(bundle):
-    """The reference store's persistent view cache (not ported yet) lets
-    later engines skip node visits; the counters compare without it."""
+    """A store's persistent view cache lets later engines skip node
+    visits; these tests share stores across engines, so the counters
+    compare with the cache off in both packages."""
     bundle.store.view_cache.enabled = False
     return bundle
 
 
 @pytest.fixture(scope="module")
 def bundles():
-    return PS.favorita_like(**FAV), _no_view_cache(RS.favorita_like(**FAV))
+    return (
+        _no_view_cache(PS.favorita_like(**FAV)),
+        _no_view_cache(RS.favorita_like(**FAV)),
+    )
 
 
 def _assert_cat(got, want, tol):

@@ -10,7 +10,8 @@ reference's, ``test_torch_relation.py``):
 * group ids, group order and key layouts are exactly equal, and so are
   ``passes`` / ``node_visits``.
 
-The reference runs with its view cache off: the port has none yet.
+Engine pairs run with their stores' view caches off, so every engine
+traverses cold and the counters compare one traversal with another.
 """
 
 import dataclasses
@@ -42,6 +43,7 @@ def _pair(make):
 def _engines(pb, rb, cols, backend, ref_backend=None, **kw):
     ref_backend = ref_backend or {"torch": "jax"}.get(backend, backend)
     port_kw = dict(kw, device="cpu") if backend == "torch" else dict(kw)
+    port_kw["use_view_cache"] = False
     ref_kw = {k: v for k, v in kw.items() if k != "dtype"}
     return (
         PF.FactorizedEngine(pb.store, pb.vorder, cols, backend=backend, **port_kw),
@@ -84,7 +86,7 @@ def test_torch_backend_matches_reference_jax_fp32(name, make):
 def test_fused_matches_unfused_and_fp64_oracle(name, make):
     pb = make(PS)
     cols = pb.features + [pb.label]
-    mk = dict(backend="torch", device="cpu")
+    mk = dict(backend="torch", device="cpu", use_view_cache=False)
     fused = PF.FactorizedEngine(pb.store, pb.vorder, cols, **mk)
     unfused = PF.FactorizedEngine(pb.store, pb.vorder, cols,
                                   use_node_kernels=False, **mk)

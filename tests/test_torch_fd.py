@@ -143,6 +143,7 @@ def test_fd_reduced_linear_equals_full_and_reference(bundles, solver):
 
 def test_fd_reduction_issues_fewer_group_by_queries(bundles):
     pb, rb = bundles
+    pb.store.view_cache.enabled = False  # both runs traverse cold
     red = pb.store.fd_reduction(CAT2)
     stats = {}
     for cat in (CAT2, red.kept):

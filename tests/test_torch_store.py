@@ -148,14 +148,13 @@ def test_snapshot_reads_match_store():
 @pytest.mark.parametrize("name,make", BUNDLES)
 def test_traversal_counters_match_reference(name, make):
     """passes / node_visits land on the store (through the engine's
-    snapshot) exactly as in the reference with its view cache off."""
+    snapshot) exactly as in the reference, both stores' view caches on:
+    the second traversal is served from the cache in both."""
     pb, rb = _pair(make)
     cols = pb.features + [pb.label]
     for _ in range(2):
         FactorizedEngine(pb.store, pb.vorder, cols, device="cpu").cofactors()
-        RFactorizedEngine(
-            rb.store, rb.vorder, cols, backend="numpy", use_view_cache=False
-        ).cofactors()
+        RFactorizedEngine(rb.store, rb.vorder, cols, backend="numpy").cofactors()
     assert pb.store.passes == rb.store.passes == 2
     assert pb.store.node_visits == rb.store.node_visits > 0
     pb.store.reset_counters()
