@@ -103,8 +103,37 @@ Phases, in order; any failed check raises and the script exits non-zero:
    flash are held to the plain path in bf16 and, beside it, to the float32
    model (flash may be no farther from float32 than the plain path is).
 
-The last lines are the kernels JSON object, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+8. GLM and polynomial, run after phase 5 on phase 3's 18.6 M-row store
+   (logged as phase 8).  bench_categorical's GLM leg at full size: logistic,
+   ridge 1e-3, label ``onpromotion``, ``transactions`` with the two
+   categorical keys (4,156 parameters; G ≈ m groups) and the keys alone
+   (G = 221,400): the compression through the torch engine on the card
+   (segment_view and segment_reduce must launch, counters zeroed before
+   and read after), host float64 IRLS, and GD with ``gd_accum="pairs"`` on
+   the card for GLM_GD_STEPS steps (the G ≪ m leg twice, to see whether
+   the float32 atomics of the gradient scatter repeat) and for one
+   profiled chunk (device busy against wall a step); GD's gradient at its
+   last θ equals the host's float64 one within 1e-3 of the magnitudes each
+   entry sums.  Each leg's compression then runs again, equal to the
+   first, its segment_view and segment_blocks calls captured and run
+   again against their plain versions (1e-4 of the largest sum) beside
+   ``index_add_`` and their bound.  Then
+   ``polynomial_cofactors`` at degrees 1–3 (aggregates up to degree 6,
+   float64 on the card through segment_reduce; degree 1 equal to the
+   float64 quadratic engine at 1e-10), and one more degree-3 run whose
+   ``segment_blocks`` calls are captured and run again against their plain
+   version beside ``index_add_`` and their bound.  On the oracle cell: the
+   torch compression equals the numpy one exactly and IRLS θ on the two is
+   bitwise equal; GD (``pairs``, up to 100,000 steps) on the
+   categorical-only design predicts within 5e-3 of IRLS, twice (fp32
+   accumulation is run beside it and reported); polynomial degrees 1–3 on
+   the card equal the CPU's at 1e-12 and degree 2 the flat oracle at rtol
+   1e-7; ``sum_product`` equals the numpy engine's cofactors.  On the FD
+   cell, ``glm_regression`` with the compression on the card: FD-reduced
+   equals full at 1e-10, penalized NLLs within 1e-8.
+
+The last lines are the phase-8 JSON object, the kernels JSON object, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -165,6 +194,11 @@ GRAM_WIDE = (1_000_000, 130)  # the reference's widest gram test, scaled up
 PHASE3_KERNELS = ("segment_view", "segment_view1", "segment_reduce", "moments")
 PHASE4_KERNELS = PHASE3_KERNELS + ("gram", "segment_gram", "multi_segment_gram")
 ALL_KERNELS = PHASE4_KERNELS + ("flash",)  # phase 7 launches flash
+# the engine's host-side structure work, timed by name (Timers): joins and
+# group keys where the engine and polynomial modules call them, group ids
+# where kernels.ops does
+HOST_JOIN = ("join_keys", "sort_merge_join", "group_key")
+HOST_IDS = ("group_ids_device",)
 # phase 5: every drain folds through these
 INGEST_KERNELS = ("segment_view", "segment_view1", "segment_reduce")
 INGEST_BATCH_DAYS = 9  # the second append: ~100 K sales rows, under compaction
@@ -174,6 +208,30 @@ INGEST_F64_RTOL = 1e-12
 # warm closed form (float64 cofactors rescaled) vs cold (scaled traversal):
 # the reference's own bound for the warm retrain
 WARM_THETA_RTOL = 1e-8
+# phase 8: bench_categorical's GLM leg and bench_polynomial's degrees
+GLM_CONT, GLM_LABEL, GLM_RIDGE = ("transactions",), "onpromotion", 1e-3
+GLM_CAT = CAT
+GLM_GD_STEPS = 1_000  # the GD budget of the 18.6 M-row legs
+GLM_ORACLE_GD_STEPS = 100_000  # the reference's default cap
+GLM_GD_PROFILE_STEPS = 128  # one chunk of predicated steps, profiled
+GLM_PRED_ATOL = 5e-3  # GD vs IRLS predictions: the reference's own bound
+# GD's float32 gradient vs the host's float64 one, of the magnitudes each
+# entry sums: the categorical entries are float32 atomic sums of up to 340 k
+# terms (√n·2⁻²⁴ ≈ 3.5e-5 a sum)
+GD_GRAD_RTOL = 1e-3
+PHASE8_KERNELS = ("segment_view", "segment_reduce")
+# where the host seconds of IRLS and of a polynomial degree go (Timers):
+# _combine holds the joins, _aggregate_out the group keys and np.unique
+IRLS_STEPS = ("_hessian", "_grad_theta", "_family_stats")
+POLY_STEPS = ("_encode", "_combine", "_extend", "_aggregate_out")
+POLY_DEGREES = (1, 2, 3)
+# polynomial aggregates are float64 on both sides: the card vs the CPU, and
+# degree 1 vs the quadratic engine, are the same sums in another order
+POLY_DEVICE_RTOL = 1e-12  # of the largest aggregate
+POLY_QUAD_RTOL = 1e-10  # of the largest entry (tests/test_property.py's check)
+POLY_FLAT_RTOL = 1e-7  # degree 2 vs the flat oracle, bench_polynomial's bound
+FD_NLL_ATOL = 1e-8  # FD-reduced vs full penalized NLL (tests/test_fd.py)
+FP64_FLOPS = 34e12  # H100 SXM, off the tensor cores
 # flash vs its plain version; three bounds must all hold.  Elementwise
 # |a - b| <= tol·(1 + |b|): the reference's own flash tolerances
 # (tests/test_kernels.py).  Those floors are as large as the outputs once an
@@ -775,15 +833,14 @@ def flash_rows(ref, kops, kflash, gen) -> dict:
 
 # -- phase 3: the main path ---------------------------------------------------
 
-class HostTimers:
-    """Wall seconds spent in the engine's host-side structure work (joins,
-    group keys, group ids), by patching the names the engine module calls."""
+class Timers:
+    """Wall seconds spent in callables, by patching the names their callers
+    look up: ``targets`` are (owner, names) pairs, an owner a module or a
+    class.  A callable that runs inside another timed one counts in both."""
 
-    NAMES = ("join_keys", "sort_merge_join", "group_key")
-
-    def __init__(self, fz, kops):
-        self.fz, self.kops = fz, kops
-        self.seconds = {n: 0.0 for n in self.NAMES + ("group_ids_device",)}
+    def __init__(self, *targets):
+        self.targets = targets
+        self.seconds = {n: 0.0 for _, names in targets for n in names}
 
     def _wrap(self, name, fn):
         def timed(*args, **kwargs):
@@ -795,23 +852,21 @@ class HostTimers:
         return timed
 
     def __enter__(self):
-        self.saved = {n: getattr(self.fz, n) for n in self.NAMES}
-        for n, fn in self.saved.items():
-            setattr(self.fz, n, self._wrap(n, fn))
-        self.saved_gid = self.kops.group_ids_device
-        self.kops.group_ids_device = self._wrap("group_ids_device", self.saved_gid)
+        self.saved = [(owner, n, getattr(owner, n)) for owner, names in self.targets
+                      for n in names]
+        for owner, n, fn in self.saved:
+            setattr(owner, n, self._wrap(n, fn))
         return self
 
     def __exit__(self, *exc):
-        for n, fn in self.saved.items():
-            setattr(self.fz, n, fn)
-        self.kops.group_ids_device = self.saved_gid
+        for owner, n, fn in self.saved:
+            setattr(owner, n, fn)
 
 
 class Capture:
     """The arguments of every call of ``names`` (by default the engine's
     ``segment_view`` and ``segment_blocks``), by patching the names the
-    engine module calls (as HostTimers does).  The tensors are kept, not
+    engine module calls (as Timers does).  The tensors are kept, not
     copied (~1.3 GB on the card for one closed-form traversal of the 18.6
     M-row bundle)."""
 
@@ -874,7 +929,7 @@ def main_path(rt, bundle) -> dict:
     store.reset_counters()
     torch.cuda.reset_peak_memory_stats()
     results = {}
-    with HostTimers(rt.fz, rt.kops) as timers:
+    with Timers((rt.fz, HOST_JOIN), (rt.kops, HOST_IDS)) as timers:
         for version in ("v1", "closed"):
             cfg = dataclasses.replace(
                 rt.VERSIONS[version], backend="torch", device="cuda",
@@ -1084,9 +1139,12 @@ def call_pair(sv, ref, name, args, kwargs, dtype=None):
     """(kernel, plain) of a captured call as calls without arguments, on the
     call's own tensors (cast to ``dtype`` if given)."""
     cast = (lambda t: t if t is None or dtype is None else t.to(dtype))
-    seg = torch.as_tensor(args[-2], device=args[0].device)
-    seg = seg if seg.dtype == torch.int32 else seg.to(torch.int32)
-    kw = dict(degree=kwargs.get("degree", 2), order=kwargs.get("order"))
+
+    def ids(a):  # segment ids and orders as the wrappers take them
+        return None if a is None else torch.as_tensor(a, device=args[0].device).to(torch.int32)
+
+    seg = ids(args[-2])
+    kw = dict(degree=kwargs.get("degree", 2), order=ids(kwargs.get("order")))
     blocks = [cast(t.contiguous()) if t is not None else None for t in args[:-2]]
     kern_fn, plain_fn = ((sv.segment_view, ref.segment_view_ref) if name == "segment_view"
                          else (sv.segment_blocks, ref.segment_blocks_ref))
@@ -1585,7 +1643,7 @@ def drain(rt, store, what: str, profile: bool = False) -> tuple:
     store.reset_counters()
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with MergeCapture(rt) as cap, StepTimers(store) as steps, \
-            HostTimers(rt.fz, rt.kops) as host, \
+            Timers((rt.fz, HOST_JOIN), (rt.kops, HOST_IDS)) as host, \
             (torch.profiler.profile(activities=activities) if profile
              else contextlib.nullcontext()) as prof:
         t = time.perf_counter()
@@ -1614,19 +1672,26 @@ def drain(rt, store, what: str, profile: bool = False) -> tuple:
     return counts, cap
 
 
+def time_index_add(nd, args) -> None:
+    """Puts in ``nd`` the time of ``index_add_`` over a captured
+    ``segment_blocks`` call's ids into its groups (the blocks laid side by
+    side in one [M, W] tensor beforehand)."""
+    seg = torch.as_tensor(args[3], device=args[0].device).long()
+    data = torch.cat([t.reshape(t.shape[0], -1) for t in (args[0][:, None], *args[1:3])
+                      if t is not None], 1).contiguous()
+    lib = functools.partial(library_segment_sum, data, seg, int(args[4]))
+    nd.update(width=int(data.shape[1]), library_ms=time_ms(lib),
+              library_ms_back_to_back=time_ms_back_to_back(lib))
+
+
 def merge_calls(rt, calls, sizes) -> list:
     """Each captured merge regroup again on its own arguments, measured as
     the main path's calls are (main_path_kernels), with its cached + delta
-    rows and the time of ``index_add_`` over the same ids into the same
-    groups (the blocks laid side by side in one [M, W] tensor beforehand)."""
+    rows and the time of ``index_add_`` (time_index_add)."""
     rows = main_path_kernels(rt, calls, [None] * len(calls), split=False)["nodes"]
     for nd, (_, args, _), (cached, delta) in zip(rows, calls, sizes):
-        seg = torch.as_tensor(args[3], device=args[0].device).long()
-        data = torch.cat([t.reshape(t.shape[0], -1) for t in (args[0][:, None], *args[1:3])
-                          if t is not None], 1).contiguous()
-        lib = functools.partial(library_segment_sum, data, seg, int(args[4]))
-        nd.update(cached_rows=cached, delta_rows=delta, width=int(data.shape[1]),
-                  library_ms=time_ms(lib), library_ms_back_to_back=time_ms_back_to_back(lib))
+        time_index_add(nd, args)
+        nd.update(cached_rows=cached, delta_rows=delta)
         log(f"  merge {cached} + {delta} rows → {nd['groups']} groups, W {nd['width']}, "
             f"path {nd['path']}: ms={nd['ms']:.4f} back-to-back {nd['ms_back_to_back']:.4f} "
             f"bound_ms={nd['bound_ms']:.5f} index_add_ {nd['library_ms']:.4f} / "
@@ -1802,6 +1867,439 @@ def fd_oracle(rt) -> None:
     for fds in (True, False):
         compare_models(f"FD kernel leg use_fds={fds} vs float64", out["kernel", fds],
                        exact, joined, b.label)
+
+
+# -- phase 8: GLM and polynomial -------------------------------------------------
+
+def glm_config(rt, **kw):
+    """bench_categorical's GLM: logistic, ridge GLM_RIDGE, GD on the card."""
+    return rt.GLMConfig(family="logistic", ridge=GLM_RIDGE, device="cuda", **kw)
+
+
+def glm_fit(rt, design, what: str, **kw) -> dict:
+    """``fit_glm`` on ``design``, timed and logged: the result and its
+    seconds, iterations (ms a step), ``converged`` and penalized NLL."""
+    t = time.perf_counter()
+    res = rt.fit_glm(design, glm_config(rt, **kw))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    if res.theta.shape != (design.num_params,) or not np.all(np.isfinite(res.theta)):
+        raise AssertionError(f"{what}: bad theta of shape {res.theta.shape}")
+    ms = sec / max(res.iterations, 1) * 1e3
+    log(f"{what}: {sec:.3f}s, iterations={res.iterations} ({ms:.4f} ms a step) "
+        f"converged={res.converged} nll={res.nll!r}")
+    return dict(result=res, seconds=sec, iterations=res.iterations,
+                converged=res.converged, nll=res.nll, ms_per_step=ms)
+
+
+def public(row: dict) -> dict:
+    """A fit's row without its result object (for the JSON line)."""
+    return {k: v for k, v in row.items() if k != "result"}
+
+
+def compress(rt, store, vorder, cont, what: str, backend: str = "torch"):
+    """The GLM's compressed design, from an evicted view cache; (design, s)."""
+    store.view_cache.clear()
+    t = time.perf_counter()
+    design = rt.compressed_design_factorized(
+        store, vorder, list(cont), list(GLM_CAT), GLM_LABEL, backend=backend,
+        device="cuda")
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t
+    log(f"{what}: compressed to {design.num_rows} groups, {design.num_params} "
+        f"parameters, {backend} backend, {sec:.3f}s")
+    return design, sec
+
+
+def gd_profile(rt, design, what: str) -> dict:
+    """One chunk of GD ``pairs`` steps (GLM_GD_PROFILE_STEPS) under the
+    profiler: the device's busy ms a step against the wall's, and the
+    longest device ops."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    cfg = glm_config(rt, solver="gd", gd_accum="pairs", gd_max_iter=GLM_GD_PROFILE_STEPS)
+    t = time.perf_counter()
+    with torch.profiler.profile(activities=activities) as prof:
+        res = rt.fit_glm(design, cfg)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    steps = max(res.iterations, 1)
+    busy = device_busy_ms(prof)
+    ops = device_ops(prof)[:8]
+    out = dict(steps=res.iterations, wall_ms_per_step=wall * 1e3 / steps,
+               device_ms_per_step=busy / steps, idle_share=1 - busy / (wall * 1e3),
+               top_ops=[(name[:80], us / 1e3 / steps) for name, us in ops])
+    log(f"{what}: GD profiled, {res.iterations} steps: device busy "
+        f"{out['device_ms_per_step']:.4f} ms a step of {out['wall_ms_per_step']:.4f} "
+        f"(profiled wall), idle_share={out['idle_share']:.4f}")
+    for name, ms in out["top_ops"]:
+        log(f"  device {ms:9.4f} ms a step  {name}")
+    return out
+
+
+def gd_repeat(first: dict, again: dict) -> dict:
+    """Whether two GD runs on the card gave the same iteration count and θ
+    (the categorical gradient adds with float32 atomics)."""
+    a, b = first["result"], again["result"]
+    out = dict(iterations=[a.iterations, b.iterations],
+               same_iterations=a.iterations == b.iterations,
+               theta_equal=bool(np.array_equal(a.theta, b.theta)),
+               max_theta_diff=float(np.abs(a.theta - b.theta).max()),
+               nll=[a.nll, b.nll])
+    log(f"  GD again: {out}")
+    return out
+
+
+def compression_calls(rt, calls) -> list:
+    """Each captured segment-kernel call of a GLM compression again on its
+    own arguments, measured and checked as the main path's calls are
+    (main_path_kernels); a ``segment_blocks`` call also beside
+    ``index_add_`` (time_index_add)."""
+    rows = main_path_kernels(rt, calls, [None] * len(calls), split=False)["nodes"]
+    for nd, (name, args, _) in zip(rows, calls):
+        if name != "segment_blocks":
+            nd["library_ms"] = None
+            continue
+        time_index_add(nd, args)
+        log(f"  {nd['node']}: index_add_ {nd['library_ms']:.4f} / "
+            f"{nd['library_ms_back_to_back']:.4f} back to back")
+    return rows
+
+
+def gd_grad_check(rt, design, theta, what: str) -> dict:
+    """GD's objective on the card (``pairs``) at ``theta``, moved into GD's
+    scaled coordinates: its gradient against the host's float64
+    ``_grad_theta`` on the design scaled alike, entry by entry within
+    GD_GRAD_RTOL of the magnitudes the entry sums."""
+    nll_grad, avg, mx = rt.glm._gd_objective(
+        design, glm_config(rt, solver="gd", gd_accum="pairs"))
+    k = len(design.cont_names)
+    ts = theta.copy()
+    ts[0] += theta[1 : 1 + k] @ avg
+    ts[1 : 1 + k] *= mx
+    ts = ts.astype(np.float32)
+    _, _, g = nll_grad(torch.as_tensor(ts, device="cuda"))
+    got = g.double().cpu().numpy()
+    ts = ts.astype(np.float64)
+    scaled = dataclasses.replace(design, cont=(design.cont - avg) / mx)
+    oid = design.offset_ids()
+    grad_eta, _, _ = rt.glm._family_stats("logistic", scaled.linpred(ts), design.counts,
+                                          design.ysum)
+    want = rt.glm._grad_theta(scaled, grad_eta, oid)
+    mag = rt.glm._grad_theta(dataclasses.replace(scaled, cont=np.abs(scaled.cont)),
+                             np.abs(grad_eta), oid)
+    want[1:] += GLM_RIDGE * ts[1:]
+    mag[1:] += GLM_RIDGE * np.abs(ts[1:])
+    ratio = float(np.max(np.abs(got - want) / np.maximum(mag, np.finfo(np.float64).tiny)))
+    log(f"{what}: GD gradient at its last θ vs the host's float64: max |Δg|/Σ|terms| "
+        f"{ratio:.3e} (tol {GD_GRAD_RTOL}) over {len(got)} entries")
+    if not ratio <= GD_GRAD_RTOL:
+        raise AssertionError(f"{what}: GD gradient off the host's: {ratio}")
+    return dict(max_rel_to_magnitude=ratio, tol=GD_GRAD_RTOL)
+
+
+def glm_phase(rt, bundle) -> tuple:
+    """bench_categorical's GLM leg at full size, G ≈ m (``transactions``
+    with the two categorical keys) and G ≪ m (the keys alone): the
+    compression through kernels 1 and 3 (counts zeroed before, read
+    after), IRLS on the host, GD ``pairs`` on the card (its gradient
+    checked against the host's); then the compression's kernel calls
+    again against their plain versions (compression_calls)."""
+    store, vorder = bundle.store, bundle.vorder
+    promo = float(store.get("SalesF").column(GLM_LABEL).sum())
+    out, counts = {}, {k: 0 for k in PHASE8_KERNELS}
+    for leg, cont in (("full", GLM_CONT), ("cat_only", ())):
+        rt.kops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        design, sec = compress(rt, store, vorder, cont, f"GLM {leg}")
+        got = rt.kops.launch_counts()
+        log(f"GLM {leg}: launches {got}")
+        missing = [k for k in PHASE8_KERNELS if got[k] == 0]
+        if missing:
+            raise AssertionError(f"GLM {leg}: kernels never launched: {missing}")
+        for k in counts:
+            counts[k] += got[k]
+        # counts and label sums are integers: exact in float32 on the card
+        params = 1 + len(cont) + sum(store.attr_domain(c) for c in GLM_CAT)
+        if (design.num_params != params or design.total_rows != N_SALES
+                or design.ysum.sum() != promo):
+            raise AssertionError(
+                f"GLM {leg}: {design.num_params} parameters, {design.total_rows} "
+                f"rows, label sum {design.ysum.sum()} (want {params}, {N_SALES}, {promo})")
+        with Timers((rt.glm, IRLS_STEPS)) as steps:
+            irls = glm_fit(rt, design, f"GLM {leg}: IRLS")
+        irls["host_seconds"] = steps.seconds
+        log(f"GLM {leg}: IRLS host seconds " + " ".join(
+            f"{n}={v:.3f}" for n, v in steps.seconds.items()))
+        gd = glm_fit(rt, design, f"GLM {leg}: GD pairs", solver="gd",
+                     gd_accum="pairs", gd_max_iter=GLM_GD_STEPS)
+        gd["profiled"] = gd_profile(rt, design, f"GLM {leg}")
+        gd["gradient"] = gd_grad_check(rt, design, gd["result"].theta, f"GLM {leg}")
+        # θ = 0 predicts 1/2 everywhere: GD must have descended from there
+        nll0 = N_SALES * np.log(2.0)
+        if not irls["result"].converged or not gd["nll"] < nll0:
+            raise AssertionError(f"GLM {leg}: IRLS converged={irls['converged']}, "
+                                 f"GD nll {gd['nll']} vs {nll0} at θ = 0")
+        row = dict(groups=design.num_rows, params=design.num_params,
+                   seconds_compress=sec, launches={k: got[k] for k in PHASE8_KERNELS},
+                   irls=public(irls), gd_pairs=public(gd),
+                   gd_nll_minus_irls=gd["nll"] - irls["nll"])
+        if leg == "cat_only":
+            row["gd_again"] = gd_repeat(gd, glm_fit(
+                rt, design, f"GLM {leg}: GD pairs again", solver="gd",
+                gd_accum="pairs", gd_max_iter=GLM_GD_STEPS))
+        row["peak_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"GLM {leg}: GD nll − IRLS nll = {row['gd_nll_minus_irls']!r}; "
+            f"peak memory {row['peak_bytes']}")
+        # the compression again with its calls captured (the tensors held
+        # would swell the peak above), each call then against its plain version
+        with Capture(rt.kops) as cap:
+            again, _ = compress(rt, store, vorder, cont, f"GLM {leg}, calls captured")
+        if not all(np.array_equal(getattr(again, n), getattr(design, n))
+                   for n in ("cont", "cat_ids", "counts", "ysum")):
+            raise AssertionError(f"GLM {leg}: the compression differs between two runs")
+        row["calls"] = compression_calls(rt, cap.calls)
+        out[leg] = row
+        del design, again, cap
+    return out, counts
+
+
+def poly_calls(rt, calls) -> list:
+    """Each captured ``segment_blocks`` call of a degree-3 run again on its
+    own arguments: against its plain version (F64_RTOL), path A bitwise
+    equal across two calls, timed per call and back to back beside the
+    plain version, ``index_add_`` over the same ids and the bound (each
+    float64 row and its id read once, each sum written once)."""
+    out = []
+    for name, args, kwargs in calls:
+        c, lin, g = args[0], args[1], int(args[-1])
+        m, w = c.shape[0], 1 + (0 if lin is None else lin.shape[1])
+        path = rt.sv.plan("blocks", w - 1, kwargs.get("degree", 2),
+                          kwargs.get("order") is not None)["path"]
+        kern, plain = call_pair(rt.sv, rt.ref, name, args, kwargs)
+        got = kern()
+        err, scale = max_err(got, plain())
+        tol = F64_RTOL * max(1.0, scale)
+        if not err <= tol:
+            raise AssertionError(f"polynomial segment_blocks M {m} W {w}: {err} > {tol}")
+        if path == "one_row" and not all(
+                a is None or torch.equal(a, b) for a, b in zip(got, kern())):
+            raise AssertionError(f"polynomial segment_blocks M {m}: path A not bitwise equal")
+        del got
+        data = c[:, None] if lin is None else torch.cat([c[:, None], lin], 1)
+        lib = functools.partial(library_segment_sum, data, kern.args[-2].long(), g)
+        b, by = bound_ms(m * (w * 8 + 4) + g * w * 8, 0 if path == "one_row" else m * w,
+                         peak=FP64_FLOPS)
+        row = dict(rows=m, groups=g, width=w, path=path, max_abs_err=err, tol=tol,
+                   ms=time_ms(kern), ms_back_to_back=time_ms_back_to_back(kern),
+                   plain_ms=time_ms(plain, reps=3), library_ms=time_ms(lib, reps=3),
+                   bound_ms=b, bound_by=by)
+        del data, lib
+        log(f"  segment_blocks float64 M {m} G {g} W {w} path {path}: ms={row['ms']:.4f} "
+            f"back-to-back {row['ms_back_to_back']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"index_add_ {row['library_ms']:.4f} bound_ms={b:.4f} ({by}) "
+            f"max_abs_err={err:.3e} tol={tol:.3e}")
+        out.append(row)
+    return out
+
+
+def poly_phase(rt, bundle) -> tuple:
+    """bench_polynomial's degrees on the 18.6 M-row store: each degree's
+    seconds, kernel 3's launches (zeroed before, read after) and peak
+    memory; degree 1 against the quadratic engine in float64; then one
+    degree-3 run again, its ``segment_blocks`` calls captured and run again
+    (poly_calls)."""
+    store, vorder = bundle.store, bundle.vorder
+    feats, label = bundle.features, bundle.label
+    rows, launches = [], 0
+    for d in POLY_DEGREES:
+        rt.kops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with Timers((rt.poly._PolyEngine, POLY_STEPS), (rt.poly, HOST_JOIN)) as steps:
+            t = time.perf_counter()
+            cof = rt.polynomial_cofactors(store, vorder, feats, label, degree=d,
+                                          device="cuda")
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t
+        got = rt.kops.launch_counts()
+        if got["segment_reduce"] == 0:
+            raise AssertionError(f"polynomial degree {d}: segment_reduce never launched")
+        launches += got["segment_reduce"]
+        mat = cof.matrix()
+        k = len(rt.expand_monomials(feats, d)) + 1
+        if mat.shape != (k + 1, k + 1) or not np.all(np.isfinite(mat)) or cof.count != N_SALES:
+            raise AssertionError(f"polynomial degree {d}: {mat.shape}, count {cof.count}")
+        row = dict(degree=d, columns=k, seconds=sec, launches=got["segment_reduce"],
+                   peak_bytes=torch.cuda.max_memory_allocated(), steps=steps.seconds)
+        log(f"polynomial degree {d}: {sec:.3f}s, {k} columns, launches {got}, "
+            f"peak memory {row['peak_bytes']}; seconds in " + " ".join(
+                f"{n}={v:.3f}" for n, v in steps.seconds.items()))
+        if d == 1:
+            quad = rt.cofactors_factorized(
+                store, vorder, sorted(feats) + [label], backend="torch",
+                dtype=torch.float64, use_view_cache=False, device="cuda").matrix()
+            err, tol = float(np.abs(mat - quad).max()), POLY_QUAD_RTOL * float(np.abs(quad).max())
+            log(f"  degree 1 vs the quadratic engine (float64): max_abs_err={err:.3e} tol={tol:.3e}")
+            if not err <= tol:
+                raise AssertionError(f"polynomial degree 1 off the quadratic engine: {err}")
+            row["vs_quadratic"] = dict(max_abs_err=err, tol=tol)
+        rows.append(row)
+    with Capture(rt.kops, ("segment_blocks",)) as cap:
+        t = time.perf_counter()
+        rt.polynomial_cofactors(store, vorder, feats, label, degree=3, device="cuda")
+        torch.cuda.synchronize()
+    log(f"polynomial degree 3 again, its {len(cap.calls)} segment_blocks calls "
+        f"captured: {time.perf_counter() - t:.3f}s")
+    return dict(degrees=rows, calls=poly_calls(rt, cap.calls)), launches
+
+
+def glm_poly_oracle(rt) -> dict:
+    """Phase 8's checks on the oracle cell, each against the port's own
+    float64 paths: the torch compression equals the numpy one exactly and
+    IRLS on the two gives the same θ bit for bit; GD on the G ≪ m design
+    predicts within GLM_PRED_ATOL of IRLS; polynomial degrees on the card
+    equal the CPU's and degree 2 the flat oracle; ``sum_product`` equals
+    the numpy engine's cofactors."""
+    bundle = rt.favorita_like(1684, 54, 410, SALES_FRACTION, seed=SEED)
+    store, vorder = bundle.store, bundle.vorder
+    feats, label = bundle.features, bundle.label
+    out = {}
+    designs = {}
+    for backend in ("torch", "numpy"):
+        designs[backend], _ = compress(rt, store, vorder, GLM_CONT,
+                                       "oracle cell GLM", backend=backend)
+    a, b = designs["torch"], designs["numpy"]
+    for name in ("cont", "cat_ids", "counts", "ysum"):
+        x, y = getattr(a, name), getattr(b, name)
+        if x.dtype != y.dtype or not np.array_equal(x, y):
+            raise AssertionError(f"oracle cell: torch compression's {name} != numpy's")
+    if a.param_names() != b.param_names():
+        raise AssertionError("oracle cell: compressed layouts differ")
+    irls = {k: glm_fit(rt, d, f"oracle cell IRLS on the {k} design")["result"]
+            for k, d in designs.items()}
+    if not np.array_equal(irls["torch"].theta, irls["numpy"].theta):
+        raise AssertionError("oracle cell: IRLS θ differs between the two designs")
+    out["compression"] = dict(groups=a.num_rows, equal=True, irls_theta_bitwise=True)
+    log("oracle cell: torch compression ≡ numpy (keys, ids, order, counts, "
+        "label sums); IRLS θ bitwise equal")
+
+    design, _ = compress(rt, store, vorder, (), "oracle cell GLM, categorical only")
+    base = glm_fit(rt, design, "oracle cell IRLS (categorical only)")["result"]
+    want = rt.glm_predict_raw(base.theta, design.cont, design.cat_ids, design, "logistic")
+    # pairs: at 1.86 M rows the float32 NLL floor stops fp32 GD by α
+    # collapse before it reaches the bound (reported below), the
+    # reference's JAX GD as the port's on the CPU (tools/glm_gd_witness.py)
+    gd = [glm_fit(rt, design, f"oracle cell GD pairs, run {i}", solver="gd",
+                  gd_accum="pairs", gd_max_iter=GLM_ORACLE_GD_STEPS) for i in (1, 2)]
+    pred = rt.glm_predict_raw(gd[0]["result"].theta, design.cont, design.cat_ids,
+                              design, "logistic")
+    err = float(np.abs(pred - want).max())
+    log(f"oracle cell GD vs IRLS predictions: max_abs_err={err:.3e} (tol {GLM_PRED_ATOL})")
+    if not err <= GLM_PRED_ATOL:
+        raise AssertionError(f"oracle cell: GD predictions off IRLS's: {err}")
+    # the plain float32 accumulation on the same design, reported only
+    fp32 = glm_fit(rt, design, "oracle cell GD fp32 (reported)", solver="gd",
+                   gd_max_iter=GLM_ORACLE_GD_STEPS)
+    fp32["pred_err"] = float(np.abs(rt.glm_predict_raw(
+        fp32["result"].theta, design.cont, design.cat_ids, design, "logistic") - want).max())
+    log(f"oracle cell GD fp32 vs IRLS predictions: max_abs_err={fp32['pred_err']:.3e}")
+    out["gd"] = dict(groups=design.num_rows, gd=public(gd[0]), pred_err=err,
+                     again=gd_repeat(*gd), fp32=public(fp32))
+
+    polys = []
+    for d in POLY_DEGREES:
+        got = {}
+        for where, dev in (("card", "cuda"), ("host", "cpu")):
+            t = time.perf_counter()
+            got[where] = rt.polynomial_cofactors(store, vorder, feats, label, degree=d,
+                                                 device=dev).matrix()
+            torch.cuda.synchronize()
+            got[where + "_s"] = time.perf_counter() - t
+        err = float(np.abs(got["card"] - got["host"]).max())
+        tol = POLY_DEVICE_RTOL * float(np.abs(got["host"]).max())
+        log(f"oracle cell polynomial degree {d}: cuda {got['card_s']:.3f}s, cpu "
+            f"{got['host_s']:.3f}s, max_abs_err={err:.3e} tol={tol:.3e}")
+        if not err <= tol:
+            raise AssertionError(f"polynomial degree {d}: cuda off cpu by {err}")
+        polys.append(dict(degree=d, cuda_s=got["card_s"], cpu_s=got["host_s"],
+                          max_abs_err=err, tol=tol))
+        if d == 2:
+            flat = poly_flat(rt, store, feats, label)
+            if not np.allclose(got["card"], flat, rtol=POLY_FLAT_RTOL, atol=1e-5):
+                raise AssertionError("polynomial degree 2 off the flat oracle")
+            rel = float(np.max(np.abs(got["card"] - flat) / np.maximum(np.abs(flat), 1e-300)))
+            log(f"  degree 2 vs the flat oracle: max rel err {rel:.3e} (rtol {POLY_FLAT_RTOL})")
+            polys[-1]["flat_rel_err"] = rel
+    out["polynomial"] = polys
+
+    pair = ["unit_sales", "onpromotion"]
+    cof = rt.FactorizedEngine(store, vorder, pair, backend="numpy",
+                              use_view_cache=False).cofactors()
+    engine = rt.FactorizedEngine(store, vorder, pair, backend="torch",
+                                 use_view_cache=False, device="cuda")
+    sums = []
+    for attrs, want in (([], cof.count), (pair[:1], cof.lin[0]), (pair, cof.quad[0, 1])):
+        got = engine.sum_product(attrs)
+        tol = ORACLE_RTOL * abs(want) if attrs else 0.0
+        log(f"oracle cell sum_product({attrs}): {got!r} vs numpy {float(want)!r} (tol {tol:.3e})")
+        if not abs(got - want) <= tol:
+            raise AssertionError(f"sum_product({attrs}) = {got}, numpy {want}")
+        sums.append(dict(attrs=attrs, got=got, numpy=float(want), tol=tol))
+    out["sum_product"] = sums
+    return out
+
+
+def poly_flat(rt, store, feats, label) -> np.ndarray:
+    """bench_polynomial's flat pass at degree 2: the materialized join
+    expanded to monomial columns, then one float64 Gram on the host."""
+    cols = feats + [label]
+    z = rt.design_matrix(store.materialize_join(), cols)
+    col_of = {c: i for i, c in enumerate(cols)}
+    exp = [np.ones(z.shape[0])]
+    for mono in rt.expand_monomials(feats, 2):
+        v = np.ones(z.shape[0])
+        for name in mono:
+            v = v * z[:, col_of[name]]
+        exp.append(v)
+    exp.append(z[:, col_of[label]])
+    zz = np.stack(exp, axis=1)
+    return zz.T @ zz
+
+
+def fd_glm(rt) -> dict:
+    """``glm_regression`` on the FD cell as ``tests/test_fd.py`` runs it,
+    the compression on the card: FD-reduced ≡ full (θ at FD_ATOL, the
+    penalized NLL at FD_NLL_ATOL)."""
+    b = rt.fd_star_schema(n_cat=8, domain=96, dep_domain=48, n_rows=4000, seed=13)
+    b.store.infer_fds()
+    cat = [f"c{i}" for i in range(8)] + [f"d{i}" for i in range(8)]
+    cfg = glm_config(rt, tol=1e-14)
+    res = {}
+    for fds in (False, True):
+        t = time.perf_counter()
+        res[fds] = rt.glm_regression(b.store, b.vorder, ["x"], cat, "promo", cfg,
+                                     backend="torch", use_fds=fds)
+        log(f"FD cell GLM use_fds={fds}: {time.perf_counter() - t:.3f}s, "
+            f"{len(res[fds].theta)} coefficients, iterations={res[fds].iterations}")
+    full, red = res[False], res[True]
+    err, dnll = float(np.abs(red.theta - full.theta).max()), abs(red.nll - full.nll)
+    log(f"FD cell GLM reduced vs full: max_abs_err={err:.3e} (tol {FD_ATOL}), "
+        f"|Δ nll|={dnll:.3e} (tol {FD_NLL_ATOL})")
+    if full.names != red.names or not err <= FD_ATOL or not dnll < FD_NLL_ATOL:
+        raise AssertionError(f"FD cell GLM: reduced off full by {err}, nll {dnll}")
+    return dict(coefficients=len(full.theta), max_abs_err=err, nll_diff=dnll)
+
+
+def phase8(rt, bundle) -> tuple:
+    """GLM and polynomial (see the module docstring); (JSON, launches)."""
+    t = time.perf_counter()
+    glm, counts = glm_phase(rt, bundle)
+    poly, n_poly = poly_phase(rt, bundle)
+    counts["segment_reduce"] += n_poly
+    out = dict(glm=glm, polynomial=poly, oracle=glm_poly_oracle(rt), fd=fd_glm(rt),
+               launches=counts)
+    out["seconds"] = time.perf_counter() - t
+    log(f"phase 8: {out['seconds']:.1f}s, launches {counts}")
+    return out, counts
 
 
 # -- phase 7: LM serving ---------------------------------------------------------
@@ -2020,7 +2518,17 @@ def main() -> None:
         design_matrix,
         linear_regression,
     )
+    from repro_torch.core import (
+        GLMConfig,
+        compressed_design_factorized,
+        fit_glm,
+        glm_regression,
+    )
     from repro_torch.core import factorize as fz
+    from repro_torch.core import glm
+    from repro_torch.core import polynomial as poly
+    from repro_torch.core.glm import glm_predict_raw
+    from repro_torch.core.polynomial import expand_monomials, polynomial_cofactors
     from repro_torch.data import favorita_like, fd_star_schema
     from repro_torch.kernels import _build, ops as kops, ref
     from repro_torch.kernels import flash as kflash
@@ -2042,7 +2550,11 @@ def main() -> None:
         cofactors_streaming=cofactors_streaming, design_matrix=design_matrix,
         linear_regression=linear_regression, fz=fz,
         favorita_like=favorita_like, fd_star_schema=fd_star_schema, kops=kops,
-        sv=sv, ref=ref,
+        sv=sv, ref=ref, GLMConfig=GLMConfig,
+        compressed_design_factorized=compressed_design_factorized,
+        fit_glm=fit_glm, glm_regression=glm_regression,
+        glm_predict_raw=glm_predict_raw, expand_monomials=expand_monomials,
+        polynomial_cofactors=polynomial_cofactors, glm=glm, poly=poly,
     )
     lm = types.SimpleNamespace(
         get_config=get_config, init_params=lm_model.init_params,
@@ -2103,14 +2615,25 @@ def main() -> None:
 
     log("phase 5: incremental maintenance")
     ingest = ingest_phase(rt, bundle)
+    # phase 8 runs here, on phase 3's 18.6 M-row store
+    log("phase 8: GLM and polynomial")
+    glm_poly, counts8 = phase8(rt, bundle)
     del bundle
     ingest_oracle(rt)
-    # the drains are this slice's path: their launches join the main path's
-    for name, n in ingest["launches"].items():
-        rows[name]["launches"] += n
-        rows[name]["launches_by_phase"]["phase5"] = n
+    # the drains and phase 8 are slices' paths: their launches join the
+    # main path's
+    for phase, got in (("phase5", ingest["launches"]), ("phase8", counts8)):
+        for name, n in got.items():
+            rows[name]["launches"] += n
+            rows[name]["launches_by_phase"][phase] = n
     rows["segment_reduce"]["ingest"] = dict(
         merges=[{k: v for k, v in nd.items() if k != "kernel"} for nd in ingest["merges"]])
+    rows["segment_reduce"]["polynomial"] = glm_poly["polynomial"]["calls"]
+    for name in PHASE8_KERNELS:
+        rows[name]["glm_compression"] = {
+            leg: [{k: v for k, v in nd.items() if k != "kernel"}
+                  for nd in got["calls"] if nd["kernel"] == name]
+            for leg, got in glm_poly["glm"].items()}
 
     log("phase 6: float64 oracle")
     oracle_phase(rt)
@@ -2119,6 +2642,7 @@ def main() -> None:
     log("phase 7: LM serving")
     rows["flash"]["launches"] = lm_phase(lm)
 
+    print(json.dumps({"phase8": glm_poly}))
     print(json.dumps({"kernels": [rows[n] for n in ALL_KERNELS]}))
     print(card)
     print(json.dumps({

@@ -12,6 +12,10 @@ Layering (paper section in parentheses):
 * ``fd``                        — functional dependencies: catalog,
                                   FD-reduced solving, closed-form recovery
 * ``categorical``               — sparse categorical cofactors (AC/DC-style)
+* ``glm``                       — logistic/Poisson over the compressed join
+                                  (host float64 IRLS, float32 GD on the device)
+* ``polynomial``                — beyond-paper degree-d extension (§6 outlook),
+                                  float64 aggregates on the device
 * ``view_cache``                — persistent cross-batch per-node view cache
                                   (store-owned, delta-maintained under append)
 * ``delta_log``                 — pending-append log behind lazy maintenance
@@ -56,6 +60,16 @@ from .fd import (
     recover_blocks,
 )
 from .gd import GDConfig, GDResult, bgd_cofactor, bgd_data, solve_cofactor
+from .glm import (
+    CompressedDesign,
+    GLMConfig,
+    GLMResult,
+    compressed_design_factorized,
+    compressed_design_materialized,
+    fit_glm,
+    fit_glm_onehot,
+    glm_regression,
+)
 from .regression import (
     VERSIONS,
     RegressionConfig,
@@ -83,6 +97,7 @@ __all__ = [
     "AggregateQuery",
     "CatCofactors",
     "Cofactors",
+    "CompressedDesign",
     "DeltaLog",
     "Dictionary",
     "FDReduction",
@@ -90,6 +105,8 @@ __all__ = [
     "FunctionalDependency",
     "GDConfig",
     "GDResult",
+    "GLMConfig",
+    "GLMResult",
     "GroupedView",
     "INTERCEPT",
     "Relation",
@@ -117,9 +134,14 @@ __all__ = [
     "cofactors_materialized",
     "cofactors_row_engine",
     "cofactors_streaming",
+    "compressed_design_factorized",
+    "compressed_design_materialized",
     "compute_scale_factors",
     "design_matrix",
     "expand_cat_cofactors",
+    "fit_glm",
+    "fit_glm_onehot",
+    "glm_regression",
     "grouped_cofactors_factorized",
     "iter_design_chunks",
     "linear_regression",

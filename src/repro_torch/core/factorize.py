@@ -672,6 +672,20 @@ class FactorizedEngine:
             out[q.name] = self._to_block(view, q)
         return out
 
+    def sum_product(self, attrs: Sequence[str]) -> float:
+        """Generic SUM(Π attrs) over the join (paper Fig. 2/3 aggregates):
+        COUNT(*) for [], SUM(a) for [a], SUM(a·b) for [a, b]."""
+        attrs = list(attrs)
+        if len(attrs) > 2:
+            raise ValueError("degree > 2 — use repro_torch.core.polynomial")
+        cof = self.cofactors()
+        if not attrs:
+            return float(cof.count)
+        if len(attrs) == 1:
+            return float(cof.lin[cof.features.index(attrs[0])])
+        i, j = (cof.features.index(a) for a in attrs)
+        return float(cof.quad[i, j])
+
     # -- plan layer -------------------------------------------------------------
     def _plan(self, queries: Sequence[AggregateQuery]) -> _BatchPlan:
         names = set()

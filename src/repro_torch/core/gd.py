@@ -16,8 +16,9 @@ matvec — **independent of the number of training rows m**.  The procedure:
 * version 4's "alternative adjustment": on an increase the step is
   *reverted* before shrinking α, and α grows by 5% on successful steps.
 
-The loop stays on the device.  It runs in chunks of predicated steps: each
-step computes the stop condition first and, once it holds, leaves θ, α, the
+The loop stays on the device.  It runs in chunks of predicated steps
+(:func:`run_predicated`, which the GLM's GD solver shares): each step
+computes the stop condition first and, once it holds, leaves θ, α, the
 previous update sum, the converged flag and the iteration count exactly as
 they were — what the JAX package's ``lax.while_loop`` does by not running
 the body — so the host reads one flag per chunk, not per step, and the
@@ -64,6 +65,23 @@ class GDResult:
         return self.theta[:-1]
 
 
+def run_predicated(carry: tuple, running: Callable, step: Callable) -> tuple:
+    """Run ``step`` on a tuple of device tensors until ``running(carry)``
+    (a device bool) is false, in chunks of ``_CHUNK`` predicated steps: each
+    step evaluates ``running`` first and keeps every element of the carry
+    as it was where it is false — what ``lax.while_loop`` does by not running
+    the body — so the host reads one flag per chunk and step counts stay
+    exact.  Shared by BGD (``_run_loop``) and the GLM's GD solver."""
+    while bool(running(carry)):  # one host sync per chunk
+        for _ in range(_CHUNK):
+            active = running(carry)
+            carry = tuple(
+                torch.where(active, new, old)
+                for new, old in zip(step(carry), carry)
+            )
+    return carry
+
+
 def _run_loop(step_fn: Callable, p: int, cfg: GDConfig):
     """Chunked, predicated descent.  Carry: (θ, α, prev_sum, it, converged)."""
     if cfg.alpha_strategy not in ("paper", "revert"):
@@ -71,35 +89,36 @@ def _run_loop(step_fn: Callable, p: int, cfg: GDConfig):
     like = dict(dtype=cfg.dtype, device=cfg.device)
     theta = torch.zeros((p,), **like)
     theta[-1] = -1.0
-    alpha = torch.tensor(cfg.alpha0, **like)
-    prev = torch.tensor(float("inf"), **like)
-    it = torch.zeros((), dtype=torch.int32, device=cfg.device)
-    converged = torch.zeros((), dtype=torch.bool, device=cfg.device)
+    carry = (
+        theta,
+        torch.tensor(cfg.alpha0, **like),
+        torch.tensor(float("inf"), **like),
+        torch.zeros((), dtype=torch.int32, device=cfg.device),
+        torch.zeros((), dtype=torch.bool, device=cfg.device),
+    )
 
-    def running():
+    def running(carry):
+        _, alpha, _, it, converged = carry
         return (~converged) & (it < cfg.max_iter) & (alpha > cfg.alpha_min)
 
-    while bool(running()):  # one host sync per chunk
-        for _ in range(_CHUNK):
-            active = running()
-            eps_vec = step_fn(theta, alpha)
-            cur = torch.sum(torch.abs(eps_vec))
-            increase = cur > prev
-            if cfg.alpha_strategy == "paper":
-                theta_new = theta - eps_vec
-                alpha_new = torch.where(increase, alpha / 3.0, alpha)
-                prev_new = cur
-            else:
-                theta_new = torch.where(increase, theta, theta - eps_vec)
-                alpha_new = torch.where(
-                    increase, alpha / 3.0, alpha * cfg.alpha_grow
-                )
-                prev_new = torch.where(increase, prev, cur)
-            theta = torch.where(active, theta_new, theta)
-            alpha = torch.where(active, alpha_new, alpha)
-            prev = torch.where(active, prev_new, prev)
-            converged = torch.where(active, cur < cfg.eps, converged)
-            it = it + active.to(torch.int32)
+    def step(carry):
+        theta, alpha, prev, it, _ = carry
+        eps_vec = step_fn(theta, alpha)
+        cur = torch.sum(torch.abs(eps_vec))
+        increase = cur > prev
+        if cfg.alpha_strategy == "paper":
+            theta_new = theta - eps_vec
+            alpha_new = torch.where(increase, alpha / 3.0, alpha)
+            prev_new = cur
+        else:
+            theta_new = torch.where(increase, theta, theta - eps_vec)
+            alpha_new = torch.where(
+                increase, alpha / 3.0, alpha * cfg.alpha_grow
+            )
+            prev_new = torch.where(increase, prev, cur)
+        return theta_new, alpha_new, prev_new, it + 1, cur < cfg.eps
+
+    theta, alpha, prev, it, _ = run_predicated(carry, running, step)
     return theta, alpha, prev, it
 
 

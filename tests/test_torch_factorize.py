@@ -242,3 +242,28 @@ def test_default_device_is_cuda_and_never_falls_back():
             PF.FactorizedEngine(pb.store, pb.vorder, cols)
         with pytest.raises(RuntimeError):
             PF.cofactors_factorized(pb.store, pb.vorder, cols)
+
+
+@pytest.mark.parametrize("backend", ["numpy", "torch"])
+def test_sum_product_aggregates(backend):
+    """Paper Figures 2–3 (``test_cofactor.py``'s sum-product test): COUNT,
+    SUM(Sale) and SUM(Sale·Competitor) through the engine equal the flat
+    join's and the reference engine's; degree > 2 points to the
+    polynomial module."""
+    pb, rb = _pair(lambda m: m.figure1_schema())
+    cols = ["Sale", "Competitor", "Inventory"]
+    pe, re_ = _engines(pb, rb, cols, backend)
+    joined = pb.store.materialize_join()
+    sale = joined.column("Sale").astype(float)
+    comp = joined.column("Competitor").astype(float)
+    close = (dict(rtol=1e-12) if backend == "numpy"
+             else dict(rtol=1e-5, atol=1e-5 * np.abs(sale * comp).sum()))
+    for attrs, flat in (([], joined.num_rows), (["Sale"], sale.sum()),
+                        (["Sale", "Competitor"], (sale * comp).sum())):
+        got = pe.sum_product(attrs)
+        assert isinstance(got, float)
+        np.testing.assert_allclose(got, flat, **close)
+        np.testing.assert_allclose(got, re_.sum_product(attrs), **close)
+    assert pe.sum_product([]) == joined.num_rows
+    with pytest.raises(ValueError, match="repro_torch.core.polynomial"):
+        pe.sum_product(["Sale", "Competitor", "Inventory"])
