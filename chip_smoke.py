@@ -66,16 +66,17 @@ Phases, in order; any failed check raises and the script exits non-zero:
    views exceed it and are dropped); then one new day (11,070 sales rows,
    54 transactions, 1 oil price, drawn as ``favorita_like`` draws, the
    dates new to the date dictionary) is appended to three relations, and
-   drained by ``flush`` with the launch counters zeroed before and read
-   after: ``segment_view``, ``segment_view1`` and ``segment_reduce`` must
-   launch.  The read after the drain must visit no node, and the drained
-   statistics must equal a cold recompute on the merged catalog (a fresh
-   store, ``refresh=True``) within 1e-4 of the largest cofactor.  The same
-   again for a batch of 9 more days (99,630 sales rows in 27 appends,
-   below the compaction ratio, so they fold).  Each ``segment_blocks`` call of the drains'
+   drained by ``flush``, profiled, with the launch counters zeroed before
+   and read after: ``segment_view``, ``segment_view1`` and
+   ``segment_reduce`` must launch.  The read after the drain must visit no
+   node, and the drained statistics must equal a cold recompute on the
+   merged catalog (a fresh store, ``refresh=True``) within 1e-4 of the
+   largest cofactor.  (The batch of 9 more days runs on the oracle cell
+   only, for the smoke's time.)  Each ``segment_blocks`` call of the drain's
    ``_merge_views`` (cached view ⊎ delta view) runs again against its
    plain version, timed beside its bound and ``index_add_``.  On the
-   oracle cell (below) the same appends drain on the float64 numpy engine
+   oracle cell (below) one day and then 9 more (27 appends, below the
+   compaction ratio, so they fold) drain on the float64 numpy engine
    to a cold numpy recompute within 1e-12, the float32 torch drain equals
    the float64 one within 1e-4, and the warm closed form
    (``use_cache=True``) equals the cold one within 1e-8.
@@ -118,7 +119,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    first, its segment_view and segment_blocks calls captured and run
    again against their plain versions (1e-4 of the largest sum) beside
    ``index_add_`` and their bound.  Then
-   ``polynomial_cofactors`` at degrees 1–3 (aggregates up to degree 6,
+   ``polynomial_cofactors`` at degrees 1 and 3 (aggregates up to degree 6,
    float64 on the card through segment_reduce; degree 1 equal to the
    float64 quadratic engine at 1e-10), and one more degree-3 run whose
    ``segment_blocks`` calls are captured and run again against their plain
@@ -131,9 +132,57 @@ Phases, in order; any failed check raises and the script exits non-zero:
    1e-7; ``sum_product`` equals the numpy engine's cofactors.  On the FD
    cell, ``glm_regression`` with the compression on the card: FD-reduced
    equals full at 1e-10, penalized NLLs within 1e-8.
+9. The multi-tenant factorized service, run after phase 8 (logged as phase
+   9), on a fresh lazy ``Store`` over phase 3's relations.  Leg 1, at
+   full size: ``FactorizedService(store)`` with its defaults (the torch
+   engine on the card), its threaded runtime started; eight client
+   threads, tenants t0–t7, send a window of 12 reads — 6 trains (ridge
+   0.006, label ``unit_sales``) over feature subsets drawn Zipf-skewed
+   (seeded) from a pool of overlapping subsets of the eight features, 3
+   scores of phase 3's closed-form θ, 2 cofactor reads and 1 aggregates
+   read (degree 1 by ``store_nbr``, degree 2 by ``cluster``).  The window
+   arrives as one burst (queued in a fixed order while the cycle lock is
+   held), so the worker serves it in one cycle: its merged plan fails, as
+   the aggregates read groups by attributes other reads use as features,
+   and the cycle bisects it as the reference does.  A writer tenant then
+   appends one new day (phase 5's ``new_days``: 11,070 sales rows, 54
+   transactions, 1 oil price) in three tickets, which the idle policy
+   folds; window 2 sends the 12 reads again and one that the fold leaves
+   cold (degree 1 by ``date``); ``stop(drain=True)``.  Launch counters
+   are zeroed before and read at each step's end (under the cycle lock):
+   segment_view and segment_reduce must launch in both windows and in the
+   fold.  Every segment-kernel call of the three steps is captured, with
+   its output, from the worker threads, then run again against its plain
+   version (1e-4 of the largest; the worker's own output too), timed
+   beside its plain version, its bound and ``index_add_`` (JSON rows
+   ``service``).  Every ticket must resolve with a value, nothing be
+   quarantined, no fold fail, and the per-tenant passes, node visits and
+   view-cache hits, misses and bytes sum to the store totals exactly.
+   Each read is held to float64 numpy over its window's catalog
+   (``Oracle64``: the join is the sales rows with their dimension rows
+   looked up; a train's θ is the scaled ridge solve, in numpy): cofactors
+   and group sums within 1e-4 of the largest, a score within 1e-4 of the
+   magnitude its quadratic form sums, a train's θ in the scaled
+   coordinates within 1e-3 of its largest coefficient and its predictions
+   on every join row within 1e-4 of the largest (its θ error per
+   coefficient against 1e-3 is reported: float32 leaves the coefficients
+   the data barely determine free, as in the reference,
+   ``tools/service_theta_witness.py``).  Window 1 runs again with
+   ``coalesce=False`` on another fresh store (the private arm; equal
+   within 1e-4), and once more, coalesced, on the merged catalog, cold and profiled
+   (device busy against wall, peak memory).  Leg 2, on the oracle cell:
+   the same schedule on the float64 numpy service and on the card (held to
+   each other and to the numpy, whose θ is held to ``linear_regression``'s
+   warm closed form at 1e-8); then on the card under a seeded
+   ``FaultInjector`` with a ``RetryPolicy``: eviction storms every 2
+   snapshots, random node faults at 5 % and then 20 %, a terminal trap in
+   window 2 and the idle fold poisoned.  A failed ticket must fail with an
+   injected fault or ``ServiceStopped``, a fault must fire, and every
+   served read equals the fault-free run's within 1e-4.
 
-The last lines are the phase-8 JSON object, the kernels JSON object, the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+The last lines are the phase-8 JSON object, the phase-9 JSON object
+(``{"service": ...}``), the kernels JSON object, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -146,6 +195,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 import types
 from pathlib import Path
@@ -202,6 +252,7 @@ HOST_IDS = ("group_ids_device",)
 # phase 5: every drain folds through these
 INGEST_KERNELS = ("segment_view", "segment_view1", "segment_reduce")
 INGEST_BATCH_DAYS = 9  # the second append: ~100 K sales rows, under compaction
+INGEST_FULL_DAYS = (1,)  # full size: one day (the nine-day batch is cut for the smoke's time)
 # float64 drain vs float64 cold recompute, of the largest cofactor: the
 # same sums in another order
 INGEST_F64_RTOL = 1e-12
@@ -211,7 +262,7 @@ WARM_THETA_RTOL = 1e-8
 # phase 8: bench_categorical's GLM leg and bench_polynomial's degrees
 GLM_CONT, GLM_LABEL, GLM_RIDGE = ("transactions",), "onpromotion", 1e-3
 GLM_CAT = CAT
-GLM_GD_STEPS = 1_000  # the GD budget of the 18.6 M-row legs
+GLM_GD_STEPS = 500  # the GD budget of the 18.6 M-row legs (cut for phase 9's time)
 GLM_ORACLE_GD_STEPS = 100_000  # the reference's default cap
 GLM_GD_PROFILE_STEPS = 128  # one chunk of predicated steps, profiled
 GLM_PRED_ATOL = 5e-3  # GD vs IRLS predictions: the reference's own bound
@@ -225,6 +276,7 @@ PHASE8_KERNELS = ("segment_view", "segment_reduce")
 IRLS_STEPS = ("_hessian", "_grad_theta", "_family_stats")
 POLY_STEPS = ("_encode", "_combine", "_extend", "_aggregate_out")
 POLY_DEGREES = (1, 2, 3)
+POLY_FULL_DEGREES = (1, 3)  # full size: degree 2 is cut for the smoke's time
 # polynomial aggregates are float64 on both sides: the card vs the CPU, and
 # degree 1 vs the quadratic engine, are the same sums in another order
 POLY_DEVICE_RTOL = 1e-12  # of the largest aggregate
@@ -350,6 +402,19 @@ def max_err(got, expect) -> tuple:
             err = max(err, float((a - b).abs().max()))
             scale = max(scale, float(b.abs().max()))
     return err, scale
+
+
+def within(what, got, want, rtol, scale=None) -> float:
+    """max |got − want| ≤ rtol · scale (scale: the largest |want|); the
+    error over the scale, or raise."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        raise AssertionError(f"{what}: shape {got.shape} != {want.shape}")
+    scale = float(np.abs(want).max()) if scale is None else scale
+    err = float(np.abs(got - want).max()) if got.size else 0.0
+    if not err <= rtol * scale:
+        raise AssertionError(f"{what}: max_abs_err {err:.3e} > {rtol} · {scale:.3e}")
+    return err / scale if scale else err
 
 
 def bound_ms(nbytes: float, flops: float, peak: float = FP32_FLOPS) -> tuple:
@@ -866,19 +931,25 @@ class Timers:
 class Capture:
     """The arguments of every call of ``names`` (by default the engine's
     ``segment_view`` and ``segment_blocks``), by patching the names the
-    engine module calls (as Timers does).  The tensors are kept, not
-    copied (~1.3 GB on the card for one closed-form traversal of the 18.6
-    M-row bundle)."""
+    engine module calls (as Timers does), from whichever thread calls them;
+    with ``results``, each call's outputs too (``outputs``, in call order).
+    The tensors are kept, not copied (~1.3 GB on the card for one
+    closed-form traversal of the 18.6 M-row bundle)."""
 
     NAMES = ("segment_view", "segment_blocks")
 
-    def __init__(self, kops, names=NAMES):
-        self.kops, self.names, self.calls = kops, names, []
+    def __init__(self, kops, names=NAMES, results: bool = False):
+        self.kops, self.names, self.results = kops, names, results
+        self.calls, self.outputs, self.lock = [], [], threading.Lock()
 
     def _wrap(self, name, fn):
         def captured(*args, **kwargs):
-            self.calls.append((name, args, kwargs))
-            return fn(*args, **kwargs)
+            out = fn(*args, **kwargs)
+            with self.lock:
+                self.calls.append((name, args, kwargs))
+                if self.results:
+                    self.outputs.append(out)
+            return out
         return captured
 
     def __enter__(self):
@@ -1007,6 +1078,7 @@ def main_path(rt, bundle) -> dict:
     traversal["degree1"] = main_path_kernels(rt, *view1_calls(rt, cap1.calls, node_ms1),
                                              split=False)
     traversal["moments"] = moments_calls(rt, cap_m.calls, feats + [label], scale_ms)
+    traversal["theta_closed"] = results["closed"].theta  # phase 9 scores it
     del cap, cap1, cap_m
 
     # the degree-1 aggregates over the join equal float64 sums of the fact
@@ -1152,22 +1224,27 @@ def call_pair(sv, ref, name, args, kwargs, dtype=None):
             functools.partial(plain_fn, *blocks, seg, int(args[-1]), degree=kw["degree"]))
 
 
-def main_path_kernels(rt, calls, device_ms, split: bool = True) -> dict:
+def main_path_kernels(rt, calls, device_ms, split: bool = True, outputs=None) -> dict:
     """Each captured segment-kernel call (a traversal's, a batch's, a
-    drain's merges) again, on its own arguments: kernel vs plain version (KERNEL_RTOL), path A bitwise equal
-    across two calls, one float64 call per (kernel, path) within F64_RTOL;
-    timed per call and back to back, beside its plain version, its bound
-    and its device time in the profiled traversal; with ``split``, the
-    host/device split of the regroup at transactions."""
+    drain's merges) again, on its own arguments: kernel vs plain version
+    (KERNEL_RTOL), and so the call's own ``outputs`` where captured; path A
+    bitwise equal across two calls, one float64 call per (kernel, path)
+    within F64_RTOL; timed per call and back to back, beside its plain
+    version, its bound and its device time in the profiled traversal; with
+    ``split``, the host/device split of the regroup at transactions."""
     sv, ref = rt.sv, rt.ref
     rows, f64_done = [], set()
     log(f"{len(calls)} captured calls, again on their own segment ids")
-    for (name, args, kwargs), dev_ms in zip(calls, device_ms):
+    for i, ((name, args, kwargs), dev_ms) in enumerate(zip(calls, device_ms)):
         nd = call_node(sv, name, args, kwargs)
         kern, plain = call_pair(sv, ref, name, args, kwargs)
-        got = kern()
-        err, scale = max_err(got, plain())
+        got, want = kern(), plain()
+        err, scale = max_err(got, want)
         tol = KERNEL_RTOL * max(1.0, scale)
+        if outputs is not None:
+            nd["call_max_abs_err"], _ = max_err(outputs[i], want)
+            err = max(err, nd["call_max_abs_err"])
+        del want
         if not err <= tol:
             raise AssertionError(f"{nd['kernel']} at {nd['node']}: error {err} > {tol}")
         if nd["path"] == "one_row":
@@ -1328,11 +1405,8 @@ def compare_models(what, got, want, joined, label, cat=None) -> None:
 
 
 def check_cofactors(what, got, want, count_exact=False) -> None:
-    a, b = got.matrix(), want.matrix()
-    err, scale = float(np.abs(a - b).max()), float(np.abs(b).max())
-    log(f"{what}: max_abs_err={err:.3e} tol={ORACLE_RTOL * scale:.3e}")
-    if not err <= ORACLE_RTOL * scale:
-        raise AssertionError(f"{what}: {err} > {ORACLE_RTOL * scale}")
+    rel = within(what, got.matrix(), want.matrix(), ORACLE_RTOL)
+    log(f"{what}: max_abs_err {rel:.3e} of the largest cofactor (tol {ORACLE_RTOL})")
     if count_exact and got.count != want.count:
         raise AssertionError(f"{what}: count {got.count} != {want.count}")
 
@@ -1552,11 +1626,8 @@ def check_stats(what, got, want, rtol) -> None:
     """Each pair of sufficient statistics within ``rtol`` of the largest
     cofactor."""
     for part, g, w in zip(("continuous", "categorical"), got, want):
-        a, b = g.matrix(), w.matrix()
-        err, tol = float(np.abs(a - b).max()), rtol * float(np.abs(b).max())
-        log(f"  {what}, {part}: max_abs_err={err:.3e} tol={tol:.3e}")
-        if a.shape != b.shape or not err <= tol:
-            raise AssertionError(f"{what}, {part}: {err} > {tol}")
+        rel = within(f"{what}, {part}", g.matrix(), w.matrix(), rtol)
+        log(f"  {what}, {part}: max_abs_err {rel:.3e} of the largest (tol {rtol})")
 
 
 class StepTimers:
@@ -1700,10 +1771,10 @@ def merge_calls(rt, calls, sizes) -> list:
 
 
 def ingest_phase(rt, bundle) -> dict:
-    """One new day, then a batch of INGEST_BATCH_DAYS more, appended to a
-    fresh lazy torch-backend Store over the bundle's relations and drained
-    on the card; after each drain the warm read visits no node and equals a
-    cold recompute on the merged catalog."""
+    """INGEST_FULL_DAYS (one new day) appended to a fresh lazy torch-backend
+    Store over the bundle's relations and drained on the card, profiled;
+    after the drain the warm read visits no node and equals a cold recompute
+    on the merged catalog."""
     store = rt.Store(bundle.store.relations())
     kw = dict(backend="torch", device="cuda")
     t = time.perf_counter()
@@ -1715,7 +1786,7 @@ def ingest_phase(rt, bundle) -> dict:
     rng = np.random.default_rng(SEED + 1)
     first = store.attr_domain("date")
     counts, merges, sizes = {k: 0 for k in INGEST_KERNELS}, [], []
-    for n_days in (1, INGEST_BATCH_DAYS):
+    for n_days in INGEST_FULL_DAYS:
         what = f"{n_days} new day(s)"
         t = time.perf_counter()
         rows = append_days(rt, [store], first, n_days, rng)
@@ -1724,8 +1795,8 @@ def ingest_phase(rt, bundle) -> dict:
             f"pending relations={info['pending_relations']} rows={info['pending_rows']} "
             f"appends={info['pending_appends']}")
         first += n_days
-        # the second drain runs profiled for the device's idle share
-        got, cap = drain(rt, store, what, profile=n_days > 1)
+        # profiled for the device's idle share
+        got, cap = drain(rt, store, what, profile=True)
         for k in counts:
             counts[k] += got[k]
         merges += cap.calls
@@ -1743,12 +1814,13 @@ def ingest_phase(rt, bundle) -> dict:
                           refresh=True, **kw)
         check_stats(f"{what}: drained vs cold", warm, cold, ORACLE_RTOL)
         del fresh, cold, warm
-    log(f"phase 5 launches (both drains): {counts}; the drains' merge regroups:")
+    log(f"phase 5 launches (the drains): {counts}; the drains' merge regroups:")
     return dict(launches=counts, merges=merge_calls(rt, merges, sizes))
 
 
 def ingest_oracle(rt) -> None:
-    """The same appends on the oracle cell: the float64 numpy drain equals a
+    """One day and then INGEST_BATCH_DAYS more appended on the oracle cell:
+    after each, the float64 numpy drain equals a
     cold numpy recompute (INGEST_F64_RTOL), the float32 torch drain the
     float64 one (ORACLE_RTOL), and the warm closed form (``use_cache``)
     the cold one (WARM_THETA_RTOL)."""
@@ -1949,20 +2021,21 @@ def gd_repeat(first: dict, again: dict) -> dict:
     return out
 
 
-def compression_calls(rt, calls) -> list:
-    """Each captured segment-kernel call of a GLM compression again on its
-    own arguments, measured and checked as the main path's calls are
-    (main_path_kernels); a ``segment_blocks`` call also beside
-    ``index_add_`` (time_index_add)."""
-    rows = main_path_kernels(rt, calls, [None] * len(calls), split=False)["nodes"]
-    for nd, (name, args, _) in zip(rows, calls):
+def captured_calls(rt, calls, outputs=None) -> dict:
+    """Each captured segment-kernel call (a GLM compression's, the
+    service's) again on its own arguments, measured and checked as the main
+    path's calls are (main_path_kernels, with the calls' own ``outputs``
+    where captured, and its sums per kernel); a ``segment_blocks`` call
+    also beside ``index_add_`` (time_index_add)."""
+    out = main_path_kernels(rt, calls, [None] * len(calls), split=False, outputs=outputs)
+    for nd, (name, args, _) in zip(out["nodes"], calls):
         if name != "segment_blocks":
             nd["library_ms"] = None
             continue
         time_index_add(nd, args)
         log(f"  {nd['node']}: index_add_ {nd['library_ms']:.4f} / "
             f"{nd['library_ms_back_to_back']:.4f} back to back")
-    return rows
+    return out
 
 
 def gd_grad_check(rt, design, theta, what: str) -> dict:
@@ -2003,7 +2076,7 @@ def glm_phase(rt, bundle) -> tuple:
     compression through kernels 1 and 3 (counts zeroed before, read
     after), IRLS on the host, GD ``pairs`` on the card (its gradient
     checked against the host's); then the compression's kernel calls
-    again against their plain versions (compression_calls)."""
+    again against their plain versions (captured_calls)."""
     store, vorder = bundle.store, bundle.vorder
     promo = float(store.get("SalesF").column(GLM_LABEL).sum())
     out, counts = {}, {k: 0 for k in PHASE8_KERNELS}
@@ -2057,7 +2130,7 @@ def glm_phase(rt, bundle) -> tuple:
         if not all(np.array_equal(getattr(again, n), getattr(design, n))
                    for n in ("cont", "cat_ids", "counts", "ysum")):
             raise AssertionError(f"GLM {leg}: the compression differs between two runs")
-        row["calls"] = compression_calls(rt, cap.calls)
+        row["calls"] = captured_calls(rt, cap.calls)["nodes"]
         out[leg] = row
         del design, again, cap
     return out, counts
@@ -2103,7 +2176,7 @@ def poly_calls(rt, calls) -> list:
 
 
 def poly_phase(rt, bundle) -> tuple:
-    """bench_polynomial's degrees on the 18.6 M-row store: each degree's
+    """bench_polynomial's degrees (POLY_FULL_DEGREES) on the 18.6 M-row store: each degree's
     seconds, kernel 3's launches (zeroed before, read after) and peak
     memory; degree 1 against the quadratic engine in float64; then one
     degree-3 run again, its ``segment_blocks`` calls captured and run again
@@ -2111,7 +2184,7 @@ def poly_phase(rt, bundle) -> tuple:
     store, vorder = bundle.store, bundle.vorder
     feats, label = bundle.features, bundle.label
     rows, launches = [], 0
-    for d in POLY_DEGREES:
+    for d in POLY_FULL_DEGREES:
         rt.kops.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
         with Timers((rt.poly._PolyEngine, POLY_STEPS), (rt.poly, HOST_JOIN)) as steps:
@@ -2300,6 +2373,594 @@ def phase8(rt, bundle) -> tuple:
     out["seconds"] = time.perf_counter() - t
     log(f"phase 8: {out['seconds']:.1f}s, launches {counts}")
     return out, counts
+
+
+# -- phase 9: the factorized service ---------------------------------------------
+
+# the multi-tenant train pool: overlapping subsets of Favorita's eight
+# features, drawn Zipf-skewed (a few popular models and a long tail)
+SERVICE_FEATURES = ("date", "store_nbr", "item_nbr", "onpromotion", "transactions",
+                    "dcoilwtico", "perishable", "cluster")
+SERVICE_POOL = (
+    ("date", "store_nbr", "item_nbr", "onpromotion"),
+    ("onpromotion", "perishable", "cluster"),
+    ("date", "onpromotion", "transactions"),
+    ("store_nbr", "cluster", "transactions", "dcoilwtico"),
+    ("date", "item_nbr", "perishable", "dcoilwtico"),
+    SERVICE_FEATURES,
+)
+SERVICE_LABEL = "unit_sales"
+SERVICE_RIDGE = 0.006
+SERVICE_TENANTS = 8  # client threads t0–t7, one a tenant
+SERVICE_AGG = ("unit_sales", "onpromotion", "transactions")  # the aggregates read
+SERVICE_WAIT_S = 900  # longest a ticket or the fold may take
+# the cycle's steps, timed by name (Timers) on the engine and the service
+SERVICE_ENGINE_STEPS = ("__init__", "run_batch")
+SERVICE_STEPS = ("_finish", "_apply_write", "_flush_pending")
+# fault leg: the per-visit hazards of its two windows
+FAULT_RATES = (0.05, 0.20)
+SERVICE_KERNELS = INGEST_KERNELS  # what the service's reads and folds launch
+
+
+def service_reads(rt, bundle, theta, seed: int) -> tuple:
+    """(window 1, window 2) as lists of (tenant, kind, features, extra).
+    Window 1 has 12 reads: 6 trains and 2 cofactor reads over pool subsets
+    drawn Zipf-skewed, 3 scores of ``theta`` over the bundle's own
+    features, 1 aggregates read (degree 1 by store_nbr, degree 2 by
+    cluster), in a seeded order, the tenants t0–t7 in turn.  Window 2 sends
+    them again and one read the idle fold leaves cold (degree 1 by date)."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, len(SERVICE_POOL) + 1)
+    picks = rng.choice(len(SERVICE_POOL), size=8, p=p / p.sum())
+    reads = [("train", SERVICE_POOL[i], None) for i in picks[:6]]
+    reads += [("score", tuple(bundle.features), np.asarray(theta))] * 3
+    reads += [("cofactors", SERVICE_POOL[i] + (SERVICE_LABEL,), None) for i in picks[6:]]
+    reads.append(("aggregates", SERVICE_AGG, (
+        rt.AggregateQuery("by_store", ("store_nbr",), 1),
+        rt.AggregateQuery("by_cluster", ("cluster",), 2))))
+    reads = [reads[i] for i in rng.permutation(len(reads))]
+    reads.append(("aggregates", SERVICE_AGG, (rt.AggregateQuery("by_date", ("date",), 1),)))
+    reads = [(f"t{i % SERVICE_TENANTS}", *r) for i, r in enumerate(reads)]
+    return reads[:-1], reads
+
+
+def submit(svc, vorder, read):
+    tenant, kind, feats, extra = read
+    if kind == "train":
+        return svc.train(tenant, vorder, list(feats), SERVICE_LABEL, ridge=SERVICE_RIDGE)
+    if kind == "score":
+        return svc.score(tenant, vorder, list(feats), SERVICE_LABEL, extra)
+    if kind == "cofactors":
+        return svc.cofactors(tenant, vorder, list(feats))
+    return svc.aggregates(tenant, vorder, list(feats), list(extra))
+
+
+def run_window(svc, vorder, reads) -> dict:
+    """One window, arriving as one burst while a cycle is in flight: the
+    reads are queued in their listed order under the service's cycle lock
+    (held as a running cycle holds it), so the drain worker serves the
+    window in one cycle and both windows split alike where the cycle
+    bisects a window whose merged plan fails.  A client thread a tenant
+    waits for its reads.  Returns the tickets, each read's latency (submit
+    to result) and the window's wall seconds, from the first submit to the
+    last result."""
+    mine = {}
+    for i, r in enumerate(reads):
+        mine.setdefault(r[0], []).append(i)
+    tickets, submitted, done, late = [], [], [0.0] * len(reads), []
+
+    def client(idx):
+        for i in idx:
+            if tickets[i].wait(SERVICE_WAIT_S):
+                done[i] = time.perf_counter()
+            else:
+                late.append(i)
+
+    threads = [threading.Thread(target=client, args=(idx,)) for idx in mine.values()]
+    with svc._cycle_lock:
+        for r in reads:
+            submitted.append(time.perf_counter())
+            tickets.append(submit(svc, vorder, r))
+        for t in threads:  # waiting before the worker can serve a read
+            t.start()
+    for t in threads:
+        t.join(SERVICE_WAIT_S + 60)
+    if late or any(t.is_alive() for t in threads):
+        raise AssertionError(f"reads {late} not served in {SERVICE_WAIT_S}s")
+    return dict(tickets=tickets, latency=[d - s for s, d in zip(submitted, done)],
+                wall=max(done) - min(submitted))
+
+
+class Oracle64:
+    """Float64 numpy over a Favorita catalog's join, independent of the
+    port: every sale joins exactly one row of each dimension, so the join
+    is the sales rows with their dimension columns looked up.  ``cof``
+    projects the one cofactor matrix of the eight features and the label
+    (Prop. 4.1).  ``theta`` is the ridge closed form of §4.2: each column
+    scaled by its mean and max|x| over the relations that hold it (the
+    label centred only), the scaled join's normal equations solved with
+    ``np.linalg.solve``, θ unscaled; ``scaled`` takes a θ into those
+    coordinates, where every feature lies in [−1, 1]."""
+
+    def __init__(self, store):
+        sales = store.get("SalesF")
+        col = {a: sales.column(a).astype(np.float64)
+               for a in ("date", "store_nbr", "item_nbr", "onpromotion", SERVICE_LABEL)}
+        d, s, it = (col[a].astype(np.int64) for a in ("date", "store_nbr", "item_nbr"))
+
+        def lookup(name, keys, value, index):
+            rel = store.get(name)
+            table = np.full([int(rel.column(k).max()) + 1 for k in keys], np.nan)
+            table[tuple(rel.column(k).astype(np.int64) for k in keys)] = rel.column(value)
+            return table[index]
+
+        col["transactions"] = lookup("Transactions", ("date", "store_nbr"),
+                                     "transactions", (d, s))
+        col["dcoilwtico"] = lookup("Oil", ("date",), "dcoilwtico", (d,))
+        col["perishable"] = lookup("Items", ("item_nbr",), "perishable", (it,))
+        col["cluster"] = lookup("Stores", ("store_nbr",), "cluster", (s,))
+        self.names = list(SERVICE_FEATURES) + [SERVICE_LABEL]
+        self.x = np.column_stack([col[a] for a in self.names])
+        if not np.isfinite(self.x).all():
+            raise AssertionError("a sale without its dimension rows")
+        n = self.x.shape[0]
+        lin = self.x.sum(0)
+        self.c = np.empty((len(self.names) + 1,) * 2)
+        self.c[0, 0], self.c[0, 1:], self.c[1:, 0] = n, lin, lin
+        self.c[1:, 1:] = self.x.T @ self.x
+        union = [np.concatenate([r.column(a).astype(np.float64) for r in store.relations()
+                                 if a in r.keys or a in r.values]) for a in self.names]
+        self.avg = np.array([u.mean() for u in union])
+        self.mx = np.array([np.abs(u).max() for u in union])
+        self.mx[self.mx == 0] = 1.0
+        self.mx[-1] = 1.0  # the label is centred only
+        a = np.diag(np.append(1.0, 1.0 / self.mx))  # [1, x] → [1, (x − avg) / max]
+        a[0, 1:] = -self.avg / self.mx
+        self.cz = a.T @ self.c @ a
+
+    def _idx(self, feats):
+        return [self.names.index(f) for f in feats]
+
+    def cof(self, feats) -> np.ndarray:
+        idx = [0] + [1 + i for i in self._idx(feats)]
+        return self.c[np.ix_(idx, idx)]
+
+    def theta(self, feats) -> np.ndarray:
+        j, p = self._idx(feats), len(feats) + 1
+        idx = [0] + [1 + i for i in j] + [len(self.names)]
+        m = self.cz[np.ix_(idx, idx)]
+        t = np.append(np.linalg.solve(m[:p, :p] + SERVICE_RIDGE * np.eye(p), m[:p, p]), -1.0)
+        t[1:p] /= self.mx[j]
+        t[0] += self.avg[-1] - t[1:p] @ self.avg[j]
+        return t
+
+    def scaled(self, theta, feats) -> np.ndarray:
+        j, p = self._idx(feats), len(feats) + 1
+        t = np.array(theta, np.float64)
+        t[0] += t[1:p] @ self.avg[j] - self.avg[-1]
+        t[1:p] *= self.mx[j]
+        return t
+
+    def predict(self, theta, feats) -> np.ndarray:
+        w = np.zeros(len(self.names))  # one matvec over all the columns
+        w[self._idx(feats)] = theta[1:1 + len(feats)]
+        return theta[0] + self.x @ w
+
+    def sse_scale(self, theta, feats) -> float:
+        """Σ |a_i a_j C_ij| with a = [θ, −1]: the magnitude the score's
+        quadratic form sums (its float32 rounding is relative to this)."""
+        a = np.abs(np.asarray(theta))
+        return float(a @ np.abs(self.cof(list(feats) + [SERVICE_LABEL])) @ a)
+
+    def groups(self, attr, feats, degree) -> dict:
+        """GROUP BY ``attr`` (integral values: ids, cluster numbers): count,
+        Σx and (degree 2) Σx xᵀ of ``feats``."""
+        col = self.x[:, self.names.index(attr)]
+        v = col.astype(np.int64)
+        if not np.array_equal(v, col):
+            raise AssertionError(f"{attr}: group keys are not integers")
+        present = np.bincount(v - v.min()) > 0
+        keys = (np.flatnonzero(present) + v.min()).astype(np.float64)
+        inv = (np.cumsum(present) - 1)[v - v.min()]
+        x = self.x[:, self._idx(feats)]
+        g = len(keys)
+        out = dict(keys=keys, count=np.bincount(inv, minlength=g).astype(np.float64),
+                   lin=np.stack([np.bincount(inv, x[:, j], g) for j in range(x.shape[1])], 1))
+        if degree == 2:
+            k = x.shape[1]
+            out["quad"] = np.stack([
+                np.stack([np.bincount(inv, x[:, i] * x[:, j], g) for j in range(k)], 1)
+                for i in range(k)], 1)
+        return out
+
+
+def same_result(what, read, got, want, rtol, oracle) -> float:
+    """One read's result against another run's, by the largest-entry rule
+    of ``within``: a train by its predictions on every join row of
+    ``oracle``'s catalog, a score against the magnitude its quadratic form
+    sums."""
+    _, kind, feats, extra = read
+    if kind == "cofactors":
+        return within(what, got.matrix(), want.matrix(), rtol)
+    if kind == "train":
+        return within(f"{what} predictions", oracle.predict(got.theta, feats),
+                      oracle.predict(want.theta, feats), rtol)
+    if kind == "score":
+        return within(what, got.sse, want.sse, rtol, oracle.sse_scale(extra, feats))
+    err = 0.0
+    for name, blk in want.items():
+        for part in ("count", "lin", "quad"):
+            if getattr(blk, part) is not None:
+                err = max(err, within(f"{what} {name}.{part}", getattr(got[name], part),
+                                      getattr(blk, part), rtol))
+    return err
+
+
+def check_window(what, reads, tickets, oracle, theta_err: list) -> None:
+    """Each read of a window against the float64 numpy of its catalog
+    (Oracle64): cofactors and group sums within ORACLE_RTOL of the largest,
+    a score within ORACLE_RTOL of the magnitude it sums, a train's θ in the
+    scaled coordinates within THETA_RTOL of its largest coefficient and its
+    predictions on every join row within PRED_RTOL of the largest; each
+    train's relative error per coefficient goes to ``theta_err``."""
+    for i, (read, t) in enumerate(zip(reads, tickets)):
+        _, kind, feats, extra = read
+        got, tag = t.result(), f"{what} read {i} ({kind})"
+        if kind == "cofactors":
+            within(tag, got.matrix(), oracle.cof(feats), ORACLE_RTOL)
+        elif kind == "score":
+            want = float(extra @ oracle.cof(list(feats) + [SERVICE_LABEL]) @ extra)
+            within(tag, got.sse, want, ORACLE_RTOL, oracle.sse_scale(extra, feats))
+        elif kind == "train":
+            want = oracle.theta(feats)
+            rel = np.abs(got.theta - want) / np.maximum(np.abs(want), 1e-12)
+            scaled = within(f"{tag} scaled θ", oracle.scaled(got.theta, feats),
+                            oracle.scaled(want, feats), THETA_RTOL)
+            theta_err.append(dict(features=list(feats), rel_err=rel.tolist(),
+                                  over=int((rel > THETA_RTOL).sum()), scaled_err=scaled))
+            within(f"{tag} predictions", oracle.predict(got.theta, feats),
+                   oracle.predict(want, feats), PRED_RTOL)
+        else:
+            for q in extra:
+                want = oracle.groups(q.group_by[0], feats, q.degree)
+                blk = got[q.name]
+                np.testing.assert_array_equal(blk.keys[q.group_by[0]], want["keys"])
+                np.testing.assert_array_equal(blk.count, want["count"])  # < 2^24 a group
+                within(f"{tag} {q.name}.lin", blk.lin, want["lin"], ORACLE_RTOL)
+                if q.degree == 2:
+                    within(f"{tag} {q.name}.quad", blk.quad, want["quad"], ORACLE_RTOL)
+
+
+def sync_counts(rt, svc) -> dict:
+    """The launch counts once the service is between cycles: ``cache_info``
+    takes the cycle lock, so no cycle or fold is running when it returns
+    (and none starts: nothing is queued and no fold debt is left)."""
+    svc.cache_info()
+    return dict(rt.kops.launch_counts())
+
+
+def step_seconds(timers) -> dict:
+    s = timers.seconds
+    return {"engine_and_traversal": s["__init__"] + s["run_batch"],
+            "finish": s["_finish"], "writes": s["_apply_write"],
+            "fold": s["_flush_pending"]}
+
+
+def diff(after: dict, before: dict) -> dict:
+    return {k: round(after[k] - before[k], 6) for k in after}
+
+
+SERVICE_SCHEDULE = ("window1", "append", "window2")
+
+
+def service_schedule(rt, store, bundle, windows, day, what, svc_kw=None, arm=None,
+                     capture: bool = False) -> dict:
+    """The schedule of phase 9 on one service over ``store``, its threaded
+    runtime started: window 1 (``windows[0]``, from the eight client
+    threads); a writer tenant appends ``day`` (one new day, in three
+    tickets) and the idle policy folds it; window 2 (``windows[1]``);
+    ``stop(drain=True)``.  ``arm(step)`` (the fault leg's) runs before each
+    step.  Launch counts, the cycle's step seconds and the store's counters
+    are read at each step's end; with ``capture``, each step's segment
+    kernel calls and their outputs (Capture, from the worker threads)."""
+    svc = rt.FactorizedService(store, **(svc_kw or {}))
+    out = dict(svc=svc, windows=[], launches={}, steps={}, calls={})
+    svc.start()
+    rt.kops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    counts = dict(rt.kops.launch_counts())
+    with Timers((rt.FactorizedEngine, SERVICE_ENGINE_STEPS),
+                (type(svc), SERVICE_STEPS)) as timers:
+        marks = [(counts, step_seconds(timers), store.node_visits, store.passes)]
+
+        def mark(step):
+            c = sync_counts(rt, svc)
+            out["launches"][step] = diff(c, marks[-1][0])
+            out["steps"][step] = diff(step_seconds(timers), marks[-1][1])
+            out[f"node_visits_{step}"] = store.node_visits - marks[-1][2]
+            out[f"passes_{step}"] = store.passes - marks[-1][3]
+            marks.append((c, step_seconds(timers), store.node_visits, store.passes))
+
+        for step in SERVICE_SCHEDULE:
+            if arm is not None:
+                arm(step)
+            with (Capture(rt.kops, results=True) if capture
+                  else contextlib.nullcontext()) as cap:
+                if step == "append":
+                    t = time.perf_counter()
+                    writes = [svc.append("w", name, rel) for name, rel in day.items()]
+                    for w in writes:
+                        if not w.wait(SERVICE_WAIT_S):
+                            raise AssertionError(f"{what}: an append not served")
+                    deadline = time.monotonic() + SERVICE_WAIT_S
+                    while svc.fold_debt_rows() > 0 and time.monotonic() < deadline:
+                        time.sleep(0.01)
+                    out["append"] = dict(tickets=writes, seconds=time.perf_counter() - t,
+                                         rows={n: int(r.num_rows) for n, r in day.items()})
+                else:
+                    out["windows"].append(run_window(svc, bundle.vorder,
+                                                     windows[len(out["windows"])]))
+                mark(step)
+            if capture:
+                out["calls"][step] = (cap.calls, cap.outputs)
+        svc.stop(drain=True, timeout=SERVICE_WAIT_S)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["info"] = svc.cache_info()
+    out["quarantined"] = svc.quarantined()
+    for step in SERVICE_SCHEDULE:
+        log(f"{what}: {step} launches {out['launches'][step]} steps "
+            + " ".join(f"{k}={v:.3f}s" for k, v in out["steps"][step].items())
+            + f" passes={out[f'passes_{step}']} node_visits={out[f'node_visits_{step}']}")
+    return out
+
+
+def window_stats(win) -> dict:
+    lat = sorted(win["latency"])
+    return dict(wall_s=win["wall"], requests_per_s=len(lat) / win["wall"],
+                latency_p50_s=statistics.median(lat), latency_p100_s=lat[-1])
+
+
+def no_hidden_failures(what, run) -> None:
+    """Every ticket resolved with a value, nothing quarantined (runtime
+    errors included), no fold failed."""
+    tickets = [t for w in run["windows"] for t in w["tickets"]] + run["append"]["tickets"]
+    for t in tickets:
+        if not t.done:
+            raise AssertionError(f"{what}: a ticket left unresolved")
+        t.result()  # raises the ticket's error
+    if run["quarantined"] or run["info"]["fold_failures"]:
+        raise AssertionError(f"{what}: quarantined {run['quarantined']}, "
+                             f"fold failures {run['info']['fold_failures']}")
+
+
+def tenant_audit(what, info, storms: bool = False) -> None:
+    """Per-tenant shares sum to the store totals exactly (but the view
+    cache's bytes where eviction storms drop them outside any request)."""
+    totals = dict(passes=info["passes"], node_visits=info["node_visits"],
+                  vc_hits=info["view_cache_hits"], vc_misses=info["view_cache_misses"])
+    if not storms:
+        totals["vc_bytes"] = info["view_cache_bytes"]
+    for field, total in totals.items():
+        got = sum(t[field] for t in info["tenants"].values())
+        if got != total:
+            raise AssertionError(f"{what}: tenants' {field} sum to {got}, store {total}")
+
+
+def service_calls(rt, run) -> dict:
+    """Each segment-kernel call the threaded service made (captured in each
+    step, from its worker threads) again against its plain version, its
+    own output too (captured_calls), with its bound and index_add_; per
+    step and kernel, the calls' sums."""
+    out = {}
+    for step in SERVICE_SCHEDULE:
+        calls, outputs = run["calls"].pop(step)
+        log(f"phase 9 {step}: the service's kernel calls against their plain versions")
+        got = captured_calls(rt, calls, outputs)
+        out[step] = dict(nodes=got["nodes"], per_kernel=got["per_traversal"])
+    return out
+
+
+def service_leg1(rt, bundle, theta) -> dict:
+    """Phase 9, leg 1: the service at full size on the card (see the module
+    docstring)."""
+    windows = service_reads(rt, bundle, theta, SEED + 9)
+    store = rt.Store(bundle.store.relations())
+    day = new_days(rt, store, store.attr_domain("date"), 1, np.random.default_rng(SEED + 3))
+    t = time.perf_counter()
+    run = service_schedule(rt, store, bundle, windows, day, "phase 9", capture=True)
+    seconds = time.perf_counter() - t
+    no_hidden_failures("phase 9", run)
+    info = run["info"]
+    tenant_audit("phase 9", info)
+    for step in SERVICE_SCHEDULE:
+        missing = [k for k in PHASE8_KERNELS if run["launches"][step][k] == 0]
+        if missing:
+            raise AssertionError(f"phase 9 {step}: kernels never launched: {missing}")
+    counts = {k: sum(run["launches"][s][k] for s in run["launches"])
+              for k in SERVICE_KERNELS}
+    wins = [window_stats(w) for w in run["windows"]]
+    log(f"phase 9: {seconds:.3f}s; windows {wins}; append {run['append']['seconds']:.3f}s "
+        f"{run['append']['rows']}; coalesced_batches={info['coalesced_batches']} "
+        f"coalesced_requests={info['coalesced_requests']} passes={info['passes']} "
+        f"node_visits={info['node_visits']} drains={info['drains']} "
+        f"peak={run['peak_bytes']} (the captured calls held)")
+    calls = service_calls(rt, run)
+
+    # correctness against the float64 numpy of each window's catalog
+    theta_err = []
+    t = time.perf_counter()
+    pre = Oracle64(rt.Store(bundle.store.relations()))
+    check_window("window 1", windows[0], run["windows"][0]["tickets"], pre, theta_err)
+    merged = Oracle64(store)
+    check_window("window 2", windows[1], run["windows"][1]["tickets"], merged, theta_err)
+    log(f"phase 9 checks vs float64 numpy: {time.perf_counter() - t:.3f}s; train θ "
+        f"coefficients over THETA_RTOL: {[e['over'] for e in theta_err]}; scaled θ "
+        f"errors {[round(e['scaled_err'], 9) for e in theta_err]}")
+
+    # the private arm: window 1 again, one engine a read, synchronously
+    private = rt.FactorizedService(rt.Store(bundle.store.relations()), coalesce=False)
+    tickets = [submit(private, bundle.vorder, r) for r in windows[0]]
+    t = time.perf_counter()
+    private.run()
+    torch.cuda.synchronize()
+    private_s = time.perf_counter() - t
+    errs = [same_result(f"coalesced vs private read {i}", r, a.result(), b.result(),
+                        ORACLE_RTOL, pre)
+            for i, (r, a, b) in enumerate(zip(windows[0], run["windows"][0]["tickets"],
+                                              tickets))]
+    log(f"private arm: {private_s:.3f}s, passes={private.store.passes}; coalesced vs "
+        f"private: largest error {max(errs):.3e} of its scale")
+    del private, tickets, pre
+
+    # window 1's reads once more, coalesced, cold and profiled, on the
+    # merged catalog (window 2's first 12)
+    store.view_cache.evict_all()
+    prof_svc = rt.FactorizedService(store)
+    tickets = [submit(prof_svc, bundle.vorder, r) for r in windows[0]]
+    torch.cuda.reset_peak_memory_stats()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        t = time.perf_counter()
+        prof_svc.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    busy = device_busy_ms(prof) / 1e3
+    for i, (r, a, b) in enumerate(zip(windows[0], tickets, run["windows"][1]["tickets"])):
+        same_result(f"profiled window read {i}", r, a.result(), b.result(), ORACLE_RTOL,
+                    merged)
+    log(f"profiled coalesced window: {wall:.3f}s, device busy {busy:.3f}s, "
+        f"idle_share={1 - busy / wall:.4f}, peak {peak}")
+    return dict(
+        seconds=seconds, windows=wins, append_s=run["append"]["seconds"],
+        append_rows=run["append"]["rows"], steps=run["steps"], launches=run["launches"],
+        node_visits={s: run[f"node_visits_{s}"] for s in SERVICE_SCHEDULE},
+        passes_by_step={s: run[f"passes_{s}"] for s in SERVICE_SCHEDULE},
+        coalesced_batches=info["coalesced_batches"],
+        coalesced_requests=info["coalesced_requests"], passes=info["passes"],
+        node_visits_total=info["node_visits"], drains=info["drains"],
+        private_s=private_s, coalesced_vs_private_err=max(errs),
+        profiled_window=dict(wall_s=wall, busy_s=busy, idle_share=1 - busy / wall,
+                             peak_bytes=peak),
+        peak_bytes_calls_held=run["peak_bytes"], theta_rel_err=theta_err, counts=counts,
+        calls=calls,
+    )
+
+
+def service_oracle(rt, theta) -> dict:
+    """Phase 9, leg 2, on the oracle cell: the schedule on the float64 numpy
+    service and on the card; then on the card again under a FaultInjector."""
+    bundle = rt.favorita_like(1684, 54, 410, SALES_FRACTION, seed=SEED)
+    windows = service_reads(rt, bundle, theta, SEED + 9)
+    day = new_days(rt, bundle.store, bundle.store.attr_domain("date"), 1,
+                   np.random.default_rng(SEED + 4))
+    runs = {}
+    for name, kw in (("numpy", dict(backend="numpy")), ("card", {})):
+        store = rt.Store(bundle.store.relations())
+        t = time.perf_counter()
+        runs[name] = service_schedule(rt, store, bundle, windows, day,
+                                      f"oracle cell, {name}", svc_kw=kw)
+        runs[name]["seconds"] = time.perf_counter() - t
+        runs[name]["store"] = store
+        no_hidden_failures(f"oracle cell, {name}", runs[name])
+        tenant_audit(f"oracle cell, {name}", runs[name]["info"])
+    oracles = [Oracle64(rt.Store(bundle.store.relations())), Oracle64(runs["numpy"]["store"])]
+    # the numpy θ is linear_regression's warm closed form (leg 1 holds the
+    # card to the numpy alone: float64 traversals cost minutes there)
+    cfg = dataclasses.replace(rt.VERSIONS["closed"], backend="numpy", use_cache=True,
+                              ridge=SERVICE_RIDGE)
+    lr_store = rt.Store(bundle.store.relations())
+    for feats in sorted({r[2] for r in windows[0] if r[1] == "train"}):
+        want = rt.linear_regression(lr_store, bundle.vorder, list(feats), SERVICE_LABEL,
+                                    cfg).theta
+        within(f"oracle cell: numpy θ over {feats} vs linear_regression",
+               oracles[0].theta(feats), want, WARM_THETA_RTOL)
+    del lr_store
+    theta_err, errs = [], []
+    for w, oracle in enumerate(oracles):
+        win64, win32 = runs["numpy"]["windows"][w], runs["card"]["windows"][w]
+        for i, (r, b) in enumerate(zip(windows[w], win64["tickets"])):
+            if r[1] == "train":  # the float64 service is the numpy θ
+                within(f"oracle cell window {w + 1} read {i}: numpy service θ vs numpy",
+                       b.result().theta, oracle.theta(r[2]), WARM_THETA_RTOL)
+        check_window(f"oracle cell, card, window {w + 1}", windows[w], win32["tickets"],
+                     oracle, theta_err)
+        errs += [same_result(f"oracle cell window {w + 1} read {i}: card vs numpy",
+                             r, a.result(), b.result(), PRED_RTOL if r[1] == "train"
+                             else ORACLE_RTOL, oracle)
+                 for i, (r, a, b) in enumerate(zip(windows[w], win32["tickets"],
+                                                   win64["tickets"]))]
+    log(f"oracle cell: card vs numpy service: largest error {max(errs):.3e} of its scale; "
+        f"train θ coefficients over THETA_RTOL: {[e['over'] for e in theta_err]}")
+    faults = service_faults(rt, bundle, windows, day, runs["card"], oracles)
+    return dict(
+        numpy_s=runs["numpy"]["seconds"], card_s=runs["card"]["seconds"],
+        card_windows=[window_stats(w) for w in runs["card"]["windows"]],
+        numpy_windows=[window_stats(w) for w in runs["numpy"]["windows"]],
+        card_vs_numpy_err=max(errs), theta_rel_err=theta_err,
+        launches=runs["card"]["launches"], faults=faults,
+    )
+
+
+def service_faults(rt, bundle, windows, day, clean, oracles) -> dict:
+    """The schedule on the card under a FaultInjector (seeded) with a
+    RetryPolicy: eviction storms every 2 snapshots throughout; random
+    node faults at FAULT_RATES in the two windows, a terminal trap at a
+    coalesced window's third node visit, and the idle fold after the append
+    poisoned.  Failed tickets must fail with an injected fault or
+    ServiceStopped; the others equal the fault-free run's within 1e-4."""
+    inj = rt.FaultInjector(rt.Store(bundle.store.relations()), seed=SEED)
+    inj.arm_eviction_storms(every_snapshots=2)
+
+    def arm(step):
+        if step == "window1":
+            inj.arm_random_node_faults(FAULT_RATES[0])
+        elif step == "append":
+            inj.arm_random_node_faults(0.0)
+            inj.fail_next_fold()
+        else:
+            inj.arm_random_node_faults(FAULT_RATES[1])
+            inj.fail_at_node_visit(3, transient=False)
+
+    t = time.perf_counter()
+    run = service_schedule(rt, inj, bundle, windows, day, "fault leg",
+                           svc_kw=dict(retry=rt.RetryPolicy(max_attempts=3, backoff=0.001)),
+                           arm=arm)
+    seconds = time.perf_counter() - t
+    if not inj.fired:
+        raise AssertionError("fault leg: no fault fired")
+    served = failed = 0
+    for w, oracle in enumerate(oracles):
+        got, want = run["windows"][w]["tickets"], clean["windows"][w]["tickets"]
+        for i, (r, a, b) in enumerate(zip(windows[w], got, want)):
+            try:
+                value = a.result()
+            except (rt.InjectedFault, rt.ServiceStopped):
+                failed += 1
+                continue
+            served += 1
+            same_result(f"fault leg window {w + 1} read {i} vs fault-free", r, value,
+                        b.result(), ORACLE_RTOL, oracle)
+    for t in run["append"]["tickets"]:
+        t.result()
+    info = run["info"]
+    tenant_audit("fault leg", info, storms=True)
+    kinds = sorted({k for k, _ in inj.fired})
+    log(f"fault leg: {seconds:.3f}s; fired {len(inj.fired)} ({kinds}); served {served}, "
+        f"failed {failed}; retries={info['retries']} fold_failures="
+        f"{info['fold_failures']} quarantined={info['quarantined']}")
+    return dict(seconds=seconds, fired=len(inj.fired), fired_kinds=kinds, served=served,
+                failed=failed, retries=info["retries"], fold_failures=info["fold_failures"],
+                quarantined=[q["kind"] for q in run["quarantined"]])
+
+
+def service_phase(rt, bundle, theta) -> tuple:
+    """Phase 9: (JSON, launch counts of leg 1)."""
+    t = time.perf_counter()
+    leg1 = service_leg1(rt, bundle, theta)
+    counts = leg1.pop("counts")
+    log(f"phase 9 leg 1: {time.perf_counter() - t:.1f}s, launches {counts}")
+    return leg1, counts
 
 
 # -- phase 7: LM serving ---------------------------------------------------------
@@ -2507,6 +3168,7 @@ def main() -> None:
     from repro_torch.core import (
         VERSIONS,
         AggregateQuery,
+        Cofactors,
         FactorizedEngine,
         Relation,
         Store,
@@ -2517,6 +3179,8 @@ def main() -> None:
         compute_scale_factors,
         design_matrix,
         linear_regression,
+        rescale_theta,
+        solve_cofactor,
     )
     from repro_torch.core import (
         GLMConfig,
@@ -2538,7 +3202,16 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.models import model as lm_model
     from repro_torch.models.attention import chunked_attention
-    from repro_torch.serve import Engine, Request, ServeConfig
+    from repro_torch.serve import (
+        Engine,
+        FactorizedService,
+        FaultInjector,
+        InjectedFault,
+        Request,
+        RetryPolicy,
+        ServeConfig,
+        ServiceStopped,
+    )
 
     rt = types.SimpleNamespace(
         VERSIONS=VERSIONS, AggregateQuery=AggregateQuery,
@@ -2555,6 +3228,9 @@ def main() -> None:
         fit_glm=fit_glm, glm_regression=glm_regression,
         glm_predict_raw=glm_predict_raw, expand_monomials=expand_monomials,
         polynomial_cofactors=polynomial_cofactors, glm=glm, poly=poly,
+        Cofactors=Cofactors, solve_cofactor=solve_cofactor, rescale_theta=rescale_theta,
+        FactorizedService=FactorizedService, FaultInjector=FaultInjector,
+        InjectedFault=InjectedFault, RetryPolicy=RetryPolicy, ServiceStopped=ServiceStopped,
     )
     lm = types.SimpleNamespace(
         get_config=get_config, init_params=lm_model.init_params,
@@ -2618,17 +3294,31 @@ def main() -> None:
     # phase 8 runs here, on phase 3's 18.6 M-row store
     log("phase 8: GLM and polynomial")
     glm_poly, counts8 = phase8(rt, bundle)
+    # phase 9 too, on a fresh store over phase 3's relations
+    log("phase 9: the factorized service")
+    service, counts9 = service_phase(rt, bundle, traversal["theta_closed"])
     del bundle
     ingest_oracle(rt)
-    # the drains and phase 8 are slices' paths: their launches join the
-    # main path's
-    for phase, got in (("phase5", ingest["launches"]), ("phase8", counts8)):
+    t = time.perf_counter()
+    service["oracle"] = service_oracle(rt, traversal["theta_closed"])
+    service["oracle"]["seconds"] = time.perf_counter() - t
+    log(f"phase 9 leg 2 (oracle cell and faults): {service['oracle']['seconds']:.1f}s")
+    # the drains, phase 8 and phase 9 are slices' paths: their launches
+    # join the main path's
+    for phase, got in (("phase5", ingest["launches"]), ("phase8", counts8),
+                       ("phase9", counts9)):
         for name, n in got.items():
             rows[name]["launches"] += n
             rows[name]["launches_by_phase"][phase] = n
     rows["segment_reduce"]["ingest"] = dict(
         merges=[{k: v for k, v in nd.items() if k != "kernel"} for nd in ingest["merges"]])
     rows["segment_reduce"]["polynomial"] = glm_poly["polynomial"]["calls"]
+    for name in SERVICE_KERNELS:
+        rows[name]["service"] = {
+            step: [{k: v for k, v in nd.items() if k != "kernel"}
+                   for nd in got["nodes"] if nd["kernel"] == name]
+            for step, got in service["calls"].items()}
+    service["calls"] = {step: got["per_kernel"] for step, got in service["calls"].items()}
     for name in PHASE8_KERNELS:
         rows[name]["glm_compression"] = {
             leg: [{k: v for k, v in nd.items() if k != "kernel"}
@@ -2643,6 +3333,7 @@ def main() -> None:
     rows["flash"]["launches"] = lm_phase(lm)
 
     print(json.dumps({"phase8": glm_poly}))
+    print(json.dumps({"service": service}))
     print(json.dumps({"kernels": [rows[n] for n in ALL_KERNELS]}))
     print(card)
     print(json.dumps({

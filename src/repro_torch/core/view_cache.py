@@ -258,6 +258,16 @@ class ViewCache:
             self._entries.clear()
             self.bytes = 0
 
+    def evict_all(self) -> int:
+        """Evict every entry, counted as evictions — the fault-injection
+        harness's cache-pressure storm, and an operator pressure valve."""
+        with self._mu:
+            n = len(self._entries)
+            self._entries.clear()
+            self.bytes = 0
+            self.evictions += n
+            return n
+
     def info(self) -> Dict[str, int]:
         with self._mu:
             return {

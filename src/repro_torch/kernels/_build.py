@@ -6,6 +6,11 @@ build takes seconds), which the wrappers load with ``ctypes``.  Libraries
 go to ``repro_torch/csrc/build/``, named by a hash of the source and the
 flags, so an edited source never loads a stale build.  ``build`` starts one
 ``nvcc`` per missing library, all at once, and waits for every one.
+
+Kernels may first run on any thread (the factorized service launches them
+from its drain worker): ``function`` builds and loads under one lock, and
+``build`` names its temporary outputs by process and thread, so two callers
+never write one file.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Sequence, Tuple
@@ -40,6 +46,7 @@ FLAGS = (
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_load_lock = threading.Lock()  # first build and load of a library
 
 
 def _nvcc() -> str:
@@ -74,7 +81,9 @@ def build(names: Sequence[str] = SOURCES) -> float:
         out = library_path(name)
         if out.exists():
             continue
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        tmp = out.with_name(
+            f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so"
+        )
         cmd = nvcc_command(name, tmp, nvcc=_nvcc())
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
@@ -99,10 +108,13 @@ def function(lib_name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr
     on first use), typed ``argtypes -> int`` (a ``cudaError_t``)."""
     lib = _libs.get(lib_name)
     if lib is None:
-        path = library_path(lib_name)
-        if not path.exists():
-            build()
-        lib = _libs[lib_name] = ctypes.CDLL(str(path))
+        with _load_lock:
+            lib = _libs.get(lib_name)
+            if lib is None:
+                path = library_path(lib_name)
+                if not path.exists():
+                    build()
+                lib = _libs[lib_name] = ctypes.CDLL(str(path))
     fn = getattr(lib, symbol)
     if fn.argtypes is None:
         fn.argtypes = list(argtypes)

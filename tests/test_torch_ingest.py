@@ -22,10 +22,12 @@ import repro.core.categorical as RCAT
 import repro.core.relation as RREL
 import repro.core.store as RST
 import repro.data.synthetic as RS
+import repro.serve as RSV
 import repro_torch.core.categorical as PCAT
 import repro_torch.core.relation as PREL
 import repro_torch.core.store as PST
 import repro_torch.data.synthetic as PS
+import repro_torch.serve as PSV
 
 CONT = ["x", "y"]
 
@@ -34,13 +36,16 @@ def _pkg(ref: bool, fp32: bool) -> types.SimpleNamespace:
     """One package's surface, plus the engine keywords of the backend."""
     if ref:
         bk = {"backend": "jax"} if fp32 else {"backend": "numpy"}
-        cat, rel, st, data = RCAT, RREL, RST, RS
+        cat, rel, st, data, sv = RCAT, RREL, RST, RS, RSV
+        svc = bk
     else:
         bk = {"backend": "torch", "device": "cpu"} if fp32 else {"backend": "numpy"}
-        cat, rel, st, data = PCAT, PREL, PST, PS
+        cat, rel, st, data, sv = PCAT, PREL, PST, PS, PSV
+        svc = {"backend": bk["backend"], "device": "cpu"}
     return types.SimpleNamespace(
         ref=ref, bk=bk, catmod=cat, data=data, Store=st.Store,
         Relation=rel.Relation,
+        Service=lambda store, **k: sv.FactorizedService(store, **{**svc, **k}),
         cat=lambda *a, **k: cat.cat_cofactors_factorized(*a, **{**bk, **k}),
     )
 
@@ -478,3 +483,84 @@ def _poisoned_eager(m, monkeypatch):
 
 def test_eager_poisoned_delta_leaves_the_catalog_untouched(monkeypatch):
     twin(_poisoned_eager, monkeypatch=monkeypatch)
+
+
+# ---------------------------------------------------------------------------
+# Service: idle-window folding between drain cycles
+# ---------------------------------------------------------------------------
+
+def test_service_flush_policy_validated():
+    for m in (_pkg(True, False), _pkg(False, False)):
+        b = m.data.many_cat_schema(n_cat=2, domain=8, n_rows=200, seed=20)
+        with pytest.raises(ValueError, match="flush_policy"):
+            m.Service(b.store, flush_policy="eventually")
+
+
+def _service_idle(m):
+    """Default policy: a cycle that ends with no queued reads folds the
+    pending writes, so the next read starts warm with nothing pending."""
+    b = m.data.many_cat_schema(n_cat=2, domain=8, n_rows=200, seed=21)
+    svc = m.Service(b.store)
+    rng = np.random.default_rng(9)
+    t1 = svc.cofactors("a", b.vorder, CONT)
+    svc.drain()
+    svc.append("w", "Fact", _delta_for(m, b.store.get("Fact"), rng, 12))
+    svc.drain()  # write lands, queue empty afterwards -> idle fold
+    assert b.store.cache_info()["pending_rows"] == 0
+    b.store.reset_counters()
+    t2 = svc.cofactors("a", b.vorder, CONT)
+    svc.drain()
+    assert b.store.node_visits == 0  # idle fold kept the entry warm
+    return [t1.result().matrix(), t2.result().matrix(),
+            dict(svc.cache_info()), vc_state(b.store)]
+
+
+@pytest.mark.parametrize(**FP32)
+def test_service_idle_policy_folds_after_writes(fp32):
+    twin(_service_idle, fp32=fp32)
+
+
+def _service_never(m):
+    b = m.data.many_cat_schema(n_cat=2, domain=8, n_rows=200, seed=22)
+    svc = m.Service(b.store, flush_policy="never")
+    rng = np.random.default_rng(10)
+    svc.append("w", "Fact", _delta_for(m, b.store.get("Fact"), rng, 8))
+    svc.drain()
+    assert b.store.cache_info()["pending_rows"] == 8
+    stats = svc.flush()  # the explicit idle-window pass
+    assert b.store.cache_info()["pending_rows"] == 0
+    return [stats, dict(svc.cache_info())]
+
+
+def test_service_never_policy_defers_until_explicit_flush():
+    twin(_service_never)
+
+
+def _service_counters(m, policy):
+    """Per-tenant shares still sum to store totals when drain work happens
+    inside service-triggered folds (charged to the tenants that wrote)."""
+    b = m.data.many_cat_schema(n_cat=2, domain=8, n_rows=200, seed=23)
+    svc = m.Service(b.store, flush_policy=policy)
+    rng = np.random.default_rng(11)
+    svc.cofactors("a", b.vorder, CONT)
+    svc.train("c", b.vorder, ["x"], "y")
+    svc.drain()
+    svc.append("w", "Fact", _delta_for(m, b.store.get("Fact"), rng, 10))
+    svc.cofactors("b", b.vorder, CONT)
+    svc.run()
+    if policy == "never":
+        svc.flush()
+    info = dict(svc.cache_info())
+    tenants = info["tenants"].values()
+    vc = b.store.view_cache
+    assert sum(t["passes"] for t in tenants) == info["passes"]
+    assert sum(t["node_visits"] for t in tenants) == info["node_visits"]
+    assert sum(t["vc_hits"] for t in tenants) == vc.hits
+    assert sum(t["vc_misses"] for t in tenants) == vc.misses
+    assert b.store.cache_info()["pending_rows"] == 0
+    return info
+
+
+@pytest.mark.parametrize("policy", ["idle", "always", "never"])
+def test_service_counters_stay_exact_across_flush_policies(policy):
+    twin(_service_counters, policy=policy)

@@ -16,6 +16,9 @@ Tolerances: float32 sums in another order than XLA's, rtol 1e-5 /
 atol 1e-4 (the reference's own kernel tests use the same); float64 1e-13.
 """
 
+import os
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -676,6 +679,83 @@ def test_build_targets_hopper_from_repo_sources(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         _build._nvcc()
+
+
+def test_first_load_builds_and_loads_once_across_threads(monkeypatch, tmp_path):
+    """Kernels first run on the factorized service's drain worker: eight
+    threads asking for one function at once build once and load once, and
+    ``build`` names its temporary output by process and thread."""
+    import ctypes
+    import threading
+
+    lib_path = tmp_path / "segment_view-x.so"
+    calls = {"build": 0, "load": 0}
+    gate = threading.Barrier(8)
+
+    def build():
+        calls["build"] += 1
+        threading.Event().wait(0.05)  # a slow nvcc, so the threads overlap
+        lib_path.write_bytes(b"")
+
+    class Lib:
+        def __init__(self, path):
+            calls["load"] += 1
+            self.sym = types.SimpleNamespace(argtypes=None, restype=None)
+
+    monkeypatch.setattr(_build, "_libs", {})
+    monkeypatch.setattr(_build, "library_path", lambda name: lib_path)
+    monkeypatch.setattr(_build, "build", build)
+    monkeypatch.setattr(ctypes, "CDLL", Lib)
+    got = []
+
+    def worker():
+        gate.wait(5)
+        got.append(_build.function("segment_view", "sym", [ctypes.c_int]))
+
+    threads = [threading.Thread(target=worker) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(10)
+        assert not t.is_alive()
+    assert calls == {"build": 1, "load": 1}
+    assert len(got) == 8 and all(fn is got[0] for fn in got)
+    assert got[0].argtypes == [ctypes.c_int] and got[0].restype is ctypes.c_int
+
+    names = []
+    both = threading.Barrier(2)  # both build calls alive: distinct thread ids
+
+    class Popen:
+        def __init__(self, cmd, **kw):
+            names.append(cmd[cmd.index("-o") + 1])
+            both.wait(5)
+            self.returncode = 1
+
+        def communicate(self):
+            return "", None
+
+    monkeypatch.undo()
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "library_path",
+                        lambda name: tmp_path / f"{name}-x.so")
+    monkeypatch.setattr(_build.subprocess, "Popen", Popen)
+    failed = []
+
+    def build_twice():
+        with pytest.raises(RuntimeError, match="build failed"):
+            _build.build(("moments",))
+        failed.append(True)
+
+    threads = [threading.Thread(target=build_twice) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(10)
+        assert not t.is_alive()
+    assert len(set(names)) == 2 and len(failed) == 2
+    for name in names:
+        assert f".{os.getpid()}." in name and name.endswith(".tmp.so")
 
 
 # -- the Gram family ---------------------------------------------------------

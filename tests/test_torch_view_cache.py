@@ -362,6 +362,37 @@ def test_view_cache_unit_lru():
     twin(_unit_lru)
 
 
+def _evict_all(m):
+    b = m.data.many_cat_schema(n_cat=2, domain=6, n_rows=200, seed=9)
+    store = b.store
+    cold = m.cofactors_factorized(store, b.vorder, CONT, **m.bk)
+    cold_visits = store.node_visits
+    m.cat(store, b.vorder, CONT, ["c0"])
+    warm_info = _info(store)
+    assert warm_info["view_cache_entries"] > 0
+    store.reset_counters()
+    m.cofactors_factorized(store, b.vorder, CONT, **m.bk)
+    assert store.node_visits == 0  # warm: served by the cache
+    vc = store.view_cache
+    evictions = vc.evictions
+    n = vc.evict_all()
+    assert n == warm_info["view_cache_entries"]
+    after = vc.info()
+    assert after["entries"] == 0 and after["bytes"] == 0
+    assert after["evictions"] == evictions + n
+    store.reset_counters()
+    again = m.cofactors_factorized(store, b.vorder, CONT, **m.bk)
+    assert store.node_visits == cold_visits  # recomputed from the leaves
+    np.testing.assert_array_equal(again.matrix(), cold.matrix())
+    return [n, warm_info, {k: v for k, v in after.items() if k != "max_bytes"},
+            store.node_visits, again.matrix(), vc_state(store)]
+
+
+@pytest.mark.parametrize("fp32", [False, True], ids=["numpy", "fp32"])
+def test_evict_all_empties_the_cache_and_reads_recompute(fp32):
+    twin(_evict_all, fp32=fp32)
+
+
 def _replace_budget(m):
     vc = m.ViewCache(max_bytes=100)
 
