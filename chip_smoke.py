@@ -178,7 +178,21 @@ Phases, in order; any failed check raises and the script exits non-zero:
    snapshots, random node faults at 5 % and then 20 %, a terminal trap in
    window 2 and the idle fold poisoned.  A failed ticket must fail with an
    injected fault or ``ServiceStopped``, a fault must fire, and every
-   served read equals the fault-free run's within 1e-4.
+   served read equals the fault-free run's within 1e-4.  Leg 3, on the
+   oracle cell: the schedule on the card once more, with the port's
+   ``LockSanitizer`` (``repro_torch.analysis``) installed after the service
+   is built and before its runtime starts, wrapping the service's and the
+   store's locks and the kernels' ``_load_lock`` (put back after).  Its
+   report must be empty (no lock taken out of the declared order, no wait
+   while holding another lock, no field whose lockset went empty); the
+   cycle, queue and stats locks, the store's mutate lock and the view
+   cache's lock must each be acquired and the access probes fire;
+   segment_view and segment_reduce must launch, every segment-kernel call
+   with the cycle lock held; every read is held to ``Oracle64`` as in leg
+   2 and to the unsanitized card run's within 1e-4.  Each segment-kernel
+   call of leg 3 (captured with its output) then runs again against its
+   plain version, as leg 1's do; they are the kernels line's
+   ``sanitized`` entries of rows 1 and 3.
 
 The last lines are the phase-8 JSON object, the phase-9 JSON object
 (``{"service": ...}``), the kernels JSON object, the card's name and power
@@ -2654,17 +2668,21 @@ SERVICE_SCHEDULE = ("window1", "append", "window2")
 
 
 def service_schedule(rt, store, bundle, windows, day, what, svc_kw=None, arm=None,
-                     capture: bool = False) -> dict:
+                     capture: bool = False, install=None) -> dict:
     """The schedule of phase 9 on one service over ``store``, its threaded
     runtime started: window 1 (``windows[0]``, from the eight client
     threads); a writer tenant appends ``day`` (one new day, in three
     tickets) and the idle policy folds it; window 2 (``windows[1]``);
-    ``stop(drain=True)``.  ``arm(step)`` (the fault leg's) runs before each
-    step.  Launch counts, the cycle's step seconds and the store's counters
-    are read at each step's end; with ``capture``, each step's segment
-    kernel calls and their outputs (Capture, from the worker threads)."""
+    ``stop(drain=True)``.  ``install(svc)`` (the sanitized leg's) runs once
+    the service is built and before its runtime starts; ``arm(step)`` (the
+    fault leg's) runs before each step.  Launch counts, the cycle's step
+    seconds and the store's counters are read at each step's end; with
+    ``capture``, each step's segment kernel calls and their outputs
+    (Capture, from the worker threads)."""
     svc = rt.FactorizedService(store, **(svc_kw or {}))
     out = dict(svc=svc, windows=[], launches={}, steps={}, calls={})
+    if install is not None:
+        install(svc)
     svc.start()
     rt.kops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -2746,7 +2764,7 @@ def tenant_audit(what, info, storms: bool = False) -> None:
             raise AssertionError(f"{what}: tenants' {field} sum to {got}, store {total}")
 
 
-def service_calls(rt, run) -> dict:
+def service_calls(rt, run, what: str = "phase 9") -> dict:
     """Each segment-kernel call the threaded service made (captured in each
     step, from its worker threads) again against its plain version, its
     own output too (captured_calls), with its bound and index_add_; per
@@ -2754,7 +2772,7 @@ def service_calls(rt, run) -> dict:
     out = {}
     for step in SERVICE_SCHEDULE:
         calls, outputs = run["calls"].pop(step)
-        log(f"phase 9 {step}: the service's kernel calls against their plain versions")
+        log(f"{what} {step}: the service's kernel calls against their plain versions")
         got = captured_calls(rt, calls, outputs)
         out[step] = dict(nodes=got["nodes"], per_kernel=got["per_traversal"])
     return out
@@ -2893,12 +2911,13 @@ def service_oracle(rt, theta) -> dict:
     log(f"oracle cell: card vs numpy service: largest error {max(errs):.3e} of its scale; "
         f"train θ coefficients over THETA_RTOL: {[e['over'] for e in theta_err]}")
     faults = service_faults(rt, bundle, windows, day, runs["card"], oracles)
+    sanitized = service_sanitized(rt, bundle, windows, day, runs["card"], oracles)
     return dict(
         numpy_s=runs["numpy"]["seconds"], card_s=runs["card"]["seconds"],
         card_windows=[window_stats(w) for w in runs["card"]["windows"]],
         numpy_windows=[window_stats(w) for w in runs["numpy"]["windows"]],
         card_vs_numpy_err=max(errs), theta_rel_err=theta_err,
-        launches=runs["card"]["launches"], faults=faults,
+        launches=runs["card"]["launches"], faults=faults, sanitized=sanitized,
     )
 
 
@@ -2952,6 +2971,89 @@ def service_faults(rt, bundle, windows, day, clean, oracles) -> dict:
     return dict(seconds=seconds, fired=len(inj.fired), fired_kinds=kinds, served=served,
                 failed=failed, retries=info["retries"], fold_failures=info["fold_failures"],
                 quarantined=[q["kind"] for q in run["quarantined"]])
+
+
+class HeldAtCall(Capture):
+    """Capture's patching of the engine's segment-kernel calls, recording
+    for each call the locks its thread held (the sanitizer's per-thread
+    stack) in place of its arguments."""
+
+    def __init__(self, kops, san):
+        super().__init__(kops)
+        self.san = san
+
+    def _wrap(self, name, fn):
+        def held(*args, **kwargs):
+            with self.lock:
+                self.calls.append((name, tuple(self.san._held.stack)))
+            return fn(*args, **kwargs)
+        return held
+
+
+# the locks of the service and the store that leg 3 must see acquired
+SANITIZED_LOCKS = ("FactorizedService._cycle_lock", "FactorizedService._lock",
+                   "FactorizedService._stats_lock", "Store._mutate_lock",
+                   "ViewCache._mu")
+
+
+def service_sanitized(rt, bundle, windows, day, clean, oracles) -> dict:
+    """Phase 9, leg 3: the oracle cell's schedule on the card once more,
+    with the port's LockSanitizer installed once the service is built and
+    before its runtime starts (the kernels' module-level ``_load_lock``
+    wrapped too, and put back after).  The sanitizer's report must be
+    empty; every lock of the service and the store acquired and its probes
+    fired; segment_view and segment_reduce launched, each segment-kernel
+    call made with the cycle lock held (the launch counters are exact
+    under it); every read within leg 2's bounds of Oracle64 and within
+    ORACLE_RTOL of the unsanitized card run's; then each of its segment-kernel
+    calls again against its plain version (service_calls)."""
+    san = rt.LockSanitizer()
+    t = time.perf_counter()
+    try:
+        with HeldAtCall(rt.kops, san) as held:
+            run = service_schedule(
+                rt, rt.Store(bundle.store.relations()), bundle, windows, day,
+                "sanitized leg", capture=True,
+                install=lambda svc: san.install(service=svc, load_lock=True))
+    finally:
+        san.uninstall()
+    seconds = time.perf_counter() - t
+    san.assert_clean()  # raises: a report that is not empty fails the smoke
+    no_hidden_failures("sanitized leg", run)
+    tenant_audit("sanitized leg", run["info"])
+    missing = [k for k in SANITIZED_LOCKS if not san.acquisitions.get(k)]
+    if missing or san.accesses == 0:
+        raise AssertionError(f"sanitized leg: locks never acquired {missing}, "
+                             f"accesses {san.accesses}")
+    launches = {k: sum(run["launches"][s][k] for s in SERVICE_SCHEDULE)
+                for k in SERVICE_KERNELS}
+    if not all(launches[k] for k in PHASE8_KERNELS):
+        raise AssertionError(f"sanitized leg: kernels never launched: {launches}")
+    unheld = [name for name, stack in held.calls
+              if "FactorizedService._cycle_lock" not in stack]
+    if unheld:
+        raise AssertionError(f"sanitized leg: {len(unheld)} kernel calls outside the "
+                             f"cycle lock: {sorted(set(unheld))}")
+    theta_err, errs = [], []
+    for w, oracle in enumerate(oracles):
+        got, want = run["windows"][w]["tickets"], clean["windows"][w]["tickets"]
+        check_window(f"sanitized leg, window {w + 1}", windows[w], got, oracle, theta_err)
+        errs += [same_result(f"sanitized leg window {w + 1} read {i} vs unsanitized", r,
+                             a.result(), b.result(), ORACLE_RTOL, oracle)
+                 for i, (r, a, b) in enumerate(zip(windows[w], got, want))]
+    acquisitions = dict(sorted(san.acquisitions.items()))
+    card = card_line()
+    log(f"phase 9 leg 3 (sanitized): {seconds:.3f}s on {card}; report empty; "
+        f"acquisitions {acquisitions}; accesses {san.accesses}; launches {launches}; "
+        f"{len(held.calls)} kernel calls, all under the cycle lock; vs unsanitized: "
+        f"largest error {max(errs):.3e} of its scale")
+    calls = service_calls(rt, run, "phase 9 leg 3")
+    return dict(seconds=seconds, card=card, acquisitions=acquisitions,
+                accesses=san.accesses, fields=len(san.field_stats()),
+                launches=launches, launches_by_step=run["launches"],
+                kernel_calls=len(held.calls),
+                windows=[window_stats(w) for w in run["windows"]],
+                vs_unsanitized_err=max(errs), theta_rel_err=theta_err, calls=calls)
 
 
 def service_phase(rt, bundle, theta) -> tuple:
@@ -3194,6 +3296,7 @@ def main() -> None:
     from repro_torch.core.glm import glm_predict_raw
     from repro_torch.core.polynomial import expand_monomials, polynomial_cofactors
     from repro_torch.data import favorita_like, fd_star_schema
+    from repro_torch.analysis import LockSanitizer
     from repro_torch.kernels import _build, ops as kops, ref
     from repro_torch.kernels import flash as kflash
     from repro_torch.kernels import moments as mom
@@ -3231,6 +3334,7 @@ def main() -> None:
         Cofactors=Cofactors, solve_cofactor=solve_cofactor, rescale_theta=rescale_theta,
         FactorizedService=FactorizedService, FaultInjector=FaultInjector,
         InjectedFault=InjectedFault, RetryPolicy=RetryPolicy, ServiceStopped=ServiceStopped,
+        LockSanitizer=LockSanitizer,
     )
     lm = types.SimpleNamespace(
         get_config=get_config, init_params=lm_model.init_params,
@@ -3302,23 +3406,27 @@ def main() -> None:
     t = time.perf_counter()
     service["oracle"] = service_oracle(rt, traversal["theta_closed"])
     service["oracle"]["seconds"] = time.perf_counter() - t
-    log(f"phase 9 leg 2 (oracle cell and faults): {service['oracle']['seconds']:.1f}s")
-    # the drains, phase 8 and phase 9 are slices' paths: their launches
-    # join the main path's
+    log(f"phase 9 legs 2 and 3 (oracle cell, faults, sanitized): "
+        f"{service['oracle']['seconds']:.1f}s")
+    # the drains, phase 8 and phase 9 (its first and its sanitized leg)
+    # are slices' paths: their launches join the main path's
     for phase, got in (("phase5", ingest["launches"]), ("phase8", counts8),
-                       ("phase9", counts9)):
+                       ("phase9", counts9),
+                       ("phase9_sanitized", service["oracle"]["sanitized"]["launches"])):
         for name, n in got.items():
             rows[name]["launches"] += n
             rows[name]["launches_by_phase"][phase] = n
     rows["segment_reduce"]["ingest"] = dict(
         merges=[{k: v for k, v in nd.items() if k != "kernel"} for nd in ingest["merges"]])
     rows["segment_reduce"]["polynomial"] = glm_poly["polynomial"]["calls"]
-    for name in SERVICE_KERNELS:
-        rows[name]["service"] = {
-            step: [{k: v for k, v in nd.items() if k != "kernel"}
-                   for nd in got["nodes"] if nd["kernel"] == name]
-            for step, got in service["calls"].items()}
-    service["calls"] = {step: got["per_kernel"] for step, got in service["calls"].items()}
+    sanitized = service["oracle"]["sanitized"]
+    for key, legs in (("service", service), ("sanitized", sanitized)):
+        for name in SERVICE_KERNELS:
+            rows[name][key] = {
+                step: [{k: v for k, v in nd.items() if k != "kernel"}
+                       for nd in got["nodes"] if nd["kernel"] == name]
+                for step, got in legs["calls"].items()}
+        legs["calls"] = {step: got["per_kernel"] for step, got in legs["calls"].items()}
     for name in PHASE8_KERNELS:
         rows[name]["glm_compression"] = {
             leg: [{k: v for k, v in nd.items() if k != "kernel"}

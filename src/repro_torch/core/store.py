@@ -338,6 +338,11 @@ class Store:
         # the top of every delta fold so tests can poison maintenance
         # deterministically.  None in production.
         self.fault_hook: Optional[Callable[[str, str], None]] = None
+        # observability seam twin to fault_hook: when set, called as
+        # hook("Store._relations", "write") at guarded-state touch points so
+        # the lockset sanitizer (repro_torch.analysis.sanitizer) can audit
+        # which locks actually protect each access.  None in production.
+        self.access_hook: Optional[Callable[[str, str], None]] = None
         # persistent cross-batch per-node view cache (see module docstring);
         # view_cache_bytes=0 disables it (the cold-baseline escape hatch).
         self.view_cache = ViewCache(max_bytes=view_cache_bytes)
@@ -375,6 +380,14 @@ class Store:
         self.version = 0
         for rel in relations or ():
             self.put(rel)
+
+    def _access(self, field: str, kind: str) -> None:
+        """Fire the ``access_hook`` seam (no-op when uninstalled): reports a
+        ``read``/``write`` of guarded shared state under whatever locks the
+        calling thread currently holds, for the lockset sanitizer."""
+        hook = self.access_hook
+        if hook is not None:
+            hook(field, kind)
 
     # -- attribute dictionaries (append-only, store-global) --------------------
     def _dict_for(self, attr: str) -> _AttrDict:
@@ -414,9 +427,11 @@ class Store:
         if ids is None:
             col = self._relations[rel_name].column(attr)
             ids = self._dict_for(attr).extend_encode(col)
+            self._access("Store._enc_cols", "write")
             # Deliberate lock-free memo fill: racing threads compute the
             # same ids (append-only dictionaries) and a dict put is atomic
             # under the GIL, so last-writer-wins is correct.
+            # lockcheck: idempotent GIL-atomic memo fill
             self._enc_cols[key] = ids
         return ids
 
@@ -430,6 +445,7 @@ class Store:
         :meth:`cofactors` / :meth:`cat_cofactors`.  Engines call this from
         snapshot reads too, so the registry insert takes the mutate lock."""
         with self._mutate_lock:
+            self._access("Store._vorders", "write")
             self._vorders.setdefault(sig, vorder)
 
     def reset_counters(self) -> None:
@@ -458,6 +474,8 @@ class Store:
         *replaced*, never mutated — a :class:`StoreSnapshot` taken before
         the call keeps reading the old maps, unblocked and uncorrupted.
         """
+        self._access("Store._relations", "write")
+        self._access("Store._fds", "write")
         old = self._relations.get(rel.name)
         old_relations = self._relations
         touched = set(rel.keys) | set(old.keys if old else ())
@@ -563,6 +581,7 @@ class Store:
                 "relation contains both attributes as keys)"
             )
         fd = FunctionalDependency(lhs, rhs, mapping, "declared")
+        self._access("Store._fds", "write")
         self._fds = {**self._fds, (lhs, rhs): fd}
         self._bump_fds()
         self._invalidate_fd_entries()
@@ -618,6 +637,7 @@ class Store:
 
     @_locked
     def drop_fd(self, lhs: str, rhs: str) -> None:
+        self._access("Store._fds", "write")
         if (lhs, rhs) in self._fds:
             self._fds = {
                 k: v for k, v in self._fds.items() if k != (lhs, rhs)
@@ -645,6 +665,7 @@ class Store:
         if plan is None:
             plan = reduction_plan(self._fds, list(cat), domains)
             with self._mutate_lock:
+                self._access("Store._red_cache", "write")
                 self._red_cache[key] = plan
         return plan
 
@@ -725,6 +746,8 @@ class Store:
         and every FD-reduced cache entry built under it is invalidated;
         new lhs ids with consistent rhs values extend the FD mappings.
         """
+        self._access("Store._relations", "write")
+        self._access("Store._delta_log", "write")
         if name not in self._relations:
             raise KeyError(f"append target {name!r} not in catalog")
         base = self._relations[name]
@@ -1070,6 +1093,7 @@ class Store:
             return self._moments[col]
         out = _column_moments(self._relations, col)
         with self._mutate_lock:
+            self._access("Store._moments", "write")
             self._moments[col] = out
         return out
 
@@ -1202,6 +1226,7 @@ class Store:
         ``Cofactors.rescale``."""
         from .factorize import FactorizedEngine
 
+        self._access("Store._cofactor_cache", "write")
         self.flush(vorder.relations())
         sig = vorder.signature()
         key = (sig, tuple(features), backend, _device_tag(backend, device))
@@ -1252,6 +1277,7 @@ class Store:
         Returns a ``repro_torch.core.categorical.CatCofactors``; do not mutate."""
         from .categorical import cat_cofactors_factorized
 
+        self._access("Store._cat_cache", "write")
         self.flush(vorder.relations())
         sig = vorder.signature()
         red = self.fd_reduction(cat) if reduce_fds else None
@@ -1290,6 +1316,8 @@ class Store:
         # counts, counters and delta-log debt all from the same instant,
         # never straddling a fold.
         vc = self.view_cache
+        self._access("Store._cofactor_cache", "read")
+        self._access("Store._cat_cache", "read")
         info = {
             "entries": len(self._cofactor_cache),
             "cat_entries": len(self._cat_cache),
@@ -1479,6 +1507,7 @@ class StoreSnapshot:
             # version ⇒ same data) and owns exclusively afterwards.
             col = self._relations[rel_name].column(attr)
             ids = self._store._dict_for(attr).extend_encode(col)
+            # lockcheck: idempotent memo fill on the aliased encodings map
             self._enc_cols[key] = ids
         return ids
 
@@ -1490,6 +1519,7 @@ class StoreSnapshot:
         # parent append either swaps the map (this write lands in the
         # orphaned copy, lost) or folds this value forward with the delta
         # rows (correct) — lost-or-correct, never wrong.
+        # lockcheck: idempotent memo fill on the aliased moments map
         self._moments[col] = out
         return out
 

@@ -55,7 +55,7 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Dict, FrozenSet, List, NamedTuple, Optional, Tuple
+from typing import Dict, FrozenSet, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -135,10 +135,18 @@ class ViewCache:
         #: ``_rel_versions`` — when set, validity is the watermark rule
         #: (see module docstring) instead of exact version equality.
         self.watermarks: Optional[Dict[str, int]] = None
+        #: sanitizer seam (see ``Store.access_hook``): when set, called as
+        #: hook("ViewCache._entries", kind) on entry-map touches.
+        self.access_hook = None
 
     def __len__(self) -> int:
         with self._mu:
             return len(self._entries)
+
+    def _access(self, field: str, kind: str) -> None:
+        hook = self.access_hook
+        if hook is not None:
+            hook(field, kind)
 
     def reset_counters(self) -> None:
         """Zero the hit/miss/eviction counters under the cache lock."""
@@ -157,6 +165,7 @@ class ViewCache:
         """The view under ``key`` valid at store ``version``, else None.
         An entry failing the validity rule is dropped on sight."""
         with self._mu:
+            self._access("ViewCache._entries", "read")
             entry = self._entries.get(key)
             if entry is None:
                 return None
@@ -179,6 +188,7 @@ class ViewCache:
         if nbytes > self.max_bytes:
             return  # single oversized view: never worth the whole budget
         with self._mu:
+            self._access("ViewCache._entries", "write")
             self.discard(key)
             # a higher-degree view subsumes the lower-degree variants —
             # drop them so the budget isn't spent twice on the same subtree
@@ -252,6 +262,19 @@ class ViewCache:
                 k for k, e in self._entries.items() if name in e.relations
             ]:
                 self.discard(key)
+
+    def restamp(self, version: int, keys: Optional[Iterable[ViewKey]] = None):
+        """Mark entries valid at ``version`` (after a mutation whose
+        maintenance kept them correct)."""
+        with self._mu:
+            if keys is None:
+                for entry in self._entries.values():
+                    entry.version = version
+            else:
+                for key in keys:
+                    entry = self._entries.get(key)
+                    if entry is not None:
+                        entry.version = version
 
     def clear(self) -> None:
         with self._mu:

@@ -19,11 +19,11 @@ atol 1e-4 (the reference's own kernel tests use the same); float64 1e-13.
 import os
 import types
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_jax_compat import enable_x64
 
 from repro.kernels import ops as rops
 from repro.kernels import ref as rref
@@ -179,7 +179,7 @@ def test_segment_view_fp64_matches_x64_reference():
     c, x, l, q, seg = _inputs(m, k, g, dtype=np.float64, seed=3)
     got = ops.segment_view(*_t(c, x, l, q), seg, g, degree=2)
     assert got[0].dtype == got[2].dtype == torch.float64
-    with jax.enable_x64(True):
+    with enable_x64():
         want = rref.segment_view_ref(
             jnp.asarray(c), jnp.asarray(x), jnp.asarray(l), jnp.asarray(q),
             jnp.asarray(seg), g, degree=2,
@@ -233,7 +233,7 @@ def test_segment_blocks_fp64():
     c, _, l, q, seg = _inputs(90, 2, 9, dtype=np.float64)
     got = ops.segment_blocks(*_t(c, l, q), seg, 9, degree=2)
     assert got[2].dtype == torch.float64
-    with jax.enable_x64(True):
+    with enable_x64():
         want = rref.segment_blocks_ref(
             jnp.asarray(c), jnp.asarray(l), jnp.asarray(q), jnp.asarray(seg), 9
         )
@@ -681,6 +681,27 @@ def test_build_targets_hopper_from_repo_sources(monkeypatch, tmp_path):
         _build._nvcc()
 
 
+def test_enable_x64_takes_the_spelling_jax_has(monkeypatch):
+    """``torch_jax_compat.enable_x64`` uses ``jax.enable_x64`` where JAX
+    has it and ``jax.experimental.enable_x64`` where it does not (the 0.4
+    series that CI pins)."""
+    import jax
+    import jax.experimental
+
+    used = []
+
+    def legacy():
+        used.append("experimental")
+        return "legacy context"
+
+    monkeypatch.setattr(jax.experimental, "enable_x64", legacy, raising=False)
+    if hasattr(jax, "enable_x64"):
+        with enable_x64():
+            assert jnp.zeros(1, jnp.float64).dtype == jnp.float64
+        monkeypatch.delattr(jax, "enable_x64")
+    assert enable_x64() == "legacy context" and used == ["experimental"]
+
+
 def test_first_load_builds_and_loads_once_across_threads(monkeypatch, tmp_path):
     """Kernels first run on the factorized service's drain worker: eight
     threads asking for one function at once build once and load once, and
@@ -785,7 +806,7 @@ def test_gram_fp64_empty_and_dtypes():
     x = _gram_x(300, 6, dtype=np.float64)
     got = ops.gram(torch.from_numpy(x))
     assert got.dtype == torch.float64
-    with jax.enable_x64(True):
+    with enable_x64():
         want = np.asarray(jnp.asarray(x).T @ jnp.asarray(x))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-13, atol=1e-12)
     assert ops.gram(torch.zeros(0, 4)).shape == (4, 4)

@@ -6,17 +6,18 @@ Tolerances:
 * torch float32 vs jax float32: θ to rtol 1e-4 — the cofactors differ in
   the last float32 bits, so BGD may also stop a few steps apart (≤ 2 %);
 * float64: the numpy backend's closed form to 1e-12, and BGD on the same
-  cofactor matrix in float64 (the reference under ``jax.enable_x64``) takes
-  exactly as many iterations, to θ within 1e-10.
+  cofactor matrix in float64 (the reference under JAX's x64 mode,
+  ``torch_jax_compat.enable_x64``) takes exactly as many iterations, to θ
+  within 1e-10.
 """
 
 import dataclasses
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_jax_compat import enable_x64
 
 import repro.core as R
 import repro.data.synthetic as RS
@@ -83,7 +84,7 @@ def test_bgd_iterations_equal_at_fp64(bundles, strategy, eps):
     cof = _cof64(bundles[0])
     kw = dict(alpha_strategy=strategy, eps=eps, max_iter=20_000)
     got = P.bgd_cofactor(cof, P.GDConfig(dtype=torch.float64, device="cpu", **kw))
-    with jax.enable_x64(True):
+    with enable_x64():
         want = R.bgd_cofactor(cof, R.GDConfig(dtype=jnp.float64, **kw))
     assert got.iterations == want.iterations
     assert 0 < got.iterations < 20_000
@@ -102,7 +103,7 @@ def test_bgd_penalty_and_data_equal_at_fp64(bundles):
     got = P.bgd_cofactor(cof, P.GDConfig(**cfg64), penalty=pen)
     z = np.random.default_rng(1).normal(0, 1, size=(200, 4))
     got_d = P.bgd_data(z, P.GDConfig(max_iter=500, **cfg64))
-    with jax.enable_x64(True):
+    with enable_x64():
         want = R.bgd_cofactor(cof, R.GDConfig(dtype=jnp.float64), penalty=pen)
         want_d = R.bgd_data(z, R.GDConfig(max_iter=500, dtype=jnp.float64))
     assert got.iterations == want.iterations

@@ -8,6 +8,7 @@ equality (arrays, dtypes, signatures); the one float32 tensor op,
 """
 
 import ast
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -50,6 +51,29 @@ def test_port_imports_neither_jax_nor_repro():
                     bad.append(f"{path.relative_to(smoke.parent)}: {name}")
     assert not bad, bad
     assert len(list(PORT.rglob("*.py"))) >= 15
+    # The static checker runs in a bare Python: at module level its package
+    # imports only the standard library and its own modules (the sanitizer
+    # reaches the kernels' build module only inside ``install``).
+    analysis = sorted((PORT / "analysis").glob("*.py"))
+    assert {p.stem for p in analysis} >= {
+        "__init__", "__main__", "cli", "contracts", "cow", "lockcheck",
+        "sanitizer",
+    }
+    for path in analysis:
+        for node in ast.parse(path.read_text()).body:
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                if node.level:
+                    assert node.level == 1, path.name  # its own package only
+                    continue
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                top = name.split(".")[0]
+                assert top in sys.stdlib_module_names or top == "__future__", (
+                    path.name, name)
 
 
 def _cols(rng, n, doms):

@@ -1,7 +1,7 @@
 """PyTorch port, the service's concurrent runtime held against the JAX
 package's: threads, deadlines, backpressure and shutdown — one twin of each
-test of ``tests/test_serve_runtime.py`` but the two lockset-sanitized
-stress runs, which wait for the port's ``analysis`` package.
+test of ``tests/test_serve_runtime.py``, the two lockset-sanitized stress
+runs (``sanitize`` marker) on the numpy engine and on the torch engine.
 
 The invariants, in each package: no wedged tickets; every threaded result
 equals the oracle of SOME catalog state the store passes through (1e-12 on
@@ -125,16 +125,24 @@ def _assert_explainable(kind, fs, value, oracles, rtol):
     assert ok, f"{kind} result over {fs} matches no reachable state"
 
 
-def _run_threaded(m, seed, n_tenants, ops_per_tenant, mutator_flips, window):
+def _run_threaded(m, seed, n_tenants, ops_per_tenant, mutator_flips, window,
+                  sanitizer=None):
     """One threaded stress run: tenant threads (train / score / cofactors /
     append through the service) against a mutator thread doing direct
     ``put`` / ``add_fd`` / ``drop_fd`` on the shared store.  Returns
-    (store, outcomes in a fixed order, service info)."""
+    (store, outcomes in a fixed order, service info).
+
+    ``sanitizer`` (the package's ``analysis.LockSanitizer``) is installed
+    after construction and before any thread starts, so every lock the run
+    takes is a wrapped, order-checked one; on the port it also wraps the
+    kernels' ``_load_lock`` (the caller uninstalls it)."""
     store = m.Store(_relations(m, seed))
     store.add_fd("c0", "d0")
     vorder = _vorder(m)
     delta = _fixed_delta(m)
     svc = m.Service(store, window=window)
+    if sanitizer is not None:
+        sanitizer.install(service=svc, **({} if m.ref else {"load_lock": True}))
     svc.start(m.sv.RuntimeConfig(poll_interval=0.002, fold_interval=0.004))
     outcomes = {}  # tid -> [(kind, featset, ticket)]
     dim0_orig = _relations(m, seed)[1]
@@ -257,6 +265,64 @@ def test_threaded_torch_service_matches_sequential_oracle():
         m, 5, n_tenants=4, ops_per_tenant=6, mutator_flips=6, window=3
     )
     _check_run(m, 5, store, outcomes, svc_info, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# lockset-sanitized stress (`sanitize` marker; the package's analysis.sanitizer)
+# ---------------------------------------------------------------------------
+
+SANITIZED_LOCKS = (
+    "FactorizedService._cycle_lock", "FactorizedService._lock",
+    "FactorizedService._stats_lock", "Store._mutate_lock", "ViewCache._mu",
+)
+
+
+def _sanitized(m, seed, **kw):
+    """One stress run under the package's lockset sanitizer: the run's
+    checks as unsanitized, no empty lockset and no order or wait violation,
+    every lock of the service and the store acquired, the probes fired; on
+    the port, the kernels' ``_load_lock`` (module state) put back after."""
+    from repro_torch.kernels import _build
+
+    original = _build._load_lock
+    san = m.analysis.LockSanitizer()
+    try:
+        store, outcomes, svc_info = _run_threaded(m, seed, sanitizer=san, **kw)
+    finally:
+        if not m.ref:
+            san.uninstall()
+    assert _build._load_lock is original
+    record = _check_run(m, seed, store, outcomes, svc_info,
+                        rtol=1e-5 if m.fp32 else 1e-12)
+    san.assert_clean()
+    for lock in SANITIZED_LOCKS:
+        assert san.acquisitions.get(lock, 0) > 0, lock
+    assert san.accesses > 0
+    assert san.field_stats().get("FactorizedService._reads", (0, 0))[1] > 0
+    return record
+
+
+def _sanitized_twin(engine, **kw):
+    """numpy: both packages, each under its own sanitizer, with the same
+    ticket outcomes; torch: the port's float32 engine on the CPU."""
+    if engine == "numpy":
+        twin(_sanitized, **kw)
+    else:
+        _sanitized(pkg(False, True), **kw)
+
+
+@pytest.mark.sanitize
+@pytest.mark.parametrize("engine", ["numpy", "torch"])
+def test_threaded_stress_sanitized_windowed(engine):
+    _sanitized_twin(engine, seed=5, n_tenants=4, ops_per_tenant=6,
+                    mutator_flips=6, window=3)
+
+
+@pytest.mark.sanitize
+@pytest.mark.parametrize("engine", ["numpy", "torch"])
+def test_threaded_stress_sanitized_unwindowed(engine):
+    _sanitized_twin(engine, seed=11, n_tenants=3, ops_per_tenant=5,
+                    mutator_flips=4, window=None)
 
 
 # ---------------------------------------------------------------------------

@@ -22,6 +22,8 @@ import types
 import numpy as np
 import pytest
 import torch
+from hypothesis import HealthCheck, given, settings
+from hypothesis import strategies as st
 
 import repro.core as RC
 import repro.core.categorical as RCAT
@@ -362,6 +364,40 @@ def test_view_cache_unit_lru():
     twin(_unit_lru)
 
 
+def _restamp(m):
+    """``restamp`` marks entries valid at a new version: all of them, or
+    the listed keys (an absent key is skipped)."""
+    vc = m.ViewCache(max_bytes=1000)
+
+    def key(i):
+        return m.ViewKey(("sig",), "numpy", "float64", i, (), frozenset(), 2)
+
+    def versions():
+        return [(k.node, e.version) for k, e in vc.items()]
+
+    for i in range(3):
+        vc.put(key(i), _V(), frozenset({"R"}), version=0)
+    rec = [versions()]
+    vc.restamp(4, keys=[key(0), key(2), key(9)])
+    rec.append(versions())
+    assert vc.get(key(0), 4) is not None and vc.get(key(2), 4) is not None
+    assert vc.get(key(1), 4) is None  # still at 0: dropped on sight
+    vc.restamp(7)
+    rec.append(versions())
+    assert [vc.get(key(i), 7) is not None for i in (0, 2)] == [True, True]
+    vc.watermarks = {"R": 9}  # the watermark rule: stamp >= every mark
+    assert vc.get(key(0), 0) is None
+    vc.restamp(9, keys=[key(2)])
+    assert vc.get(key(2), 0) is not None
+    rec.append(versions())
+    rec.append(vc.info())
+    return rec
+
+
+def test_view_cache_restamp():
+    twin(_restamp)
+
+
 def _evict_all(m):
     b = m.data.many_cat_schema(n_cat=2, domain=6, n_rows=200, seed=9)
     store = b.store
@@ -486,6 +522,38 @@ def _interleavings(m, seed):
 @pytest.mark.parametrize("seed", range(6))
 def test_cached_equals_uncached_interleavings_deterministic(seed):
     twin(_interleavings, seed=seed)
+
+
+def _property(m, seed, n_branches, ops):
+    b = m.data.random_acyclic_schema(seed, n_branches=n_branches)
+    cat = ["k0"] + [f"k{i + 1}" for i in range(len(b.features) // 2)]
+    cont = b.features + [b.label]
+    rng = np.random.default_rng(seed)
+    rec = [_cached_vs_uncached(m, b.store, b.vorder, cont, cat)]
+    for op in ops:
+        rec.append(_apply_op(m, b.store, op, rng))
+        rec.append(_cached_vs_uncached(m, b.store, b.vorder, cont, cat))
+    rec.append(_info(b.store))
+    rec.append(vc_state(b.store))
+    return rec
+
+
+@settings(
+    max_examples=15,
+    deadline=None,
+    suppress_health_check=[HealthCheck.too_slow],
+)
+@given(
+    seed=st.integers(0, 40),
+    n_branches=st.integers(1, 3),
+    ops=st.lists(st.integers(0, 63), min_size=0, max_size=6),
+)
+def test_cached_equals_uncached_property(seed, n_branches, ops):
+    """Over random acyclic joins with random append/put/drop_fd
+    interleavings, every batch served through the persistent view cache
+    equals a fresh uncached evaluation to 1e-12, in each package, and the
+    two packages agree on the results, the counters and the cache state."""
+    twin(_property, seed=seed, n_branches=n_branches, ops=ops)
 
 
 def _warm_retrain(m):

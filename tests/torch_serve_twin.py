@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import repro.analysis as RAN
 import repro.core.factorize as RFZ
 import repro.core.regression as RREG
 import repro.core.relation as RREL
@@ -25,6 +26,7 @@ import repro.core.store as RST
 import repro.core.variable_order as RVO
 import repro.data.synthetic as RS
 import repro.serve as RSV
+import repro_torch.analysis as PAN
 import repro_torch.core.factorize as PFZ
 import repro_torch.core.regression as PREG
 import repro_torch.core.relation as PREL
@@ -40,9 +42,9 @@ def pkg(ref: bool, fp32: bool) -> types.SimpleNamespace:
     """One package's surface.  ``bk`` holds the engine keywords of the
     backend under test, ``svc`` the service's; ``fp32_backend`` is the name
     a request gives the float32 engine (``"jax"`` / ``"torch"``)."""
-    fz, reg, rel, st, vo, data, sv = (
-        (RFZ, RREG, RREL, RST, RVO, RS, RSV) if ref
-        else (PFZ, PREG, PREL, PST, PVO, PS, PSV)
+    fz, reg, rel, st, vo, data, sv, analysis = (
+        (RFZ, RREG, RREL, RST, RVO, RS, RSV, RAN) if ref
+        else (PFZ, PREG, PREL, PST, PVO, PS, PSV, PAN)
     )
     fp32_backend = "jax" if ref else "torch"
     if fp32:
@@ -55,7 +57,7 @@ def pkg(ref: bool, fp32: bool) -> types.SimpleNamespace:
         svc = {"backend": bk["backend"], "device": "cpu"}
     return types.SimpleNamespace(
         ref=ref, fp32=fp32, bk=bk, svc=svc, fp32_backend=fp32_backend,
-        fz=fz, reg=reg, sv=sv, data=data,
+        fz=fz, reg=reg, sv=sv, data=data, analysis=analysis,
         Store=st.Store, Relation=rel.Relation, VariableOrder=vo.VariableOrder,
         FactorizedEngine=fz.FactorizedEngine, AggregateQuery=fz.AggregateQuery,
         BatchPart=fz.BatchPart, Service=lambda store, **kw: sv.FactorizedService(
