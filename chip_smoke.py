@@ -194,9 +194,41 @@ Phases, in order; any failed check raises and the script exits non-zero:
    plain version, as leg 1's do; they are the kernels line's
    ``sanitized`` entries of rows 1 and 3.
 
+10. Distribution at world size 1, run after phase 7: a process group of
+   one rank on NCCL (a ``FileStore`` rendezvous in a scratch directory of
+   the checkout) and a ``("data",)`` ``DeviceMesh`` of 1.  On phase 4's
+   join, kept as arrays (18,641,880 rows), ``sharded_cofactors`` must equal
+   phase 4's factorized cofactors and ``sharded_cat_cofactors`` the
+   factorized categorical cofactors of phase 4's factorized leg, each within
+   1e-4 of the largest; both incremental functions fold the last date's
+   rows into the cofactors of the rest, within 1e-4 of the whole.  Launch
+   counters are zeroed before and read after: ``gram`` and
+   ``multi_segment_gram`` must launch; every call of either is captured
+   with its output and run again against its plain version (KERNEL_RTOL),
+   timed beside its bound and, for gram, ``x.T @ x``.  Seconds by call:
+   kernels, ``all_reduce`` (each synchronised) and the rest (host slicing
+   and padding, copies, the pair counts' scatter).  ``compressed_psum`` on
+   the group of one must equal ``compress_decompress`` on the same tree.
+11. LM training: ``python -m repro_torch.launch.train``'s path
+   (``launch.train.setup`` / ``run``) for smollm-135m at full width and
+   depth in float32 (30 layers, d_model 576, 134.5 M parameters,
+   microbatches 4), seeded weights, ``TokenPipeline`` batches of 8 × 128
+   tokens, AdamW with the CLI's schedule (peak 3e-4, warmup 1, cosine over
+   30 steps).  Step 2 (the first with a learning rate) on the card is held
+   against the same step on the CPU from a copy of the same state: loss
+   and grad norm at float32 tolerance, parameters within 1e-2 of the
+   learning rate, moments within 1e-4 of each leaf's largest.  Then 30
+   steps with an async checkpoint at step 15: the mean loss of the last 5
+   below that of the first 5; a fresh run resumed from the step-15
+   checkpoint alone repeats steps 15–29 within 1e-4 of their losses; a
+   10-step ``--compress-grads`` run's loss falls.  Step ms (median),
+   tokens/s and peak memory are reported.
+
 The last lines are the phase-8 JSON object, the phase-9 JSON object
-(``{"service": ...}``), the kernels JSON object, the card's name and power
-limit, and ``{"ok": true, "device": {...}}``.
+(``{"service": ...}``), the phase-10 and phase-11 JSON objects
+(``{"distribution": ...}``, ``{"training": ...}``), the kernels JSON
+object, the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -206,9 +238,12 @@ import copy
 import dataclasses
 import functools
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import types
@@ -1440,12 +1475,14 @@ def categorical_phase(rt, bundle) -> dict:
 
     res, cfgs = {}, {}
     cap_multi = Capture(rt.kops, ("multi_segment_gram",))
+    # the factorized leg's categorical cofactors, kept for phase 10
+    cap_cat = Capture(rt.regression, ("cat_cofactors_factorized",), results=True)
     for leg, fact in (("factorized", True), ("materialized", False)):
         cfg = cfgs[leg] = dataclasses.replace(
             rt.VERSIONS["closed"], backend="torch", device="cuda",
             categorical=CAT, factorized=fact, use_kernel=not fact,
         )
-        with (cap_multi if leg == "materialized" else contextlib.nullcontext()):
+        with (cap_multi if leg == "materialized" else cap_cat):
             r = timed(f"categorical {leg}", functools.partial(
                 rt.linear_regression, store, vorder, feats, label, cfg))
         log(f"  cofactor={r.seconds_cofactor:.3f}s solve={r.seconds_gd:.3f}s")
@@ -1487,7 +1524,20 @@ def categorical_phase(rt, bundle) -> dict:
     missing = [k for k in PHASE4_KERNELS if counts[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched in phase 4: {missing}")
-    del joined, x, one, stream
+    # phase 10's inputs: this phase's join, as arrays, and its factorized
+    # cofactors (continuous, scaled; categorical, unscaled)
+    (cat_args,) = [a for _, a, _ in cap_cat.calls]
+    cont = list(cat_args[2])
+    if list(cat_args[3]) != list(CAT):
+        raise AssertionError(f"phase 4's categorical leg ran over {cat_args[3]}, not {CAT}")
+    dist_inputs = dict(
+        x=x, cols=cols, cofactors=fact, cont=cont,
+        x_cont=np.stack([joined.column(f).astype(np.float64) for f in cont], axis=1),
+        ids=np.stack([joined.column(c).astype(np.int64) for c in CAT], axis=1),
+        domains={c: store.attr_domain(c) for c in CAT},
+        date=joined.column("date"), cat_cofactors=cap_cat.outputs[0],
+    )
+    del joined, one, stream, cap_cat
 
     # after the counts: the factorized leg again, profiled, for its
     # degree-1 calls (the g: queries) on their own arguments; the first run
@@ -1505,7 +1555,7 @@ def categorical_phase(rt, bundle) -> dict:
     del prof, cap
     grams = {"segment_gram": gram_calls(rt, cap_sg.calls),
              "multi_segment_gram": gram_calls(rt, cap_multi.calls)}
-    return counts, views, grams
+    return counts, views, grams, dist_inputs
 
 
 def gram_bound(x, n_seg: int, groups: int) -> tuple:
@@ -3262,6 +3312,344 @@ def lm_phase(lm) -> int:
     return launches
 
 
+# -- phase 10: distribution at world size 1 -------------------------------------
+
+DIST_KERNELS = ("gram", "multi_segment_gram")
+# sharded vs factorized cofactors, of the largest: both float32 sums of the
+# 18.6 M rows, in two orders (the kernels' blocks against the engine's
+# nodes); the same bound as every float32-vs-float32 cofactor check here
+DIST_RTOL = ORACLE_RTOL
+DIST_PSUM_TREE = {"w": (576, 1_536), "b": (576,)}  # an MLP weight and a norm scale
+
+
+class SyncTimers(Timers):
+    """Timers that count the device work of the callables too: the device
+    is synchronised before and after each call."""
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+                torch.cuda.synchronize()
+                return out
+            finally:
+                self.seconds[name] += time.perf_counter() - t0
+        return timed
+
+
+def dist_call(rt, what: str, fn) -> tuple:
+    """(fn(), its seconds by step): the kernels and the all-reduces (each
+    synchronised), and the rest — slicing and padding the rows on the host,
+    the copies to and from the card, the pair counts' scatter."""
+    with SyncTimers((rt.kops, DIST_KERNELS), (rt.dist, ("all_reduce",))) as tm:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    kernels = sum(tm.seconds[k] for k in DIST_KERNELS)
+    sec = dict(total=total, kernels=kernels, all_reduce=tm.seconds["all_reduce"],
+               host_and_copies=total - kernels - tm.seconds["all_reduce"])
+    log(f"{what}: {total:.3f}s (kernels {kernels:.4f}s, all_reduce "
+        f"{tm.seconds['all_reduce']:.4f}s, host slicing, copies and scatter "
+        f"{sec['host_and_copies']:.3f}s)")
+    return out, sec
+
+
+def dist_calls(rt, calls, outputs) -> dict:
+    """Each captured ``gram`` / ``multi_segment_gram`` call of phase 10: its
+    own output and a second call against the plain version in float64 on
+    the same values (KERNEL_RTOL of the largest), timed per call and back
+    to back beside the plain version, the bound and, for gram, ``x.T @ x``."""
+    kops, ref = rt.kops, rt.ref
+    rows = {name: [] for name in DIST_KERNELS}
+    for (name, args, _), out in zip(calls, outputs):
+        x = args[0]
+        m, k = x.shape
+        if name == "gram":
+            kern = functools.partial(kops.gram, x)
+            plain = functools.partial(ref.gram_ref, x)
+            want, own, groups = [ref.gram_ref(x.double())], [out], None
+            b, by = bound_ms(m * k * 4 + k * k * 4, m * k * (k + 1))
+            library = time_ms(functools.partial(library_gram, x))
+        else:
+            ids, groups = args[1], [int(g) for g in args[2]]
+            kern = functools.partial(kops.multi_segment_gram, x, ids, groups)
+            plain = functools.partial(ref.multi_segment_gram_ref, x, ids, groups)
+            want, own = ref.multi_segment_gram_ref(x.double(), ids, groups), out
+            b, by = gram_bound(x, len(groups), sum(groups))
+            library = None
+        again = kern()
+        again = again if isinstance(again, list) else [again]
+        err_own, scale = max_err([g.double() for g in own], want)
+        err, _ = max_err([g.double() for g in again], want)
+        tol = KERNEL_RTOL * max(1.0, scale)
+        if not max(err, err_own) <= tol:
+            raise AssertionError(f"phase 10 {name} M {m} K {k}: error {max(err, err_own)} > {tol}")
+        del want, again
+        row = dict(rows=m, k=k, groups=groups, max_abs_err=max(err, err_own), tol=tol,
+                   ms=time_ms(kern), ms_back_to_back=time_ms_back_to_back(kern),
+                   plain_ms=time_ms(plain, reps=3), bound_ms=b, bound_by=by,
+                   library_ms=library)
+        log(f"  {name} M {m} K {k} G {groups}: ms={row['ms']:.4f} back-to-back "
+            f"{row['ms_back_to_back']:.4f} plain_ms={row['plain_ms']:.4f} bound_ms={b:.4f} "
+            f"({by}) library_ms={library} max_abs_err={row['max_abs_err']:.3e} tol={tol:.3e}")
+        rows[name].append(row)
+    return rows
+
+
+def dist_checks(rt, mesh, inp) -> dict:
+    D = rt.distributed
+    x, cols, x_cont, ids = inp["x"], inp["cols"], inp["x_cont"], inp["ids"]
+    cont, doms, cat = inp["cont"], inp["domains"], list(CAT)
+    last = inp["date"] == inp["date"].max()
+    rest = ~last
+    log(f"phase 10: {x.shape[0]} rows ({int(last.sum())} of the last date), continuous "
+        f"{cols}, categorical {cat} over {cont}")
+    seconds, errs = {}, {}
+    rt.kops.reset_launch_counts()
+    with Capture(rt.kops, DIST_KERNELS, results=True) as cap:
+        cof, seconds["sharded_cofactors"] = dist_call(
+            rt, "sharded_cofactors", functools.partial(D.sharded_cofactors, x, cols, mesh))
+        errs["sharded_cofactors"] = within(
+            "sharded_cofactors vs phase 4's factorized", cof.matrix(),
+            inp["cofactors"].matrix(), DIST_RTOL)
+        cats, seconds["sharded_cat_cofactors"] = dist_call(
+            rt, "sharded_cat_cofactors",
+            functools.partial(D.sharded_cat_cofactors, x_cont, ids, cont, cat, doms, mesh))
+        errs["sharded_cat_cofactors"] = within(
+            "sharded_cat_cofactors vs phase 4's factorized", cats.matrix(),
+            inp["cat_cofactors"].matrix(), DIST_RTOL)
+        base, seconds["base_cofactors"] = dist_call(
+            rt, "sharded_cofactors (all but the last date)",
+            functools.partial(D.sharded_cofactors, x[rest], cols, mesh))
+        inc, seconds["incremental_sharded_cofactors"] = dist_call(
+            rt, "incremental_sharded_cofactors (the last date)",
+            functools.partial(D.incremental_sharded_cofactors, base, x[last], mesh))
+        errs["incremental_sharded_cofactors"] = within(
+            "incremental vs whole sharded cofactors", inc.matrix(), cof.matrix(), DIST_RTOL)
+        cbase, seconds["base_cat_cofactors"] = dist_call(
+            rt, "sharded_cat_cofactors (all but the last date)",
+            functools.partial(D.sharded_cat_cofactors, x_cont[rest], ids[rest], cont, cat,
+                              doms, mesh))
+        cinc, seconds["incremental_sharded_cat_cofactors"] = dist_call(
+            rt, "incremental_sharded_cat_cofactors (the last date)",
+            functools.partial(D.incremental_sharded_cat_cofactors, cbase, x_cont[last],
+                              ids[last], mesh))
+        errs["incremental_sharded_cat_cofactors"] = within(
+            "incremental vs whole sharded categorical cofactors", cinc.matrix(),
+            cats.matrix(), DIST_RTOL)
+    torch.cuda.synchronize()
+    counts = {k: rt.kops.launch_counts()[k] for k in DIST_KERNELS}
+    log(f"phase 10 launches={counts}; errors of the largest {errs} (tol {DIST_RTOL})")
+    missing = [k for k in DIST_KERNELS if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in phase 10: {missing}")
+
+    # compressed_psum on the card's group of one: the int8 gather of one
+    # rank is the plain round trip
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tree = {k: torch.randn(shape, device="cuda", generator=gen) for k, shape in DIST_PSUM_TREE.items()}
+    got, got_err = rt.comp.compressed_psum(tree, rt.comp.init_error_state(tree), ("data",), mesh)
+    same, same_err = rt.comp.compress_decompress(tree, rt.comp.init_error_state(tree))
+    for k in tree:
+        if not (torch.equal(got[k], same[k]) and torch.equal(got_err[k], same_err[k])):
+            raise AssertionError(f"compressed_psum at world size 1, leaf {k}: not the round trip")
+    log("compressed_psum at world size 1 equals compress_decompress on every leaf")
+    calls = dist_calls(rt, cap.calls, cap.outputs)
+    return dict(rows=int(x.shape[0]), last_date_rows=int(last.sum()), seconds=seconds,
+                errors=errs, tol=DIST_RTOL, launches=counts, calls=calls,
+                compressed_psum="equal")
+
+
+def dist_phase(rt, inp) -> dict:
+    """Phase 10: a world of one rank on NCCL (a ``FileStore`` rendezvous in
+    a scratch directory of the checkout), a ``("data",)`` mesh of 1."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    with tempfile.TemporaryDirectory(prefix=".smoke-dist-", dir=ROOT) as d:
+        rt.dist.init_process_group(
+            "nccl", store=rt.dist.FileStore(os.path.join(d, "store"), 1),
+            rank=0, world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+            return dist_checks(rt, mesh, inp)
+        finally:
+            rt.dist.destroy_process_group()
+
+
+# -- phase 11: LM training --------------------------------------------------------
+
+TRAIN_STEPS, TRAIN_CKPT_STEP, TRAIN_COMPRESS_STEPS = 30, 15, 10
+TRAIN_ARGV = ["--arch", LM_ARCH, "--batch", "8", "--seq", "128", "--dtype", "float32",
+              "--device", "cuda", "--seed", str(SEED)]
+# one step on the card against the same step on the CPU, float32 both (TF32
+# off): the loss is a mean over 1,024 tokens of a 49,152-way log-sum-exp and
+# the grad norm a sum over 134.5 M squares, each float32 sums in another
+# order (~1e-6 relative); a parameter moves by lr·m̂/(√v̂ + eps) under AdamW,
+# at most about the learning rate a step, so two right updates differ by a
+# small part of it, 1e-2·lr (near-zero grads carry most of the difference:
+# there the update's slope in g is lr/eps); the moments of each leaf to
+# 1e-4 of its largest
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_NORM_RTOL = 1e-4
+TRAIN_PARAM_ATOL_LR = 1e-2  # of the peak learning rate
+TRAIN_MOMENT_RTOL = 1e-4
+# the resumed run against the uninterrupted one from the same checkpointed
+# state and batches: the card's embedding backward adds with atomics, so
+# grads differ in their last bits and the difference grows over 15 steps
+TRAIN_RESUME_RTOL = 1e-4
+
+
+def leaf_errors(tr, got, want) -> list:
+    """(max |got − want|, max |want|) of each leaf, on the CPU."""
+    out = []
+    for a, b in zip(tr.tree_leaves(got), tr.tree_leaves(want)):
+        a, b = a.detach().cpu().double(), b.detach().cpu().double()
+        out.append((float((a - b).abs().max()), float(b.abs().max())))
+    return out
+
+
+def compare_step(tr, n, card, cm, host, hm, hp) -> dict:
+    """Step ``n`` on the card against the same step on the CPU."""
+    loss, hloss = float(cm["loss"]), float(hm["loss"])
+    norm, hnorm = float(cm["grad_norm"]), float(hm["grad_norm"])
+    loss_err, norm_err = abs(loss - hloss) / abs(hloss), abs(norm - hnorm) / abs(hnorm)
+    param_err = max(e for e, _ in leaf_errors(tr, card.params, host.params))
+    moment_err = max(e / s for e, s in leaf_errors(tr, card.opt_state, host.opt_state) if s)
+    row = dict(step=n, loss=loss, cpu_loss=hloss, loss_rel_err=loss_err, grad_norm=norm,
+               cpu_grad_norm=hnorm, grad_norm_rel_err=norm_err, param_max_abs_err=param_err,
+               param_atol=TRAIN_PARAM_ATOL_LR * hp.peak_lr, moment_max_rel_err=moment_err)
+    log(f"step {n} card vs CPU: loss {loss:.6f} / {hloss:.6f} (rel {loss_err:.2e}), grad_norm "
+        f"{norm:.6f} / {hnorm:.6f} (rel {norm_err:.2e}), params max |Δ| {param_err:.3e} "
+        f"(atol {row['param_atol']:.1e}), moments {moment_err:.2e} of the largest")
+    if not (loss_err <= TRAIN_LOSS_RTOL and norm_err <= TRAIN_NORM_RTOL
+            and param_err <= row["param_atol"] and moment_err <= TRAIN_MOMENT_RTOL):
+        raise AssertionError(f"training step {n}: the card and the CPU disagree: {row}")
+    return row
+
+
+def step_stats(history, batch_tokens: int) -> dict:
+    """Median step ms over the steps after the first (which builds cuBLAS
+    handles and grows the allocator) and tokens/s at that median."""
+    secs = [h["sec"] for h in history[1:]]
+    med = statistics.median(secs)
+    return dict(steps=len(history), step_ms_median=med * 1e3, step_ms_max=max(secs) * 1e3,
+                first_step_ms=history[0]["sec"] * 1e3, tokens_per_s=batch_tokens / med)
+
+
+def train_phase(tr) -> dict:
+    argv = TRAIN_ARGV + ["--steps", str(TRAIN_STEPS)]
+    args, cfg, hp, pipe = tr.setup(argv)
+    tokens = args.batch * args.seq
+    t = time.perf_counter()
+    state = tr.init_state(args.seed, cfg, hp, device="cuda")
+    n_params = sum(p.numel() for p in tr.tree_leaves(state.params))
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.param_dtype} params "
+        f"and activations, {n_params} parameters, microbatches {cfg.microbatches}, "
+        f"{cfg.optimizer}, peak lr {hp.peak_lr}, warmup {hp.warmup_steps}, "
+        f"{time.perf_counter() - t:.2f}s to draw")
+
+    # step 2 on the card and, from a copy of the same state, on the CPU: the
+    # first step with a learning rate (warmup_cosine gives 0 at step 0, so
+    # step 1 moves no parameter)
+    step = tr.make_train_step(cfg, hp)
+    state, _ = step(state, pipe.batch_at(0))
+    host = tr.tree_map(lambda x: x.to("cpu"), state)
+    batch = pipe.batch_at(1)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    host, hm = step(host, batch)
+    cpu_s = time.perf_counter() - t
+    check = dict(compare_step(tr, 2, state, m, host, hm, hp), card_s=card_s, cpu_s=cpu_s)
+    del state, host
+
+    with tempfile.TemporaryDirectory(prefix=".smoke-train-", dir=ROOT) as d:
+        a, b = os.path.join(d, "a"), os.path.join(d, "b")
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        whole = tr.run(argv + ["--checkpoint-dir", a, "--checkpoint-every",
+                               str(TRAIN_CKPT_STEP)], log=log)
+        wall = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss"] for h in whole.history]
+        if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"training: {len(losses)} steps, losses {losses}")
+        first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        if not last5 < first5:
+            raise AssertionError(f"training: loss did not fall ({first5} -> {last5})")
+        ckpt = f"step_{TRAIN_CKPT_STEP:06d}"
+        if tr.latest_step(a) != TRAIN_STEPS or not os.path.isdir(os.path.join(a, ckpt)):
+            raise AssertionError(f"training: checkpoints {sorted(os.listdir(a))}")
+        # resume from the async checkpoint alone, in a fresh state
+        os.makedirs(b)
+        os.rename(os.path.join(a, ckpt), os.path.join(b, ckpt))
+        shutil.rmtree(a)
+        with open(os.path.join(b, "LATEST"), "w") as f:
+            f.write(ckpt)
+        resumed = tr.run(argv + ["--checkpoint-dir", b, "--checkpoint-every",
+                                 str(TRAIN_CKPT_STEP)], log=log)
+    if resumed.resumed_from != TRAIN_CKPT_STEP or [h["step"] for h in resumed.history] != list(
+            range(TRAIN_CKPT_STEP, TRAIN_STEPS)):
+        raise AssertionError(f"resume: from {resumed.resumed_from}, steps "
+                             f"{[h['step'] for h in resumed.history]}")
+    again = np.array([h["loss"] for h in resumed.history])
+    resume_err = float(np.max(np.abs(again - losses[TRAIN_CKPT_STEP:]) /
+                              np.abs(losses[TRAIN_CKPT_STEP:])))
+    param_err = max(e for e, _ in leaf_errors(tr, resumed.state.params, whole.state.params))
+    log(f"resumed at step {TRAIN_CKPT_STEP}: losses within {resume_err:.3e} of the "
+        f"uninterrupted run's (rtol {TRAIN_RESUME_RTOL}); final params max |Δ| {param_err:.3e}")
+    if not resume_err <= TRAIN_RESUME_RTOL:
+        raise AssertionError(f"resume: losses {again} vs {losses[TRAIN_CKPT_STEP:]}")
+    del resumed
+
+    squeezed = tr.run(TRAIN_ARGV + ["--steps", str(TRAIN_COMPRESS_STEPS), "--compress-grads"],
+                      log=log)
+    closs = [h["loss"] for h in squeezed.history]
+    if (len(closs) != TRAIN_COMPRESS_STEPS or not np.all(np.isfinite(closs))
+            or not np.mean(closs[-3:]) < closs[0]):
+        raise AssertionError(f"compressed-gradient training: losses {closs}")
+    stats = step_stats(whole.history, tokens)
+    # one more step of the trained state, profiled on the device alone (the
+    # host-side trace of a step's ~100 k ops would cost tens of seconds):
+    # device busy against the unprofiled median, and the kernels, copies and
+    # fills the device ran
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        step(whole.state, pipe.batch_at(TRAIN_STEPS))
+        torch.cuda.synchronize()
+    ops = device_ops(prof)
+    busy = sum(us for _, us in ops) / 1e3
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type != torch.autograd.DeviceType.CPU
+                   and e.self_device_time_total > 0)
+    stats.update(device_busy_ms=busy, idle_share=1 - busy / stats["step_ms_median"],
+                 device_ops=launches,
+                 top_device_ops=[(name[:80], us / 1e3) for name, us in ops[:6]])
+    log(f"a profiled step: device busy {busy:.1f} ms of the {stats['step_ms_median']:.1f} ms "
+        f"median (idle share {stats['idle_share']:.3f}), {launches} device kernels, copies "
+        f"and fills")
+    for name, us in ops[:6]:
+        log(f"  device {us / 1e3:10.3f} ms  {name[:90]}")
+    del prof
+    log(f"training: {TRAIN_STEPS} steps in {wall:.1f}s, step {stats['step_ms_median']:.1f} ms "
+        f"(median), {stats['tokens_per_s']:.0f} tokens/s, loss {first5:.4f} -> {last5:.4f} "
+        f"(means of the first and last 5), peak memory {peak}")
+    return dict(arch=cfg.name, params=n_params, batch=args.batch, seq=args.seq,
+                microbatches=cfg.microbatches, dtype=str(cfg.param_dtype), card_vs_cpu=check,
+                losses=losses, loss_first5=first5, loss_last5=last5, wall_s=wall,
+                max_memory_allocated=peak, **stats,
+                resume=dict(from_step=TRAIN_CKPT_STEP, loss_max_rel_err=resume_err,
+                            rtol=TRAIN_RESUME_RTOL, final_param_max_abs_err=param_err),
+                compressed=dict(losses=closs, **step_stats(squeezed.history, tokens)))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device available")
@@ -3290,7 +3678,9 @@ def main() -> None:
         fit_glm,
         glm_regression,
     )
+    from repro_torch.core import distributed
     from repro_torch.core import factorize as fz
+    from repro_torch.core import regression
     from repro_torch.core import glm
     from repro_torch.core import polynomial as poly
     from repro_torch.core.glm import glm_predict_raw
@@ -3305,6 +3695,10 @@ def main() -> None:
     from repro_torch.configs import get_config
     from repro_torch.models import model as lm_model
     from repro_torch.models.attention import chunked_attention
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import compression, init_state, make_train_step
+    from repro_torch.train._tree import tree_leaves, tree_map
+    from repro_torch.train.checkpoint import latest_step
     from repro_torch.serve import (
         Engine,
         FactorizedService,
@@ -3334,7 +3728,13 @@ def main() -> None:
         Cofactors=Cofactors, solve_cofactor=solve_cofactor, rescale_theta=rescale_theta,
         FactorizedService=FactorizedService, FaultInjector=FaultInjector,
         InjectedFault=InjectedFault, RetryPolicy=RetryPolicy, ServiceStopped=ServiceStopped,
-        LockSanitizer=LockSanitizer,
+        LockSanitizer=LockSanitizer, regression=regression, distributed=distributed,
+        dist=torch.distributed, comp=compression,
+    )
+    tr = types.SimpleNamespace(
+        setup=launch_train.setup, run=launch_train.run, init_state=init_state,
+        make_train_step=make_train_step, tree_leaves=tree_leaves, tree_map=tree_map,
+        latest_step=latest_step,
     )
     lm = types.SimpleNamespace(
         get_config=get_config, init_params=lm_model.init_params,
@@ -3378,7 +3778,7 @@ def main() -> None:
     rows["moments"]["main_path"] = dict(phase3=traversal["moments"])
 
     log("phase 4: categorical regression and cofactor baselines")
-    counts4, views4, grams = categorical_phase(rt, bundle)
+    counts4, views4, grams, dist_inputs = categorical_phase(rt, bundle)
     for name in PHASE4_KERNELS[len(PHASE3_KERNELS):]:
         rows[name]["launches"] = counts4[name]
     for name in PHASE4_KERNELS:
@@ -3440,8 +3840,22 @@ def main() -> None:
     log("phase 7: LM serving")
     rows["flash"]["launches"] = lm_phase(lm)
 
+    log("phase 10: distribution at world size 1")
+    distribution = dist_phase(rt, dist_inputs)
+    del dist_inputs
+    for name in DIST_KERNELS:
+        rows[name]["launches"] += distribution["launches"][name]
+        rows[name]["launches_by_phase"]["phase10"] = distribution["launches"][name]
+        rows[name]["distribution"] = distribution["calls"][name]
+    distribution["calls"] = {k: len(v) for k, v in distribution["calls"].items()}
+
+    log("phase 11: LM training")
+    training = train_phase(tr)
+
     print(json.dumps({"phase8": glm_poly}))
     print(json.dumps({"service": service}))
+    print(json.dumps({"distribution": distribution}))
+    print(json.dumps({"training": training}))
     print(json.dumps({"kernels": [rows[n] for n in ALL_KERNELS]}))
     print(card)
     print(json.dumps({

@@ -15,6 +15,9 @@ attributes (either package's store and variable order);
 LM weights cross as the reference's parameter tree of float32 numpy arrays
 (nested dicts, block leaves stacked over periods); ``params_from_jax``
 loads one into this package's :class:`~repro_torch.models.model.Transformer`.
+A training state crosses as the reference's ``TrainState`` with numpy
+leaves; ``state_from_jax`` makes this package's (whose parameters keep the
+reference's tree).
 """
 
 from __future__ import annotations
@@ -27,10 +30,13 @@ import torch
 from .core.relation import Relation
 from .core.store import Store
 from .core.variable_order import VariableOrder
-from .models.model import Transformer, resolve_device
+from .models.model import Transformer, resolve_device, tree_path
+from .train._tree import tree_map
+from .train.train_step import TrainState
 
 __all__ = [
     "params_from_jax",
+    "state_from_jax",
     "store_from_numpy",
     "store_to_numpy",
     "vorder_from_tree",
@@ -99,22 +105,37 @@ def params_from_jax(tree: Mapping, cfg, device="cuda") -> Transformer:
     ``cfg.param_dtype``; norm scales and biases stay float32, as in both
     packages."""
     model = Transformer(cfg, device=resolve_device(device))
-    n = len(cfg.pattern)
     with torch.no_grad():
         for name, param in model.named_parameters():
-            path = name.split(".")
-            if path[0] == "blocks":
-                layer = int(path[1])
-                leaf = tree["periods"][f"b{layer % n}"]
-                path, index = path[2:], layer // n
-            else:
-                leaf, index = tree, None
+            path, period = tree_path(name, cfg)
+            leaf = tree
             for key in path:
                 leaf = leaf[key]
-            arr = np.array(leaf if index is None else leaf[index], dtype=np.float32)
+            arr = np.array(leaf if period is None else leaf[period], dtype=np.float32)
             if arr.shape != tuple(param.shape):
                 raise ValueError(
                     f"{name}: tree leaf {arr.shape} != parameter {tuple(param.shape)}"
                 )
             param.copy_(torch.from_numpy(arr))
     return model
+
+
+def state_from_jax(state, cfg, device="cuda"):
+    """This package's :class:`~repro_torch.train.TrainState` on ``device``
+    from the reference's ``TrainState`` with numpy leaves (as
+    ``jax.tree.map(np.asarray, state)`` gives it; any object with
+    ``params``, ``opt_state``, ``step`` and ``err``): the same trees, the
+    parameters cast to ``cfg.param_dtype``, optimizer and compression state
+    float32, the step an int32 scalar."""
+    dev = resolve_device(device)
+
+    def put(dtype):
+        return lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(dev, dtype)
+
+    err = None if state.err is None else tree_map(put(torch.float32), state.err)
+    return TrainState(
+        params=tree_map(put(cfg.param_dtype), state.params),
+        opt_state=tree_map(put(torch.float32), state.opt_state),
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=dev),
+        err=err,
+    )

@@ -13,7 +13,9 @@ PyTorch port of the JAX package's ``models/attention.py``:
   tensor its plain version here, :func:`chunked_attention`.  The model's
   positions are always ``arange``, so the port's functions take
   ``positions=None`` to mean exactly that; an explicit ``positions`` on a
-  CUDA tensor in that branch raises rather than leave the kernel.
+  CUDA tensor in that branch raises rather than leave the kernel.  The
+  kernel has no backward, so the branch raises ``NotImplementedError``
+  where autograd records the call.
 
 Scores and softmax run in float32 whatever the activation dtype (bf16
 inputs are upcast: their products are exact in float32, so this is the
@@ -182,7 +184,16 @@ def chunked_attention(
 
 def _long_attention(q, k, v, positions, *, causal: bool, window: Optional[int], out_dtype):
     """The chunked branch: the flash kernel on a CUDA tensor (positions are
-    the indices), :func:`chunked_attention` on a CPU tensor."""
+    the indices), :func:`chunked_attention` on a CPU tensor.  The kernel has
+    no backward, so a call that autograd records raises on either device
+    (the CPU's plain version stands in for the kernel and behaves alike)."""
+    if q.requires_grad or k.requires_grad or v.requires_grad:
+        raise NotImplementedError(
+            f"attention over {q.shape[1]} tokens (more than {CHUNKED_THRESHOLD}) "
+            "takes the flash kernel, which has no backward yet (ROADMAP queue "
+            "1, item 10.2): train at sequences up to the threshold, or with "
+            "cfg.dense_attention"
+        )
     if q.is_cuda:
         if positions is not None:
             raise ValueError(

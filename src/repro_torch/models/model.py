@@ -9,17 +9,26 @@ attention (full and sliding-window) with a dense MLP (SwiGLU / GELU), RMS /
 Layer / non-parametric LayerNorm, RoPE or learned positions, tied or
 separate LM head.  Not ported yet (``NotImplementedError``, ROADMAP queue 1
 item 10): the mamba, mLSTM and sLSTM mixers, MoE feed-forwards, the
-whisper encoder and the llava patch prefix, and ``loss_fn`` (training).
-One card holds the whole model, so the reference's sharding constraints
-have no counterpart here.
+whisper encoder and the llava patch prefix.  One card holds the whole
+model, so the reference's sharding constraints have no counterpart here.
 
 Public entry points (``params`` is a :class:`Transformer`)::
 
     init_params(cfg, seed, device)              -> Transformer
     forward(params, batch, cfg)                 -> (logits, aux_loss)
+    loss_fn(params, batch, cfg)                 -> (loss, metrics)
     prefill(params, batch, cfg, max_len)        -> (last_logits, cache)
     init_cache(cfg, batch, max_len, device)     -> cache
     decode_step(params, token, cache, pos, cfg) -> (logits, cache)
+
+``forward`` and ``loss_fn`` are differentiable: they run under whatever
+grad mode the caller sets, and the weights' ``requires_grad`` (False as
+built) belongs to the caller.  The serving entry points, ``prefill`` and
+``decode_step``, run under ``torch.inference_mode``.  Training keeps the
+weights in the reference's parameter tree (``param_tree``: one tensor a
+block position and weight, stacked over periods, so optimizer state,
+clipping and compression see the reference's leaves) and runs the model on
+per-layer views of it (``tree_views``).
 
 Caches keep the reference's structure: ``{"periods": {"b<i>": {"mixer":
 {"k", "v", "pos"}}}}`` with leaves stacked over periods (``[n_periods,
@@ -28,7 +37,7 @@ B, slots, ...]``).  Logits are float32 ``[.., padded_vocab]``.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -44,9 +53,13 @@ __all__ = [
     "forward",
     "init_cache",
     "init_params",
+    "loss_fn",
     "padded_vocab",
+    "param_tree",
     "prefill",
     "resolve_device",
+    "tree_path",
+    "tree_views",
 ]
 
 _TODO = "is not ported yet (ROADMAP queue 1, item 10)"
@@ -176,15 +189,90 @@ def _ffn(blk: TransformerBlock, x: torch.Tensor, cfg) -> torch.Tensor:
 def forward(params: Transformer, batch, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits ``[B, S, padded_vocab]`` (float32) and the MoE
     aux loss (0: no MoE layer is ported)."""
-    with torch.inference_mode():
-        x = _embed_inputs(params, batch, cfg)
-        for blk in params.blocks:
-            h = apply_norm(x, blk.mixer_norm, cfg.norm)
-            x = x + attn.attention_apply(blk.mixer, h, cfg, causal=True, window=cfg.window)
-            x = _ffn(blk, x, cfg)
-        x = apply_norm(x, params.final_norm, cfg.norm)
-        logits = _head(params, x, cfg)
-        return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    x = _embed_inputs(params, batch, cfg)
+    for blk in params.blocks:
+        h = apply_norm(x, blk.mixer_norm, cfg.norm)
+        x = x + attn.attention_apply(blk.mixer, h, cfg, causal=True, window=cfg.window)
+        x = _ffn(blk, x, cfg)
+    x = apply_norm(x, params.final_norm, cfg.norm)
+    logits = _head(params, x, cfg)
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params: Transformer, batch, cfg):
+    """Mean next-token cross entropy (+ router aux, none while no MoE layer
+    is ported).  ``labels`` are already aligned to predict-next; positions
+    with label < 0 are masked out.  Returns ``(loss, metrics)``, metrics
+    ``loss`` / ``ce`` / ``aux`` / ``ntok`` as float32 scalars."""
+    logits, aux = forward(params, batch, cfg)
+    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
+    mask = (labels >= 0).float()
+    safe = labels.clamp(min=0)
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - tgt) * mask
+    ntok = torch.clamp(mask.sum(), min=1.0)
+    ce = nll.sum() / ntok
+    metrics = {"loss": ce, "ce": ce, "aux": aux, "ntok": ntok}
+    return ce, metrics
+
+
+def tree_path(name: str, cfg) -> Tuple[Tuple[str, ...], Optional[int]]:
+    """Where the :class:`Transformer` parameter ``name`` lives in the
+    reference's parameter tree: (its key path, the period it is stacked at,
+    or None outside ``periods``).  Layer ``i`` is period ``i //
+    len(pattern)`` of block ``b{i % len(pattern)}``."""
+    path = name.split(".")
+    if path[0] != "blocks":
+        return tuple(path), None
+    layer, n = int(path[1]), len(cfg.pattern)
+    return ("periods", f"b{layer % n}", *path[2:]), layer // n
+
+
+def param_tree(params: Transformer, cfg) -> Dict:
+    """The weights as the reference's parameter tree: nested dicts, each
+    block position's weights stacked over periods (``[n_periods, ...]``).
+    A copy, detached from ``params``."""
+    stacks: Dict[Tuple[str, ...], list] = {}
+    tree: Dict = {}
+    for name, p in params.named_parameters():
+        path, period = tree_path(name, cfg)
+        if period is None:
+            _put(tree, path, p.detach().clone())
+        else:
+            stacks.setdefault(path, []).append((period, p.detach()))
+    for path, layers in stacks.items():
+        _put(tree, path, torch.stack([p for _, p in sorted(layers, key=lambda t: t[0])]))
+    return tree
+
+
+def _put(tree: Dict, path: Tuple[str, ...], leaf) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = leaf
+
+
+def tree_views(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """``{parameter name: tensor}`` of a :class:`Transformer` over the
+    reference-layout ``tree``: each stacked leaf unbound into its periods'
+    views (no copy; differentiable back to the stacked leaf), for
+    ``torch.func.functional_call``."""
+    n = len(cfg.pattern)
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(node: Mapping, path: Tuple[str, ...]) -> None:
+        for key, sub in node.items():
+            if isinstance(sub, Mapping):
+                walk(sub, path + (key,))
+            elif path[:1] == ("periods",):
+                block, rest = int(path[1][1:]), ".".join(path[2:] + (key,))
+                for period, view in enumerate(sub.unbind(0)):
+                    out[f"blocks.{period * n + block}.{rest}"] = view
+            else:
+                out[".".join(path + (key,))] = sub
+
+    walk(tree, ())
+    return out
 
 
 def _stack_cache(cfg, layer_caches) -> Dict:

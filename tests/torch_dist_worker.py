@@ -1,0 +1,131 @@
+"""Multi-process ``torch.distributed`` runs for the port's tests (imported by
+basename, as ``torch_serve_twin``).
+
+``spawn(world, cases)`` starts ``world`` CPU processes with
+``torch.multiprocessing.spawn``, joins them in one gloo group through a
+``FileStore`` (no TCP rendezvous), builds the meshes of ``MESHES`` that fit
+``world`` ranks, and runs every case on every mesh in every rank.  Each
+rank pickles ``{(case, mesh): result}`` to a file; ``spawn`` returns the
+results by rank.  The cases build their inputs from numpy seeds
+(``case_inputs``), so a test computes its oracle from the same numbers.
+Nothing here imports JAX or the JAX package.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import tempfile
+
+import numpy as np
+
+#: mesh name -> (world size, shape, dim names, data axes the cases shard over)
+MESHES = {
+    "ws2": (2, (2,), ("data",), ("data",)),
+    "ws4": (4, (4,), ("data",), ("data",)),
+    "ws4_pod_data": (4, (2, 2), ("pod", "data"), ("pod", "data")),
+    "ws4_data_only": (4, (2, 2), ("pod", "data"), ("data",)),
+}
+
+M_ROWS = 103  # not a multiple of 2 or 4: the last shard is padded
+CONT = ["x0", "x1", "x2"]
+CAT = ["a", "b", "c"]
+DOMAINS = {"a": 5, "b": 7, "c": 3}
+
+
+def case_inputs(seed: int = 0) -> dict:
+    """The numbers every case reads, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(M_ROWS, len(CONT))) * 3.0
+    ids = np.stack([rng.integers(0, DOMAINS[c], M_ROWS) for c in CAT], axis=1)
+    ids[:, 2] = ids[:, 0] % DOMAINS["c"]  # c is a function of a: an FD
+    split = 71
+    grown = ids[split:].copy()
+    grown[0, 1] = DOMAINS["b"] + 2  # unseen ids in the delta grow b's domain
+    return dict(x=x, ids=ids, split=split, grown=grown)
+
+
+def fd_reduction():
+    """c = f(a) over ``case_inputs``' ids: keep a and b, drop c."""
+    from repro_torch.core.fd import FDReduction
+
+    mapping = np.arange(DOMAINS["a"]) % DOMAINS["c"]
+    return FDReduction(order=list(CAT), kept=["a", "b"],
+                       dropped={"c": ("a", mapping)}, domains=dict(DOMAINS))
+
+
+def _run_case(name: str, mesh, axes):
+    import torch
+
+    from repro_torch.core import distributed as D
+    from repro_torch.train import compression as comp
+
+    inp = case_inputs()
+    x, ids, split = inp["x"], inp["ids"], inp["split"]
+    if name == "rows":
+        return D._local_rows(M_ROWS, mesh, axes)
+    if name == "gram":
+        lo, hi, per = D._local_rows(M_ROWS, mesh, axes)
+        z = torch.from_numpy(D._design_block(x, lo, hi, per))
+        return D.sharded_gram(z, mesh, axes).numpy()
+    if name == "cofactors":
+        return D.sharded_cofactors(x, CONT, mesh, axes)
+    if name == "incremental":
+        base = D.sharded_cofactors(x[:split], CONT, mesh, axes)
+        return D.incremental_sharded_cofactors(base, x[split:], mesh, axes)
+    if name == "cat":
+        return D.sharded_cat_cofactors(x, ids, CONT, CAT, DOMAINS, mesh, axes)
+    if name == "cat_fd":
+        return D.sharded_cat_cofactors(x, ids, CONT, CAT, DOMAINS, mesh, axes,
+                                       fd=fd_reduction())
+    if name == "cat_incremental":
+        base = D.sharded_cat_cofactors(x[:split], ids[:split], CONT, CAT, DOMAINS,
+                                       mesh, axes)
+        return D.incremental_sharded_cat_cofactors(base, x[split:], inp["grown"],
+                                                   mesh, axes)
+    if name == "compressed_psum":
+        rank = torch.distributed.get_rank()
+        rng = np.random.default_rng(100 + rank)
+        grads = {"w": torch.from_numpy(rng.normal(size=(8, 8)).astype(np.float32)),
+                 "b": torch.from_numpy(rng.normal(size=(5,)).astype(np.float32))}
+        out, err = comp.compressed_psum(grads, comp.init_error_state(grads), axes, mesh)
+        return {k: (grads[k].numpy(), out[k].numpy(), err[k].numpy()) for k in grads}
+    raise ValueError(f"unknown case {name}")
+
+
+def _worker(rank: int, world: int, store_path: str, out_dir: str, cases: list) -> None:
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.set_num_threads(1)  # the ranks share the machine's cores
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        results = {}
+        for mesh_name, (size, shape, names, axes) in MESHES.items():
+            if size != world:
+                continue
+            mesh = init_device_mesh("cpu", shape, mesh_dim_names=names)
+            for case in cases:
+                results[(case, mesh_name)] = _run_case(case, mesh, axes)
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(world: int, cases: list) -> list:
+    """Run ``cases`` on ``world`` gloo processes; ``[{(case, mesh): result}]``
+    by rank."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_worker, args=(world, os.path.join(d, "store"), d, list(cases)),
+                 nprocs=world, join=True)
+        out = []
+        for rank in range(world):
+            with open(os.path.join(d, f"rank{rank}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+    return out
