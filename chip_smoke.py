@@ -92,8 +92,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    layers, d_model 576, 9 query / 3 KV heads, vocab 49,152, bf16; random
    weights from a seeded generator) behind the continuous-batching
    ``Engine`` (4 slots, prompts padded to 4,096 tokens, a 4,160-slot
-   cache) answers 8 requests of 2,049–4,096 prompt tokens and 32 new tokens
-   each.  Counters are zeroed before and read after: the flash kernel must
+   cache) answers 4 requests of 2,049–4,096 prompt tokens and 32 new tokens
+   each (8 until phase 12 needed the smoke's time).  Counters are zeroed before and read after: the flash kernel must
    have launched exactly 30 times per prefill.  Then the same weights in
    float32 serve the same requests; their greedy tokens must be those of
    the full-forward oracle (one teacher-forced forward per request, which
@@ -113,7 +113,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    and read after), host float64 IRLS, and GD with ``gd_accum="pairs"`` on
    the card for GLM_GD_STEPS steps (the G ≪ m leg twice, to see whether
    the float32 atomics of the gradient scatter repeat) and for one
-   profiled chunk (device busy against wall a step); GD's gradient at its
+   profiled chunk (device busy against wall a step, the device traced
+   alone); GD's gradient at its
    last θ equals the host's float64 one within 1e-3 of the magnitudes each
    entry sums.  Each leg's compression then runs again, equal to the
    first, its segment_view and segment_blocks calls captured and run
@@ -121,9 +122,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ``index_add_`` and their bound.  Then
    ``polynomial_cofactors`` at degrees 1 and 3 (aggregates up to degree 6,
    float64 on the card through segment_reduce; degree 1 equal to the
-   float64 quadratic engine at 1e-10), and one more degree-3 run whose
+   float64 quadratic engine at 1e-10); the degree-3 run's
    ``segment_blocks`` calls are captured and run again against their plain
-   version beside ``index_add_`` and their bound.  On the oracle cell: the
+   version beside ``index_add_`` and their bound (until PR 23 a second
+   degree-3 run was captured).  On the oracle cell: the
    torch compression equals the numpy one exactly and IRLS θ on the two is
    bitwise equal; GD (``pairs``, up to 100,000 steps) on the
    categorical-only design predicts within 5e-3 of IRLS, twice (fp32
@@ -214,21 +216,51 @@ Phases, in order; any failed check raises and the script exits non-zero:
    depth in float32 (30 layers, d_model 576, 134.5 M parameters,
    microbatches 4), seeded weights, ``TokenPipeline`` batches of 8 × 128
    tokens, AdamW with the CLI's schedule (peak 3e-4, warmup 1, cosine over
-   30 steps).  Step 2 (the first with a learning rate) on the card is held
+   20 steps).  Step 2 (the first with a learning rate) on the card is held
    against the same step on the CPU from a copy of the same state: loss
    and grad norm at float32 tolerance, parameters within 1e-2 of the
-   learning rate, moments within 1e-4 of each leaf's largest.  Then 30
-   steps with an async checkpoint at step 15: the mean loss of the last 5
-   below that of the first 5; a fresh run resumed from the step-15
-   checkpoint alone repeats steps 15–29 within 1e-4 of their losses; a
+   learning rate, moments within 1e-4 of each leaf's largest.  Then 20
+   steps with an async checkpoint at step 10: the mean loss of the last 5
+   below that of the first 5; a fresh run resumed from the step-10
+   checkpoint alone repeats steps 10–19 within 1e-4 of their losses; a
    10-step ``--compress-grads`` run's loss falls.  Step ms (median),
    tokens/s and peak memory are reported.
+12. The MoE, Mamba and xLSTM mixers, after phase 11.  Leg 1: qwen2-moe-a2.7b
+   at full width and depth (24 layers of attention + MoE, 60 experts top-4
+   and the shared experts, bf16, seeded weights) behind the ``Engine``
+   with phase 7's prompts and budget (8 requests of 2,049–4,096 tokens, 32 new, 4
+   slots, prefill 4,096): flash must launch exactly 24 times a prefill;
+   the dropped (token, pick) share of each prefill (pads are routed, as
+   in the reference), tokens/s, latency, prefill and decode-step ms, a
+   profiled decode step.  flash at this shape (16 heads of 128) as in
+   phase 2.  The bf16 forward over 4,096 positions at full depth, flash
+   vs the plain path, each held to the float32 model (the weights cast
+   in place) as phase 7 holds it.  Then the first 4 layers in float32:
+   each MoE layer of one prefill at the serving capacity factor — the
+   plain dispatch on the CPU from the card's own router probabilities
+   equal to the card's (selection, positions, keep), the output within
+   1e-5 of the CPU float32 layer's wherever the two selections agree
+   (a differing selection must be a near-tie, within 1e-6); and, dropless,
+   the engine's greedy tokens against the full-forward oracle, as in
+   phase 7.  Leg 2: xlstm-1.3b at full width and depth (6 sLSTM and 42
+   mLSTM layers, bf16) serves 4 prompts of 2,048–4,096 tokens (multiples
+   of ``xlstm_chunk``) through the exact-length prefill, 32 new tokens
+   each: sLSTM and mLSTM prefill seconds, decode-step ms; in float32, a
+   2,048-token prefill and 256 teacher-forced decode steps against the
+   full forward at 2,304 tokens (1e-4 of max |logit|).  Leg 3: one Mamba
+   mixer at jamba-1.5-large's width (d_inner 16,384) over 4,095 tokens
+   (not a multiple of the chunk) with its peak memory bounded by chunked
+   working sets, 64 decode steps from its cache, in float32 against the
+   apply at 4,159 tokens (1e-4 of the largest); then jamba's smoke config
+   end to end through the ``Engine``, card tokens equal to the CPU's.
+   ``launch.serve --arch qwen2-moe-a2.7b`` and ``--arch xlstm-1.3b`` run
+   at full size after their legs.
 
 The last lines are the phase-8 JSON object, the phase-9 JSON object
-(``{"service": ...}``), the phase-10 and phase-11 JSON objects
-(``{"distribution": ...}``, ``{"training": ...}``), the kernels JSON
-object, the card's name and power limit, and ``{"ok": true, "device":
-{...}}``.
+(``{"service": ...}``), the phase-10, phase-11 and phase-12 JSON objects
+(``{"distribution": ...}``, ``{"training": ...}``, ``{"mixers": ...}``),
+the kernels JSON object, the card's name and power limit, and ``{"ok":
+true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -237,6 +269,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import gc
 import json
 import os
 import shutil
@@ -311,7 +344,7 @@ WARM_THETA_RTOL = 1e-8
 # phase 8: bench_categorical's GLM leg and bench_polynomial's degrees
 GLM_CONT, GLM_LABEL, GLM_RIDGE = ("transactions",), "onpromotion", 1e-3
 GLM_CAT = CAT
-GLM_GD_STEPS = 500  # the GD budget of the 18.6 M-row legs (cut for phase 9's time)
+GLM_GD_STEPS = 250  # the GD budget of the 18.6 M-row legs (cut for phases 9 and 12's time)
 GLM_ORACLE_GD_STEPS = 100_000  # the reference's default cap
 GLM_GD_PROFILE_STEPS = 128  # one chunk of predicated steps, profiled
 GLM_PRED_ATOL = 5e-3  # GD vs IRLS predictions: the reference's own bound
@@ -349,7 +382,8 @@ FLASH_NORM_RTOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # phase 7: smollm-135m behind the engine
 LM_ARCH = "smollm-135m"
 LM_SERVE = dict(slots=4, prefill_len=4_096, max_len=4_160)
-LM_REQUESTS, LM_NEW, LM_PROMPT = 8, 32, (2_049, 4_096)
+# 4 requests (8 until phase 12 needed the smoke's time; phase 12 keeps 8)
+LM_REQUESTS, LM_NEW, LM_PROMPT = 4, 32, (2_049, 4_096)
 LOGIT_RTOL = 1e-4  # flash vs chunked_attention prefill, float32, of max |logit|
 # bf16 forward logits, per position, in the plain bf16 path's own distance
 # from the float32 model on the same weights: flash may be no farther from
@@ -881,68 +915,74 @@ def flash_rows(ref, kops, kflash, gen) -> dict:
             raise AssertionError(f"flash bf16 geometry at head dim {d}: {got} != {want}")
     log(f"{'flash':15s} bf16 geometry of head dims 8-256 as mirrored: "
         f"{sorted({tuple(kflash.bf16_geometry(d).values()) for d in (16, 32, 64, 128, 256)})}")
-    out = []
-    for what, b, sq, sk, h, kh, d, causal, window, kv_len, dt, timed in FLASH_SHAPES:
-        kv_len = sk if kv_len is None else kv_len
-        q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dt)
-        k = torch.randn(b, sk, kh, d, device="cuda", generator=gen).to(dt)
-        v = torch.randn(b, sk, kh, d, device="cuda", generator=gen).to(dt)
-        kw = dict(causal=causal, window=window, kv_len=kv_len)
-        kern = functools.partial(kops.flash_attention, q, k, v, **kw)
-        plain = functools.partial(ref.flash_attention_ref, q, k, v, **kw)
-        got, want = kern().float(), plain().float()
-        tol, row_rtol, norm_rtol = FLASH_TOL[dt], FLASH_ROW_RTOL[dt], FLASH_NORM_RTOL[dt]
-        name = f"{what} {str(dt).split('.')[-1]}"
-        diff = got - want
-        err = float(diff.abs().max())
-        if kv_len == 0:  # no row sees a key: both must be exact zeros
-            if bool(got.any()) or bool(want.any()):
-                raise AssertionError(f"flash at {name}: output not exactly 0")
-            row_err = norm_err = 0.0
-        else:
-            floor = d**0.5 * float(want.square().mean().sqrt())
-            row_err = float((diff.norm(dim=-1) / (want.norm(dim=-1) + floor)).max())
-            norm_err = float(diff.norm() / want.norm())
-        ok = (bool((diff.abs() <= tol * (1 + want.abs())).all()) and row_err <= row_rtol
-              and norm_err <= norm_rtol and bool(torch.isfinite(got).all()))
-        log(f"{'flash':15s} {name:34s} max_abs_err={err:.3e} tol={tol:.0e} "
-            f"row_err={row_err:.3e} rtol={row_rtol:.0e} norm_err={norm_err:.3e} "
-            f"rtol={norm_rtol:.0e}")
-        if not ok:
-            raise AssertionError(
-                f"flash at {name}: error {err}, row {row_err}, norm {norm_err} over "
-                f"tolerance {tol} / {row_rtol} / {norm_rtol}")
-        row = dict(
-            shape=dict(what=what, batch=b, sq=sq, sk=sk, heads=h, kv_heads=kh,
-                       head_dim=d, causal=causal, window=window, kv_len=kv_len,
-                       dtype=str(dt).split(".")[-1]),
-            max_abs_err=err, tol=tol, row_err=row_err, row_rtol=row_rtol,
-            norm_err=norm_err, norm_rtol=norm_rtol,
-        )
-        if timed:
-            s = q.element_size()
-            nbytes = 2 * b * sq * h * d * s + 2 * b * kv_len * kh * d * s
-            flops = 4 * d * h * b * visible_pairs(sq, kv_len, causal, window)
-            bnd, by = bound_ms(nbytes, flops, BF16_FLOPS if dt == BF16 else FP32_FLOPS)
-            lib = library_attention(q, k, v, causal, window, kv_len)
-            row.update(
-                ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=bnd, bound_by=by,
-                library_ms=time_ms(lib), ms_back_to_back=time_ms_back_to_back(kern),
-                library_ms_back_to_back=time_ms_back_to_back(lib),
-            )
-            row["pct_of_bound"] = 100 * bnd / row["ms"]
-            log(f"{'flash':15s} {name:34s} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-                f"bound_ms={bnd:.4f} ({by}, {row['pct_of_bound']:.1f} %) "
-                f"library_ms={row['library_ms']:.4f}; back to back "
-                f"{row['ms_back_to_back']:.4f} vs library {row['library_ms_back_to_back']:.4f}")
-        out.append(row)
-        del q, k, v, got, want, diff
+    out = [flash_case(ref, kops, gen, shape) for shape in FLASH_SHAPES]
     main = out[0]
     return dict(
         name="flash", route="cuda", source="src/repro_torch/csrc/flash.cu",
         replaces="src/repro/kernels/flash.py:106 flash_kernel_call",
         **main, also=out[1:],
     )
+
+
+def flash_case(ref, kops, gen, shape) -> dict:
+    """flash against its plain version at one ``FLASH_SHAPES`` entry, timed
+    (per call, back to back, plain, bound, ``scaled_dot_product_attention``)
+    where marked; its JSON row."""
+    what, b, sq, sk, h, kh, d, causal, window, kv_len, dt, timed = shape
+    kv_len = sk if kv_len is None else kv_len
+    q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dt)
+    k = torch.randn(b, sk, kh, d, device="cuda", generator=gen).to(dt)
+    v = torch.randn(b, sk, kh, d, device="cuda", generator=gen).to(dt)
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    kern = functools.partial(kops.flash_attention, q, k, v, **kw)
+    plain = functools.partial(ref.flash_attention_ref, q, k, v, **kw)
+    got, want = kern().float(), plain().float()
+    tol, row_rtol, norm_rtol = FLASH_TOL[dt], FLASH_ROW_RTOL[dt], FLASH_NORM_RTOL[dt]
+    name = f"{what} {str(dt).split('.')[-1]}"
+    diff = got - want
+    err = float(diff.abs().max())
+    if kv_len == 0:  # no row sees a key: both must be exact zeros
+        if bool(got.any()) or bool(want.any()):
+            raise AssertionError(f"flash at {name}: output not exactly 0")
+        row_err = norm_err = 0.0
+    else:
+        floor = d**0.5 * float(want.square().mean().sqrt())
+        row_err = float((diff.norm(dim=-1) / (want.norm(dim=-1) + floor)).max())
+        norm_err = float(diff.norm() / want.norm())
+    ok = (bool((diff.abs() <= tol * (1 + want.abs())).all()) and row_err <= row_rtol
+          and norm_err <= norm_rtol and bool(torch.isfinite(got).all()))
+    log(f"{'flash':15s} {name:34s} max_abs_err={err:.3e} tol={tol:.0e} "
+        f"row_err={row_err:.3e} rtol={row_rtol:.0e} norm_err={norm_err:.3e} "
+        f"rtol={norm_rtol:.0e}")
+    if not ok:
+        raise AssertionError(
+            f"flash at {name}: error {err}, row {row_err}, norm {norm_err} over "
+            f"tolerance {tol} / {row_rtol} / {norm_rtol}")
+    row = dict(
+        shape=dict(what=what, batch=b, sq=sq, sk=sk, heads=h, kv_heads=kh,
+                   head_dim=d, causal=causal, window=window, kv_len=kv_len,
+                   dtype=str(dt).split(".")[-1]),
+        max_abs_err=err, tol=tol, row_err=row_err, row_rtol=row_rtol,
+        norm_err=norm_err, norm_rtol=norm_rtol,
+    )
+    if timed:
+        s = q.element_size()
+        nbytes = 2 * b * sq * h * d * s + 2 * b * kv_len * kh * d * s
+        flops = 4 * d * h * b * visible_pairs(sq, kv_len, causal, window)
+        bnd, by = bound_ms(nbytes, flops, BF16_FLOPS if dt == BF16 else FP32_FLOPS)
+        lib = library_attention(q, k, v, causal, window, kv_len)
+        row.update(
+            ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=bnd, bound_by=by,
+            library_ms=time_ms(lib), ms_back_to_back=time_ms_back_to_back(kern),
+            library_ms_back_to_back=time_ms_back_to_back(lib),
+        )
+        row["pct_of_bound"] = 100 * bnd / row["ms"]
+        log(f"{'flash':15s} {name:34s} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"bound_ms={bnd:.4f} ({by}, {row['pct_of_bound']:.1f} %) "
+            f"library_ms={row['library_ms']:.4f}; back to back "
+            f"{row['ms_back_to_back']:.4f} vs library {row['library_ms_back_to_back']:.4f}")
+    del q, k, v, got, want, diff
+    return row
 
 
 # -- phase 3: the main path ---------------------------------------------------
@@ -2049,9 +2089,10 @@ def compress(rt, store, vorder, cont, what: str, backend: str = "torch"):
 
 def gd_profile(rt, design, what: str) -> dict:
     """One chunk of GD ``pairs`` steps (GLM_GD_PROFILE_STEPS) under the
-    profiler: the device's busy ms a step against the wall's, and the
-    longest device ops."""
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    profiler, on the device alone (a host trace of the chunk's ops cost
+    tens of seconds): the device's busy ms a step against the wall's, and
+    the longest device ops."""
+    activities = [torch.profiler.ProfilerActivity.CUDA]
     cfg = glm_config(rt, solver="gd", gd_accum="pairs", gd_max_iter=GLM_GD_PROFILE_STEPS)
     t = time.perf_counter()
     with torch.profiler.profile(activities=activities) as prof:
@@ -2242,16 +2283,17 @@ def poly_calls(rt, calls) -> list:
 def poly_phase(rt, bundle) -> tuple:
     """bench_polynomial's degrees (POLY_FULL_DEGREES) on the 18.6 M-row store: each degree's
     seconds, kernel 3's launches (zeroed before, read after) and peak
-    memory; degree 1 against the quadratic engine in float64; then one
-    degree-3 run again, its ``segment_blocks`` calls captured and run again
-    (poly_calls)."""
+    memory; degree 1 against the quadratic engine in float64; the last
+    degree's ``segment_blocks`` calls captured and run again (poly_calls),
+    so its peak counts the captured calls' inputs."""
     store, vorder = bundle.store, bundle.vorder
     feats, label = bundle.features, bundle.label
     rows, launches = [], 0
     for d in POLY_FULL_DEGREES:
         rt.kops.reset_launch_counts()
         torch.cuda.reset_peak_memory_stats()
-        with Timers((rt.poly._PolyEngine, POLY_STEPS), (rt.poly, HOST_JOIN)) as steps:
+        capture = Capture(rt.kops, ("segment_blocks",) if d == POLY_FULL_DEGREES[-1] else ())
+        with Timers((rt.poly._PolyEngine, POLY_STEPS), (rt.poly, HOST_JOIN)) as steps, capture:
             t = time.perf_counter()
             cof = rt.polynomial_cofactors(store, vorder, feats, label, degree=d,
                                           device="cuda")
@@ -2280,13 +2322,9 @@ def poly_phase(rt, bundle) -> tuple:
                 raise AssertionError(f"polynomial degree 1 off the quadratic engine: {err}")
             row["vs_quadratic"] = dict(max_abs_err=err, tol=tol)
         rows.append(row)
-    with Capture(rt.kops, ("segment_blocks",)) as cap:
-        t = time.perf_counter()
-        rt.polynomial_cofactors(store, vorder, feats, label, degree=3, device="cuda")
-        torch.cuda.synchronize()
-    log(f"polynomial degree 3 again, its {len(cap.calls)} segment_blocks calls "
-        f"captured: {time.perf_counter() - t:.3f}s")
-    return dict(degrees=rows, calls=poly_calls(rt, cap.calls)), launches
+    log(f"polynomial degree {POLY_FULL_DEGREES[-1]}: its {len(capture.calls)} segment_blocks "
+        f"calls captured")
+    return dict(degrees=rows, calls=poly_calls(rt, capture.calls)), launches
 
 
 def glm_poly_oracle(rt) -> dict:
@@ -3162,21 +3200,25 @@ def count_flash(lm, what, fn, expect) -> tuple:
     return out, n
 
 
-def bf16_forward_check(lm, params, cfg, params32, cfg32, batch) -> None:
+def bf16_forward_check(lm, params, cfg, float32, batch) -> dict:
     """The serving dtype end to end: bf16 forward logits at every position of
     ``batch`` through flash against the plain ``chunked_attention`` path, both
     held to the float32 model on the same weights (on the plain path too, so
-    that no kernel is in the baseline)."""
+    that no kernel is in the baseline).  ``float32()`` gives that model and
+    its config; it is called after the bf16 logits, so it may convert
+    ``params`` in place.  Returns the per-position relative errors."""
     v = cfg.vocab
 
     def logits(p, c):
-        return lm.forward(p, batch, c)[0][0, :, :v]
+        with torch.no_grad():
+            return lm.forward(p, batch, c)[0][0, :, :v]
 
     kern, _ = count_flash(lm, "bf16 forward", functools.partial(logits, params, cfg),
                           cfg.n_layers)
     with mock.patch.object(lm.kops, "flash_attention", plain_flash(lm.chunked_attention)):
         plain, _ = count_flash(lm, "bf16 forward, plain path",
                                functools.partial(logits, params, cfg), 0)
+        params32, cfg32 = float32()
         full, _ = count_flash(lm, "float32 forward, plain path",
                               functools.partial(logits, params32, cfg32), 0)
 
@@ -3203,6 +3245,32 @@ def bf16_forward_check(lm, params, cfg, params32, cfg32, batch) -> None:
         raise AssertionError(
             f"bf16 forward: flash vs plain path {float(k_p.max()):.3e} over "
             f"{BF16_NEAR_RATIO} x the plain path's distance from float32")
+    return {what: dict(median=float(r.median()), max=float(r.max()), mean=float(r.mean()))
+            for what, r in (("flash_vs_plain", k_p), ("flash_vs_float32", k_32),
+                            ("plain_vs_float32", p_32))} | dict(argmax_agree=agree)
+
+
+def greedy_ties(lm, params32, cfg32, prompts, res32) -> list:
+    """Each request's greedy tokens held to a teacher-forced full forward
+    of its prompt and tokens: every pick must be the oracle's top logit, or
+    within NEAR_TIE of it (a near-tie, returned as (uid, step, gap))."""
+    ties = []
+    for uid, prompt in enumerate(prompts):
+        gen = res32[uid].tokens
+        seq = torch.tensor([prompt + gen[:-1]], device="cuda")
+        with torch.no_grad():
+            logits, _ = lm.forward(params32, {"tokens": seq}, cfg32)
+        steps = logits[0, len(prompt) - 1 :, : cfg32.vocab]
+        top = steps.max(dim=-1).values
+        picked = steps[torch.arange(len(gen), device="cuda"), torch.tensor(gen, device="cuda")]
+        gap = (top - picked).cpu().numpy()
+        for t in np.nonzero(gap > 0)[0]:
+            ties.append((uid, int(t), float(gap[t])))
+            if not gap[t] < NEAR_TIE:
+                raise AssertionError(
+                    f"request {uid} step {t}: engine picked {gen[t]}, "
+                    f"{gap[t]:.3e} under the oracle's top logit")
+    return ties
 
 
 def lm_phase(lm) -> int:
@@ -3275,24 +3343,10 @@ def lm_phase(lm) -> int:
     log(f"float32 serve: {wall32:.3f}s; bf16 and float32 agree on {same} of "
         f"{gen_tokens} tokens")
 
-    def oracle():
-        ties = []
-        for uid, prompt in enumerate(prompts):
-            gen = res32[uid].tokens
-            seq = torch.tensor([prompt + gen[:-1]], device="cuda")
-            logits, _ = lm.forward(params32, {"tokens": seq}, cfg32)
-            steps = logits[0, len(prompt) - 1 :, : cfg.vocab]
-            top = steps.max(dim=-1).values
-            picked = steps[torch.arange(LM_NEW, device="cuda"), torch.tensor(gen, device="cuda")]
-            gap = (top - picked).cpu().numpy()
-            for t in np.nonzero(gap > 0)[0]:
-                ties.append((uid, int(t), float(gap[t])))
-                if not gap[t] < NEAR_TIE:
-                    raise AssertionError(
-                        f"request {uid} step {t}: engine picked {gen[t]}, "
-                        f"{gap[t]:.3e} under the oracle's top logit")
-        return ties
-    ties, _ = count_flash(lm, "float32 oracle forwards", oracle, per_prefill * LM_REQUESTS)
+    ties, _ = count_flash(
+        lm, "float32 oracle forwards",
+        functools.partial(greedy_ties, lm, params32, cfg32, prompts, res32),
+        per_prefill * LM_REQUESTS)
     log(f"float32 greedy tokens vs full-forward oracle: {LM_REQUESTS * LM_NEW - len(ties)} "
         f"of {LM_REQUESTS * LM_NEW} equal; near-ties {ties}")
 
@@ -3308,7 +3362,7 @@ def lm_phase(lm) -> int:
         f"tol={LOGIT_RTOL * scale:.3e}")
     if not (torch.isfinite(kernel_logits).all() and err <= LOGIT_RTOL * scale):
         raise AssertionError(f"prefill logits: flash vs plain path {err} > {LOGIT_RTOL * scale}")
-    bf16_forward_check(lm, params, cfg, params32, cfg32, batch)
+    bf16_forward_check(lm, params, cfg, lambda: (params32, cfg32), batch)
     return launches
 
 
@@ -3482,7 +3536,8 @@ def dist_phase(rt, inp) -> dict:
 
 # -- phase 11: LM training --------------------------------------------------------
 
-TRAIN_STEPS, TRAIN_CKPT_STEP, TRAIN_COMPRESS_STEPS = 30, 15, 10
+# 20 steps (30 until phase 12 needed the smoke's time), checkpoint at 10
+TRAIN_STEPS, TRAIN_CKPT_STEP, TRAIN_COMPRESS_STEPS = 20, 10, 10
 TRAIN_ARGV = ["--arch", LM_ARCH, "--batch", "8", "--seq", "128", "--dtype", "float32",
               "--device", "cuda", "--seed", str(SEED)]
 # one step on the card against the same step on the CPU, float32 both (TF32
@@ -3650,6 +3705,479 @@ def train_phase(tr) -> dict:
                 compressed=dict(losses=closs, **step_stats(squeezed.history, tokens)))
 
 
+# -- phase 12: the MoE, Mamba and xLSTM mixers -------------------------------------
+
+MOE_ARCH = "qwen2-moe-a2.7b"  # phase 7's traffic (LM_SERVE, LM_NEW, LM_PROMPT), 8 requests
+MOE_REQUESTS = 8
+MOE_REPLICA_LAYERS = 4  # the float32 replica's depth at full width (11.6 GB)
+MOE_OUT_RTOL = 1e-5  # a layer's output, card vs CPU, float32, of the largest
+MOE_TIE = 1e-6  # k-th and (k+1)-th router probabilities this close: a near-tie
+MOE_FLASH_SHAPE = ("qwen2-moe-a2.7b prefill", 1, 4096, 4096, 16, 16, 128, True, None, None,
+                   BF16, True)
+XLSTM_ARCH = "xlstm-1.3b"
+XLSTM_REQUESTS, XLSTM_NEW = 4, 32
+XLSTM_PROMPT = (2_048, 4_096)  # lengths multiples of xlstm_chunk (256): the reference's domain
+XLSTM_CHECK = (2_048, 256)  # float32: prefill, then teacher-forced decode steps
+XLSTM_RTOL = 1e-4  # decode logits vs the full forward, of max |logit|
+MAMBA_ARCH = "jamba-1.5-large-398b"
+MAMBA_LEN, MAMBA_DECODE = 4_095, 64  # not a multiple of mamba_chunk (128)
+MAMBA_RTOL = 1e-4  # decoded outputs vs the full apply, float32, of the largest
+# mamba_apply's peak over what it starts from, in [B, chunk, d_inner, N]
+# float32 working sets (a single-chunk fallback would take 32 for each of
+# its [B, S, d_inner, N] tensors)
+MAMBA_PEAK_CHUNKS = 16
+JAMBA_SMOKE = dict(slots=2, prefill_len=64, max_len=128)
+JAMBA_SMOKE_REQUESTS, JAMBA_SMOKE_NEW, JAMBA_SMOKE_PROMPT = 4, 8, (20, 60)
+
+
+def route_log(moe, sink: list, host: bool = False):
+    """Patch ``moe.route`` (where the MoE layers look it up) to record each
+    dispatch plan: on the host (the probabilities, capacity, selection,
+    positions and keep mask) or as device counts (pairs, dropped)."""
+    real = moe.route
+
+    def route(probs, k, cap):
+        out = real(probs, k, cap)
+        if host:
+            sink.append(dict(probs=probs.detach().cpu(), cap=cap, sel=out[1].cpu(),
+                             pos=out[2].cpu(), keep=out[3].cpu()))
+        else:
+            sink.append(dict(tokens=probs.shape[0] * probs.shape[1], pairs=out[3].numel(),
+                             dropped=(~out[3]).sum()))
+        return out
+    return mock.patch.object(moe, "route", route)
+
+
+def device_op_count(prof) -> int:
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type != torch.autograd.DeviceType.CPU and e.self_device_time_total > 0)
+
+
+def profiled_step(fn, ms: float, what: str) -> dict:
+    """One call of ``fn`` under the profiler, on the device alone (a host
+    trace of its thousands of ops would cost seconds): device busy against
+    the unprofiled ``ms``, and the device kernels, copies and fills."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = device_ops(prof)
+    busy = sum(us for _, us in ops) / 1e3
+    n = device_op_count(prof)
+    log(f"{what}: device busy {busy:.3f} ms of {ms:.3f} ms (idle share "
+        f"{1 - busy / ms:.4f}), {n} device kernels, copies and fills")
+    for name, us in ops[:5]:
+        log(f"  device {us / 1e3:10.3f} ms  {name[:90]}")
+    return dict(device_busy_ms=busy, idle_share=1 - busy / ms, device_ops=n,
+                top_device_ops=[(name[:80], us / 1e3) for name, us in ops[:5]])
+
+
+def serve_stats(what, res, wall, peak) -> dict:
+    n = sum(len(r.tokens) for r in res.values())
+    lat = sorted(r.latency_s for r in res.values())
+    out = dict(requests=len(res), tokens=n, wall_s=wall, tokens_per_s=n / wall,
+               latency_p50_s=lat[len(lat) // 2], latency_p100_s=lat[-1],
+               max_memory_allocated=peak)
+    log(f"{what}: {len(res)} requests, {n} tokens in {wall:.3f}s ({n / wall:.1f} tok/s); "
+        f"latency p50 {out['latency_p50_s']:.3f}s p100 {lat[-1]:.3f}s; "
+        f"max_memory_allocated={peak}")
+    return out
+
+
+def to_float32(module) -> None:
+    """Every parameter of ``module`` cast to float32 in place, one at a
+    time (so the bf16 and float32 copies never coexist whole)."""
+    with torch.no_grad():
+        for p in module.parameters():
+            p.data = p.data.float()
+    torch.cuda.empty_cache()
+
+
+def moe_dispatch_check(lm, params, cfg, batch) -> dict:
+    """Each MoE layer of one float32 prefill at the serving capacity: the
+    plain dispatch recomputed on the CPU from the card's own router
+    probabilities must equal the card's (selection, positions, keep); the
+    layer's output must equal the CPU float32 layer's on the same input
+    (within MOE_OUT_RTOL of the largest) on every token where the two
+    devices' selections agree, and a token whose selection differs must be
+    a near-tie (k-th and (k+1)-th probabilities within MOE_TIE)."""
+    e, k = cfg.moe_experts, cfg.moe_topk
+    layers, plans = [], []
+    real_apply = lm.moe.moe_apply
+
+    def apply(mod, x, c, capacity_factor=None):
+        out = real_apply(mod, x, c, capacity_factor=capacity_factor)
+        layers.append((mod, x.detach().cpu(), out[0].detach().cpu(), capacity_factor))
+        return out
+
+    with mock.patch.object(lm.moe, "moe_apply", apply), route_log(lm.moe, plans, host=True):
+        lm.prefill(params, batch, cfg, LM_SERVE["max_len"])
+    if len(layers) != len(plans) or len(layers) != lm.num_moe_layers(cfg):
+        raise AssertionError(f"MoE dispatch: {len(layers)} layers, {len(plans)} plans")
+    out = []
+    for i, ((mod, x, y, cf), card) in enumerate(zip(layers, plans)):
+        t = time.perf_counter()
+        g, n = card["probs"].shape[:2]
+        cap = lm.moe.capacity(n, k, e, cf)
+        _, sel, pos, keep = lm.moe.route(card["probs"], k, cap)
+        for name, got in (("sel", sel), ("pos", pos), ("keep", keep)):
+            if card["cap"] != cap or not torch.equal(got, card[name]):
+                raise AssertionError(f"MoE layer {i}: the card's {name} differs from the "
+                                     f"plain dispatch on its own probabilities")
+        top = card["probs"].topk(k + 1, dim=-1).values
+        near = (top[..., k - 1] - top[..., k] < MOE_TIE).reshape(-1)
+        # the CPU float32 layer on the same input, its own router included
+        host = lm.moe.MoE(cfg, device="cpu")
+        host.load_state_dict({n_: v.cpu() for n_, v in mod.state_dict().items()})
+        cpu_plans = []
+        with route_log(lm.moe, cpu_plans, host=True), torch.no_grad():
+            want, _ = real_apply(host, x, cfg, capacity_factor=cf)
+        del host
+        cpu = cpu_plans[0]
+        sel_diff = (cpu["sel"] != card["sel"]).any(-1).reshape(-1)
+        keep_diff = (cpu["keep"] != card["keep"]).any(-1).reshape(-1)
+        if bool((sel_diff & ~near).any()) or (bool(keep_diff.any()) and not bool(sel_diff.any())):
+            raise AssertionError(f"MoE layer {i}: the CPU's selection differs from the card's "
+                                 f"away from a near-tie")
+        agree = ~(sel_diff | keep_diff)
+        y, want = y.reshape(-1, y.shape[-1]), want.reshape(-1, want.shape[-1])
+        scale = float(want.abs().max())
+        err = float((y[agree] - want[agree]).abs().max())
+        dropped = int((~keep).sum())
+        row = dict(layer=i, tokens=n, capacity=cap, dropped_pairs=dropped,
+                   dropped_share=dropped / keep.numel(), max_abs_err=err, scale=scale,
+                   rtol=MOE_OUT_RTOL, near_ties=int(near.sum()),
+                   selection_differs=int(sel_diff.sum()), compared=int(agree.sum()),
+                   cpu_s=time.perf_counter() - t)
+        log(f"MoE layer {i}: dispatch equal to the CPU's on the card's probabilities "
+            f"(capacity {cap}, {dropped} of {keep.numel()} pairs dropped); output vs CPU "
+            f"float32 max_abs_err={err:.3e} (scale {scale:.3e}, rtol {MOE_OUT_RTOL}) over "
+            f"{row['compared']} tokens; near-ties {row['near_ties']}, selection differs at "
+            f"{row['selection_differs']}; {row['cpu_s']:.1f}s")
+        if not err <= MOE_OUT_RTOL * scale:
+            raise AssertionError(f"MoE layer {i}: card vs CPU {err} > {MOE_OUT_RTOL} · {scale}")
+        out.append(row)
+    return dict(layers=out)
+
+
+def moe_leg(lm, gen) -> tuple:
+    """qwen2-moe-a2.7b at full width and depth behind the engine (phase 7's
+    traffic), flash on every prefill; then its checks.  Returns (the leg's
+    JSON, flash launches of the serving run, flash's row at this shape)."""
+    cfg = lm.get_config(MOE_ARCH)
+    t = time.perf_counter()
+    params = lm.init_params(cfg, seed=SEED, device="cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, {cfg.moe_experts} experts top-"
+        f"{cfg.moe_topk} (ff {cfg.moe_ff}, shared {cfg.moe_shared_ff}), vocab {cfg.vocab}, "
+        f"{cfg.dtype}, {n_params} parameters, {time.perf_counter() - t:.2f}s to draw")
+    rng = np.random.RandomState(SEED)
+    prompts = [
+        [int(x) for x in rng.randint(1, cfg.vocab, size=rng.randint(LM_PROMPT[0], LM_PROMPT[1] + 1))]
+        for _ in range(MOE_REQUESTS)
+    ]
+    log(f"prompt lengths {[len(p) for p in prompts]}")
+    flash_row = flash_case(lm.ref, lm.kops, gen, MOE_FLASH_SHAPE)
+    warm = lm.Engine(params, cfg, lm.ServeConfig(**LM_SERVE))
+    warm.submit(lm.Request(uid=0, tokens=prompts[0][:2_100], max_new_tokens=2))
+    warm.run()
+    del warm
+
+    torch.cuda.reset_peak_memory_stats()
+    routes = []
+    with route_log(lm.moe, routes):
+        (res, wall), launches = count_flash(
+            lm, "qwen2-moe bf16 serve", functools.partial(lm_serve, lm, params, cfg, prompts),
+            cfg.n_layers * MOE_REQUESTS)
+    serve = serve_stats("qwen2-moe bf16 serve", res, wall, torch.cuda.max_memory_allocated())
+    n = cfg.n_layers
+    pre = [c for c in routes if c["tokens"] == LM_SERVE["prefill_len"]]
+    if len(pre) != n * MOE_REQUESTS:
+        raise AssertionError(f"{len(pre)} prefill dispatches, expected {n * MOE_REQUESTS}")
+    shares = [sum(float(c["dropped"]) for c in pre[i : i + n]) / sum(c["pairs"] for c in pre[i : i + n])
+              for i in range(0, len(pre), n)]
+    decode_dropped = sum(float(c["dropped"]) for c in routes if c["tokens"] != LM_SERVE["prefill_len"])
+    log(f"dropped (token, pick) pairs a prefill ({n} layers, pads routed): "
+        f"{[f'{s:.4f}' for s in shares]}; dropped in decode steps: {decode_dropped:.0f}")
+    serve.update(dropped_share_per_prefill=shares, decode_dropped_pairs=decode_dropped)
+    del routes
+
+    toks = np.zeros((1, LM_SERVE["prefill_len"]), np.int64)
+    toks[0, : len(prompts[0])] = prompts[0]
+    batch = {"tokens": torch.from_numpy(toks).cuda()}
+    prefill = functools.partial(lm.prefill, params, batch, cfg, LM_SERVE["max_len"])
+    serve["prefill_ms"] = time_ms(prefill, reps=3, warmup=1)
+    cache = lm.init_cache(cfg, LM_SERVE["slots"], LM_SERVE["max_len"])
+    step = torch.ones((LM_SERVE["slots"], 1), dtype=torch.long, device="cuda")
+    decode = functools.partial(lm.decode_step, params, step, cache, 3_000, cfg)
+    serve["decode_step_ms"] = time_ms(decode, reps=5)
+    log(f"qwen2-moe bf16 prefill of {LM_SERVE['prefill_len']} tokens {serve['prefill_ms']:.3f} ms; "
+        f"decode step ({LM_SERVE['slots']} slots) {serve['decode_step_ms']:.3f} ms")
+    serve["decode_step_profiled"] = profiled_step(decode, serve["decode_step_ms"],
+                                                  "qwen2-moe bf16 decode step")
+    del cache, decode
+
+    # flash vs the plain path in bf16 at full depth, dropless: at 1.25 a
+    # router probability that rounds otherwise shifts the capacity positions
+    # of every later pick of its expert, and the per-position errors would
+    # measure that cascade, not attention
+    free = dict(moe_capacity=float(cfg.moe_experts), moe_capacity_serve=float(cfg.moe_experts))
+
+    def float32():
+        to_float32(params)
+        return params, dataclasses.replace(cfg, dtype_name="float32", param_dtype_name="float32",
+                                           **free)
+    bf16 = bf16_forward_check(lm, params, dataclasses.replace(cfg, **free), float32, batch)
+    bf16["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"peak device memory through the float32 forward at full depth: "
+        f"{bf16['max_memory_allocated']}")
+
+    # the float32 replica: the first layers of the same weights
+    del params.blocks[MOE_REPLICA_LAYERS:]
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, dtype_name="float32", param_dtype_name="float32",
+                                n_layers=MOE_REPLICA_LAYERS)
+    t = time.perf_counter()
+    dispatch = moe_dispatch_check(lm, params, cfg32, batch)
+    dispatch["seconds"] = time.perf_counter() - t
+    # greedy tokens vs the full-forward oracle: dropless (a capacity factor
+    # of E gives every expert room for every token), since at 1.25 the
+    # padded prefill and the unpadded oracle drop different pairs
+    cfg_free = dataclasses.replace(cfg32, **free)
+    (res32, wall32), _ = count_flash(
+        lm, "float32 replica serve (dropless)",
+        functools.partial(lm_serve, lm, params, cfg_free, prompts), MOE_REPLICA_LAYERS * MOE_REQUESTS)
+    ties, _ = count_flash(lm, "float32 replica oracle forwards",
+                          functools.partial(greedy_ties, lm, params, cfg_free, prompts, res32),
+                          MOE_REPLICA_LAYERS * MOE_REQUESTS)
+    log(f"float32 replica ({MOE_REPLICA_LAYERS} layers): greedy tokens vs full-forward oracle: "
+        f"{MOE_REQUESTS * LM_NEW - len(ties)} of {MOE_REQUESTS * LM_NEW} equal; near-ties {ties}")
+    del params
+    torch.cuda.empty_cache()
+    return (dict(arch=cfg.name, params=n_params, serve=serve, bf16_forward=bf16,
+                 dispatch=dispatch, replica=dict(layers=MOE_REPLICA_LAYERS, wall_s=wall32,
+                                                 near_ties=ties)),
+            launches, flash_row)
+
+
+def xlstm_leg(lm) -> dict:
+    """xlstm-1.3b at full width and depth behind the engine's exact-length
+    prefill; then float32 prefill + teacher-forced decode against the full
+    forward."""
+    cfg = lm.get_config(XLSTM_ARCH)
+    t = time.perf_counter()
+    params = lm.init_params(cfg, seed=SEED, device="cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    kinds = [b.mixer for b in cfg.pattern] * cfg.n_periods
+    log(f"{cfg.name}: {cfg.n_layers} layers ({kinds.count('slstm')} sLSTM, "
+        f"{kinds.count('mlstm')} mLSTM), d_model {cfg.d_model}, {cfg.n_heads} heads, vocab "
+        f"{cfg.vocab}, {cfg.dtype}, {n_params} parameters, {time.perf_counter() - t:.2f}s to draw")
+    rng = np.random.RandomState(SEED)
+    step = cfg.xlstm_chunk
+    lens = rng.randint(XLSTM_PROMPT[0] // step, XLSTM_PROMPT[1] // step + 1, XLSTM_REQUESTS) * step
+    prompts = [[int(x) for x in rng.randint(1, cfg.vocab, size=n)] for n in lens]
+    log(f"prompt lengths {[len(p) for p in prompts]}")
+    scfg = lm.ServeConfig(**LM_SERVE, seed=SEED)
+    warm = lm.Engine(params, cfg, scfg)
+    warm.submit(lm.Request(uid=0, tokens=prompts[0][:step], max_new_tokens=2))
+    warm.run()
+    del warm
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = lm.Engine(params, cfg, scfg)
+    for uid, prompt in enumerate(prompts):
+        eng.submit(lm.Request(uid=uid, tokens=prompt, max_new_tokens=XLSTM_NEW))
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with SyncTimers((lm.xl, ("slstm_apply", "mlstm_apply"))) as timers:
+        results = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    res = {r.uid: r for r in results}
+    if sorted(res) != list(range(len(prompts))) or any(
+            len(r.tokens) != XLSTM_NEW or not all(0 <= x < cfg.vocab for x in r.tokens)
+            for r in results):
+        raise AssertionError(f"xlstm serve: bad results {[(r.uid, r.tokens) for r in results]}")
+    serve = serve_stats("xlstm bf16 serve", res, wall, torch.cuda.max_memory_allocated())
+    del eng
+    serve["prefill_s"] = {k: v for k, v in timers.seconds.items()}
+    serve["prefill_tokens"] = int(sum(lens))
+    cache = lm.init_cache(cfg, LM_SERVE["slots"], LM_SERVE["max_len"])
+    tok = torch.ones((LM_SERVE["slots"], 1), dtype=torch.long, device="cuda")
+    decode = functools.partial(lm.decode_step, params, tok, cache, 3_000, cfg)
+    serve["decode_step_ms"] = time_ms(decode, reps=5)
+    log(f"xlstm bf16 prefill of {serve['prefill_tokens']} tokens: sLSTM "
+        f"{timers.seconds['slstm_apply']:.3f}s, mLSTM {timers.seconds['mlstm_apply']:.3f}s; "
+        f"decode step ({LM_SERVE['slots']} slots) {serve['decode_step_ms']:.3f} ms")
+    serve["decode_step_profiled"] = profiled_step(decode, serve["decode_step_ms"],
+                                                  "xlstm bf16 decode step")
+    del cache, decode
+
+    # float32: prefill n0 tokens, decode n1 more teacher-forced, each step
+    # against the full forward at n0 + n1 on its position
+    to_float32(params)
+    cfg32 = dataclasses.replace(cfg, dtype_name="float32", param_dtype_name="float32")
+    n0, n1 = XLSTM_CHECK
+    seq = torch.from_numpy(rng.randint(1, cfg.vocab, size=(1, n0 + n1))).cuda()
+    t = time.perf_counter()
+    with torch.no_grad():
+        full = lm.forward(params, {"tokens": seq}, cfg32)[0][0, :, : cfg.vocab]
+    last, cache = lm.prefill(params, {"tokens": seq[:, :n0]}, cfg32, LM_SERVE["max_len"])
+    errs = [float((last[0, : cfg.vocab] - full[n0 - 1]).abs().max())]
+    for i in range(n0, n0 + n1):
+        logits, cache = lm.decode_step(params, seq[:, i : i + 1], cache, i, cfg32)
+        errs.append(float((logits[0, : cfg.vocab] - full[i]).abs().max()))
+    scale = float(full[n0 - 1 :].abs().max())
+    check = dict(prefill=n0, decode=n1, max_abs_err=max(errs), scale=scale, rtol=XLSTM_RTOL,
+                 seconds=time.perf_counter() - t)
+    log(f"xlstm float32: prefill {n0} + {n1} teacher-forced decode steps vs the full forward "
+        f"at {n0 + n1}: max_abs_err={max(errs):.3e} (scale {scale:.3e}, rtol {XLSTM_RTOL}); "
+        f"{check['seconds']:.1f}s")
+    if not (max(errs) <= XLSTM_RTOL * scale and bool(torch.isfinite(full).all())):
+        raise AssertionError(f"xlstm decode vs forward: {max(errs)} > {XLSTM_RTOL} · {scale}")
+    del params, full, cache
+    torch.cuda.empty_cache()
+    return dict(arch=cfg.name, params=n_params, prompt_lengths=[int(n) for n in lens],
+                serve=serve, float32_check=check)
+
+
+def mamba_leg(lm) -> dict:
+    """One Mamba mixer at jamba-1.5-large's full width: an apply over a
+    length that is not a multiple of the chunk and 64 decode steps from its
+    cache (bf16, timed, peak memory), then float32 decode vs the full
+    apply; last, jamba's smoke config end to end, card vs CPU."""
+    cfg = lm.get_config(MAMBA_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    mod = lm.mb.mamba_init(cfg, gen)
+    n_params = sum(p.numel() for p in mod.parameters())
+    total = MAMBA_LEN + MAMBA_DECODE
+    x = torch.randn(1, total, cfg.d_model, device="cuda", generator=gen)
+    xb = x.to(cfg.dtype)
+    log(f"Mamba at {MAMBA_ARCH} width: d_model {cfg.d_model}, d_inner {cfg.mamba_d_inner}, "
+        f"d_state {cfg.mamba_d_state}, dt_rank {cfg.mamba_dt_rank}, conv {cfg.mamba_d_conv}, "
+        f"chunk {cfg.mamba_chunk}, {cfg.dtype}, {n_params} parameters")
+    with torch.no_grad():
+        lm.mb.mamba_apply(mod, xb[:, : cfg.mamba_chunk], cfg)  # warm-up
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        _, cache = lm.mb.mamba_apply(mod, xb[:, :MAMBA_LEN], cfg, return_state=True)
+        torch.cuda.synchronize()
+        apply_s = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated() - base
+        t = time.perf_counter()
+        for i in range(MAMBA_LEN, total):
+            _, cache = lm.mb.mamba_decode(mod, xb[:, i : i + 1], cache, cfg)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t) / MAMBA_DECODE * 1e3
+    working = cfg.mamba_chunk * cfg.mamba_d_inner * cfg.mamba_d_state * 4
+    log(f"Mamba bf16 apply over {MAMBA_LEN} tokens {apply_s:.3f}s, peak {peak} bytes over its "
+        f"inputs = {peak / working:.2f} x the [1, {cfg.mamba_chunk}, {cfg.mamba_d_inner}, "
+        f"{cfg.mamba_d_state}] float32 working set (bound {MAMBA_PEAK_CHUNKS}); decode "
+        f"{decode_ms:.3f} ms a step")
+    if not peak <= MAMBA_PEAK_CHUNKS * working:
+        raise AssertionError(f"mamba_apply peak {peak} over {MAMBA_PEAK_CHUNKS} x {working}")
+    to_float32(mod)
+    cfg32 = dataclasses.replace(cfg, dtype_name="float32", param_dtype_name="float32")
+    with torch.no_grad():
+        full = lm.mb.mamba_apply(mod, x, cfg32)[:, MAMBA_LEN:]
+        _, cache = lm.mb.mamba_apply(mod, x[:, :MAMBA_LEN], cfg32, return_state=True)
+        steps = []
+        for i in range(MAMBA_LEN, total):
+            y, cache = lm.mb.mamba_decode(mod, x[:, i : i + 1], cache, cfg32)
+            steps.append(y)
+    got = torch.cat(steps, dim=1)
+    err, scale = float((got - full).abs().max()), float(full.abs().max())
+    log(f"Mamba float32: {MAMBA_DECODE} decode steps after {MAMBA_LEN} tokens vs the apply at "
+        f"{total}: max_abs_err={err:.3e} (scale {scale:.3e}, rtol {MAMBA_RTOL})")
+    if not (err <= MAMBA_RTOL * scale and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"mamba decode vs apply: {err} > {MAMBA_RTOL} · {scale}")
+    del mod, x, xb, full, got, cache
+    torch.cuda.empty_cache()
+
+    # jamba's smoke config end to end: the card's greedy tokens vs the CPU's
+    scfg = lm.get_config(MAMBA_ARCH, smoke=True)
+    params = lm.init_params(scfg, seed=SEED, device="cuda")
+    host = copy.deepcopy(params).cpu()
+    rng = np.random.RandomState(SEED)
+    prompts = [[int(v) for v in rng.randint(1, scfg.vocab, size=rng.randint(*JAMBA_SMOKE_PROMPT))]
+               for _ in range(JAMBA_SMOKE_REQUESTS)]
+    got = {}
+    for where, p in (("card", params), ("host", host)):
+        eng = lm.Engine(p, scfg, lm.ServeConfig(**JAMBA_SMOKE, seed=SEED))
+        for uid, prompt in enumerate(prompts):
+            eng.submit(lm.Request(uid=uid, tokens=prompt, max_new_tokens=JAMBA_SMOKE_NEW))
+        got[where] = {r.uid: r.tokens for r in eng.run()}
+    log(f"jamba smoke ({scfg.n_layers} layers: {[b.mixer + '+' + b.ffn for b in scfg.pattern]}) "
+        f"through the engine: card tokens {'equal' if got['card'] == got['host'] else 'DIFFER'} "
+        f"to the CPU's over {JAMBA_SMOKE_REQUESTS} requests")
+    if got["card"] != got["host"] or len(got["card"]) != JAMBA_SMOKE_REQUESTS:
+        raise AssertionError(f"jamba smoke: card {got['card']} vs CPU {got['host']}")
+    return dict(arch=cfg.name, params=n_params, length=MAMBA_LEN, apply_s=apply_s,
+                peak_bytes=peak, working_set_bytes=working, peak_rtol_chunks=MAMBA_PEAK_CHUNKS,
+                decode_ms=decode_ms, float32_check=dict(max_abs_err=err, scale=scale,
+                                                         rtol=MAMBA_RTOL),
+                jamba_smoke=dict(requests=JAMBA_SMOKE_REQUESTS, tokens_equal=True))
+
+
+LAUNCH_SERVE_ARGS = ["--requests", "4", "--max-new", "8"]  # its defaults otherwise
+
+
+def launch_serve_full(lm, arch: str) -> float:
+    """``launch.serve --arch <arch>`` at full size on the card; its wall
+    seconds."""
+    t = time.perf_counter()
+    if lm.launch_serve(["--arch", arch] + LAUNCH_SERVE_ARGS) != 0:
+        raise AssertionError(f"launch.serve --arch {arch} failed")
+    torch.cuda.empty_cache()
+    return time.perf_counter() - t
+
+
+def mixers_phase(lm) -> tuple:
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 12 starts with {torch.cuda.memory_allocated()} bytes allocated on the card")
+    t = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    moe, launches, flash_row = moe_leg(lm, gen)
+    moe["launch_serve_s"] = launch_serve_full(lm, MOE_ARCH)
+    log(f"phase 12 leg 1 (qwen2-moe): {time.perf_counter() - t:.1f}s")
+    t2 = time.perf_counter()
+    xlstm = xlstm_leg(lm)
+    xlstm["launch_serve_s"] = launch_serve_full(lm, XLSTM_ARCH)
+    log(f"phase 12 leg 2 (xlstm): {time.perf_counter() - t2:.1f}s")
+    t3 = time.perf_counter()
+    mamba = mamba_leg(lm)
+    log(f"phase 12 leg 3 (Mamba, jamba smoke): {time.perf_counter() - t3:.1f}s")
+    seconds = time.perf_counter() - t
+    log(f"phase 12: {seconds:.1f}s")
+    return dict(moe=moe, xlstm=xlstm, mamba=mamba, seconds=seconds), launches, flash_row
+
+
+def lm_namespace() -> types.SimpleNamespace:
+    """The LM substrate's entry points that phases 7 and 12 drive."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops, ref
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import mamba as lm_mamba
+    from repro_torch.models import model as lm_model
+    from repro_torch.models import moe as lm_moe
+    from repro_torch.models import xlstm as lm_xlstm
+    from repro_torch.models.attention import chunked_attention
+    from repro_torch.serve import Engine, Request, ServeConfig
+
+    return types.SimpleNamespace(
+        get_config=get_config, init_params=lm_model.init_params,
+        init_cache=lm_model.init_cache, prefill=lm_model.prefill,
+        decode_step=lm_model.decode_step, forward=lm_model.forward,
+        chunked_attention=chunked_attention, Engine=Engine, Request=Request,
+        ServeConfig=ServeConfig, kops=kops, ref=ref, moe=lm_moe, mb=lm_mamba, xl=lm_xlstm,
+        num_moe_layers=lm_model.num_moe_layers, launch_serve=launch_serve.main,
+    )
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device available")
@@ -3692,21 +4220,15 @@ def main() -> None:
     from repro_torch.kernels import moments as mom
     from repro_torch.kernels import segment_gram as sg
     from repro_torch.kernels import segment_view as sv
-    from repro_torch.configs import get_config
-    from repro_torch.models import model as lm_model
-    from repro_torch.models.attention import chunked_attention
     from repro_torch.launch import train as launch_train
     from repro_torch.train import compression, init_state, make_train_step
     from repro_torch.train._tree import tree_leaves, tree_map
     from repro_torch.train.checkpoint import latest_step
     from repro_torch.serve import (
-        Engine,
         FactorizedService,
         FaultInjector,
         InjectedFault,
-        Request,
         RetryPolicy,
-        ServeConfig,
         ServiceStopped,
     )
 
@@ -3736,13 +4258,7 @@ def main() -> None:
         make_train_step=make_train_step, tree_leaves=tree_leaves, tree_map=tree_map,
         latest_step=latest_step,
     )
-    lm = types.SimpleNamespace(
-        get_config=get_config, init_params=lm_model.init_params,
-        init_cache=lm_model.init_cache, prefill=lm_model.prefill,
-        decode_step=lm_model.decode_step, forward=lm_model.forward,
-        chunked_attention=chunked_attention, Engine=Engine, Request=Request,
-        ServeConfig=ServeConfig, kops=kops,
-    )
+    lm = lm_namespace()
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 means float32
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -3838,7 +4354,8 @@ def main() -> None:
     fd_oracle(rt)
 
     log("phase 7: LM serving")
-    rows["flash"]["launches"] = lm_phase(lm)
+    launches7 = lm_phase(lm)
+    rows["flash"]["launches"] = launches7
 
     log("phase 10: distribution at world size 1")
     distribution = dist_phase(rt, dist_inputs)
@@ -3852,10 +4369,17 @@ def main() -> None:
     log("phase 11: LM training")
     training = train_phase(tr)
 
+    log("phase 12: the MoE, Mamba and xLSTM mixers")
+    mixers, launches12, flash12 = mixers_phase(lm)
+    rows["flash"]["launches"] += launches12
+    rows["flash"]["launches_by_phase"] = dict(phase7=launches7, phase12=launches12)
+    rows["flash"]["phase12"] = flash12
+
     print(json.dumps({"phase8": glm_poly}))
     print(json.dumps({"service": service}))
     print(json.dumps({"distribution": distribution}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"mixers": mixers}))
     print(json.dumps({"kernels": [rows[n] for n in ALL_KERNELS]}))
     print(card)
     print(json.dumps({

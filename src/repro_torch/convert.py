@@ -100,10 +100,13 @@ def params_from_jax(tree: Mapping, cfg, device="cuda") -> Transformer:
 
     Layouts are the reference's (``wq [d, H, hd]``, ``wk`` / ``wv [d, KH,
     hd]``, ``wo [H, hd, d]``, ``w_gate`` / ``w_up [d, ff]``, ``w_down
-    [ff, d]``, ``embed [pv, d]``); layer ``i`` reads period ``i //
-    len(pattern)`` of block ``b{i % len(pattern)}``.  Matrices are cast to
-    ``cfg.param_dtype``; norm scales and biases stay float32, as in both
-    packages."""
+    [ff, d]``, ``embed [pv, d]``; MoE ``router [d, E]``, ``we_gate`` /
+    ``we_up [E, d, ff]``, ``we_down [E, ff, d]``, ``shared.*``; the Mamba,
+    mLSTM and sLSTM leaves of ``models/mamba.py`` and ``models/xlstm.py``);
+    layer ``i`` reads period ``i // len(pattern)`` of block ``b{i %
+    len(pattern)}``.  Each leaf takes its parameter's dtype: matrices
+    ``cfg.param_dtype``; norm scales, biases, the router, conv weights,
+    gates and recurrences float32, as in both packages."""
     model = Transformer(cfg, device=resolve_device(device))
     with torch.no_grad():
         for name, param in model.named_parameters():

@@ -1,20 +1,24 @@
-"""LM substrate of the port (dense attention + MLP family).
+"""LM substrate of the port.
 
 ``model`` assembles the blocks below according to a declarative
 ``ModelConfig`` (see ``repro_torch.configs``):
 
 * ``attention`` — GQA / MQA / sliding-window attention + KV caches; long
   prefills run through the hand-written flash kernel on the card
+* ``mamba``     — selective state space (jamba's mixer)
+* ``xlstm``     — mLSTM / sLSTM blocks
+* ``moe``       — top-k capacity-dispatch mixture of experts
 * ``layers``    — norms, MLPs, positions, initializers
 """
 
-from . import attention, layers, model
+from . import attention, layers, mamba, model, moe, xlstm
 from .model import (
     Transformer,
     decode_step,
     forward,
     init_cache,
     init_params,
+    loss_fn,
     padded_vocab,
     prefill,
 )
@@ -27,7 +31,11 @@ __all__ = [
     "init_cache",
     "init_params",
     "layers",
+    "loss_fn",
+    "mamba",
     "model",
+    "moe",
     "padded_vocab",
     "prefill",
+    "xlstm",
 ]

@@ -1,16 +1,16 @@
-"""Architecture assembly for the dense family: ``ModelConfig`` -> weights /
-forward / prefill / decode (PyTorch port of the JAX package's
-``models/model.py``).
+"""Architecture assembly: ``ModelConfig`` -> weights / forward / prefill /
+decode (PyTorch port of the JAX package's ``models/model.py``).
 
 The depth is the config's block pattern repeated ``n_periods`` times; here
 the blocks are an ``nn.ModuleList`` run in a Python loop (layer ``i`` is
-block ``i % len(pattern)`` of period ``i // len(pattern)``).  Ported: GQA
-attention (full and sliding-window) with a dense MLP (SwiGLU / GELU), RMS /
-Layer / non-parametric LayerNorm, RoPE or learned positions, tied or
-separate LM head.  Not ported yet (``NotImplementedError``, ROADMAP queue 1
-item 10): the mamba, mLSTM and sLSTM mixers, MoE feed-forwards, the
-whisper encoder and the llava patch prefix.  One card holds the whole
-model, so the reference's sharding constraints have no counterpart here.
+block ``i % len(pattern)`` of period ``i // len(pattern)``).  Ported:
+mixers GQA attention (full and sliding-window), Mamba, mLSTM and sLSTM;
+feed-forwards a dense MLP (SwiGLU / GELU), MoE (top-k capacity dispatch)
+or none; RMS / Layer / non-parametric LayerNorm, RoPE, learned or no
+positions, tied or separate LM head.  Not ported yet
+(``NotImplementedError``, ROADMAP queue 1 item 10.4): the whisper encoder
+and the llava patch prefix.  One card holds the whole model, so the
+reference's sharding constraints have no counterpart here.
 
 Public entry points (``params`` is a :class:`Transformer`)::
 
@@ -31,8 +31,10 @@ clipping and compression see the reference's leaves) and runs the model on
 per-layer views of it (``tree_views``).
 
 Caches keep the reference's structure: ``{"periods": {"b<i>": {"mixer":
-{"k", "v", "pos"}}}}`` with leaves stacked over periods (``[n_periods,
-B, slots, ...]``).  Logits are float32 ``[.., padded_vocab]``.
+{...}}}}`` with leaves stacked over periods (``[n_periods, B, ...]``):
+attention ``{"k", "v", "pos"}``, Mamba ``{"conv", "h"}``, mLSTM ``{"conv",
+"S", "n"}``, sLSTM ``{"h", "c", "n"}``.  Logits are float32 ``[..,
+padded_vocab]``.
 """
 
 from __future__ import annotations
@@ -43,6 +45,9 @@ import torch
 from torch import nn
 
 from . import attention as attn
+from . import mamba as mb
+from . import moe as moe_mod
+from . import xlstm as xl
 from .layers import MLP, Norm, apply_norm, dense_init, embed_init, truncated_normal
 
 __all__ = [
@@ -54,6 +59,7 @@ __all__ = [
     "init_cache",
     "init_params",
     "loss_fn",
+    "num_moe_layers",
     "padded_vocab",
     "param_tree",
     "prefill",
@@ -62,7 +68,7 @@ __all__ = [
     "tree_views",
 ]
 
-_TODO = "is not ported yet (ROADMAP queue 1, item 10)"
+_TODO = "is not ported yet (ROADMAP queue 1, item 10.4)"
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -72,6 +78,10 @@ def _round_up(x: int, mult: int) -> int:
 def padded_vocab(cfg) -> int:
     """Vocab padded to a 256 multiple, as the reference pads it."""
     return _round_up(cfg.vocab, 256)
+
+
+def num_moe_layers(cfg) -> int:
+    return cfg.n_periods * sum(1 for b in cfg.pattern if b.ffn == "moe")
 
 
 def resolve_device(device) -> torch.device:
@@ -93,11 +103,6 @@ def resolve_device(device) -> torch.device:
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` for the parts of ``cfg`` the port does
     not run yet."""
-    for blk in cfg.pattern:
-        if blk.mixer != "attn":
-            raise NotImplementedError(f"{cfg.name}: the {blk.mixer} mixer {_TODO}")
-        if blk.ffn not in ("mlp", "none"):
-            raise NotImplementedError(f"{cfg.name}: the {blk.ffn} feed-forward {_TODO}")
     if cfg.is_encoder_decoder:
         raise NotImplementedError(f"{cfg.name}: the encoder (encode) {_TODO}")
     if cfg.n_patches:
@@ -106,17 +111,32 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(f"{cfg.name}: {cfg.pos} positions {_TODO}")
 
 
+_MIXERS = {
+    "attn": attn.attention_init,
+    "mamba": mb.mamba_init,
+    "mlstm": xl.mlstm_init,
+    "slstm": xl.slstm_init,
+}
+
+
 class TransformerBlock(nn.Module):
-    """One (attention, feed-forward) position of the depth pattern."""
+    """One (mixer, feed-forward) position of the depth pattern."""
 
     def __init__(self, cfg, blk, generator=None, device=None) -> None:
         super().__init__()
-        self.has_ffn = blk.ffn != "none"
+        if blk.mixer not in _MIXERS:
+            raise ValueError(f"unknown mixer {blk.mixer}")
+        if blk.ffn not in ("mlp", "moe", "none"):
+            raise ValueError(f"unknown ffn {blk.ffn}")
+        self.mixer_kind, self.ffn_kind = blk.mixer, blk.ffn
         self.mixer_norm = Norm(cfg.d_model, cfg.norm, device)
-        self.mixer = attn.attention_init(cfg, generator, device)
-        if self.has_ffn:
+        self.mixer = _MIXERS[blk.mixer](cfg, generator, device)
+        if blk.ffn != "none":
             self.ffn_norm = Norm(cfg.d_model, cfg.norm, device)
+        if blk.ffn == "mlp":
             self.ffn = MLP(cfg.d_model, cfg.d_ff, cfg.mlp, cfg.param_dtype, generator, device)
+        elif blk.ffn == "moe":
+            self.ffn = moe_mod.moe_init(cfg, generator, device)
 
 
 class Transformer(nn.Module):
@@ -180,30 +200,49 @@ def _head(params: Transformer, x: torch.Tensor, cfg) -> torch.Tensor:
     return x.float() @ params.lm_head.float()
 
 
-def _ffn(blk: TransformerBlock, x: torch.Tensor, cfg) -> torch.Tensor:
-    if not blk.has_ffn:
-        return x
-    return x + blk.ffn(apply_norm(x, blk.ffn_norm, cfg.norm))
+def _ffn(blk: TransformerBlock, x: torch.Tensor, cfg, capacity_factor=None):
+    """The block's feed-forward with its residual: ``(x, MoE aux or None)``.
+    An MoE layer routes at ``capacity_factor`` (None: ``cfg.moe_capacity``)."""
+    if blk.ffn_kind == "none":
+        return x, None
+    h = apply_norm(x, blk.ffn_norm, cfg.norm)
+    if blk.ffn_kind == "mlp":
+        return x + blk.ffn(h), None
+    moe_fn = moe_mod.moe_apply_row_local if cfg.moe_row_local else moe_mod.moe_apply
+    out, aux = moe_fn(blk.ffn, h, cfg, capacity_factor=capacity_factor)
+    return x + out, aux
+
+
+def _mixer_apply(blk: TransformerBlock, h: torch.Tensor, cfg) -> torch.Tensor:
+    if blk.mixer_kind == "attn":
+        return attn.attention_apply(blk.mixer, h, cfg, causal=True, window=cfg.window)
+    if blk.mixer_kind == "mamba":
+        return mb.mamba_apply(blk.mixer, h, cfg)
+    if blk.mixer_kind == "mlstm":
+        return xl.mlstm_apply(blk.mixer, h, cfg)
+    return xl.slstm_apply(blk.mixer, h, cfg)
 
 
 def forward(params: Transformer, batch, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence logits ``[B, S, padded_vocab]`` (float32) and the MoE
-    aux loss (0: no MoE layer is ported)."""
+    aux loss summed over the MoE layers (float32; 0 without one)."""
     x = _embed_inputs(params, batch, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in params.blocks:
-        h = apply_norm(x, blk.mixer_norm, cfg.norm)
-        x = x + attn.attention_apply(blk.mixer, h, cfg, causal=True, window=cfg.window)
-        x = _ffn(blk, x, cfg)
+        x = x + _mixer_apply(blk, apply_norm(x, blk.mixer_norm, cfg.norm), cfg)
+        x, a = _ffn(blk, x, cfg)
+        if a is not None:
+            aux = aux + a
     x = apply_norm(x, params.final_norm, cfg.norm)
-    logits = _head(params, x, cfg)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return _head(params, x, cfg), aux
 
 
 def loss_fn(params: Transformer, batch, cfg):
-    """Mean next-token cross entropy (+ router aux, none while no MoE layer
-    is ported).  ``labels`` are already aligned to predict-next; positions
-    with label < 0 are masked out.  Returns ``(loss, metrics)``, metrics
-    ``loss`` / ``ce`` / ``aux`` / ``ntok`` as float32 scalars."""
+    """Mean next-token cross entropy plus ``router_aux · aux / n`` over the
+    ``n`` MoE layers (if any).  ``labels`` are already aligned to
+    predict-next; positions with label < 0 are masked out.  Returns
+    ``(loss, metrics)``, metrics ``loss`` / ``ce`` / ``aux`` / ``ntok`` as
+    float32 scalars."""
     logits, aux = forward(params, batch, cfg)
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     mask = (labels >= 0).float()
@@ -213,8 +252,10 @@ def loss_fn(params: Transformer, batch, cfg):
     nll = (logz - tgt) * mask
     ntok = torch.clamp(mask.sum(), min=1.0)
     ce = nll.sum() / ntok
-    metrics = {"loss": ce, "ce": ce, "aux": aux, "ntok": ntok}
-    return ce, metrics
+    nm = num_moe_layers(cfg)
+    total = ce + cfg.router_aux * aux / nm if nm else ce
+    metrics = {"loss": total, "ce": ce, "aux": aux, "ntok": ntok}
+    return total, metrics
 
 
 def tree_path(name: str, cfg) -> Tuple[Tuple[str, ...], Optional[int]]:
@@ -276,15 +317,15 @@ def tree_views(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
 
 
 def _stack_cache(cfg, layer_caches) -> Dict:
-    """Per-layer ``{"k", "v", "pos"}`` dicts → the reference's structure,
-    leaves stacked over periods."""
+    """Per-layer mixer caches → the reference's structure, leaves stacked
+    over periods."""
     n = len(cfg.pattern)
     return {
         "periods": {
             f"b{bi}": {
                 "mixer": {
                     name: torch.stack([c[name] for c in layer_caches[bi::n]])
-                    for name in ("k", "v", "pos")
+                    for name in layer_caches[bi]
                 }
             }
             for bi in range(n)
@@ -292,57 +333,95 @@ def _stack_cache(cfg, layer_caches) -> Dict:
     }
 
 
+def _mixer_prefill(blk: TransformerBlock, h: torch.Tensor, cfg, max_len: int):
+    if blk.mixer_kind == "attn":
+        return attn.attention_prefill(blk.mixer, h, cfg, max_len, window=cfg.window)
+    if blk.mixer_kind == "mamba":
+        return mb.mamba_apply(blk.mixer, h, cfg, return_state=True)
+    if blk.mixer_kind == "mlstm":
+        return xl.mlstm_apply(blk.mixer, h, cfg, return_state=True)
+    return xl.slstm_apply(blk.mixer, h, cfg, return_state=True)
+
+
 def prefill(params: Transformer, batch, cfg, max_len: int):
-    """Returns (last-position logits ``[B, pv]``, decode cache)."""
+    """Returns (last-position logits ``[B, pv]``, decode cache).  MoE layers
+    route at ``cfg.moe_capacity_serve``."""
     with torch.inference_mode():
         x = _embed_inputs(params, batch, cfg)
         caches = []
         for blk in params.blocks:
-            h = apply_norm(x, blk.mixer_norm, cfg.norm)
-            h, c = attn.attention_prefill(blk.mixer, h, cfg, max_len, window=cfg.window)
-            x = _ffn(blk, x + h, cfg)
+            h, c = _mixer_prefill(blk, apply_norm(x, blk.mixer_norm, cfg.norm), cfg, max_len)
+            x, _ = _ffn(blk, x + h, cfg, cfg.moe_capacity_serve)
             caches.append(c)
         x = apply_norm(x[:, -1:], params.final_norm, cfg.norm)
         return _head(params, x, cfg)[:, 0], _stack_cache(cfg, caches)
+
+
+def _init_block_cache(cfg, blk, batch: int, max_len: int, device) -> Dict:
+    if blk.mixer == "attn":
+        return attn.init_kv_cache(cfg, batch, max_len, window=cfg.window, device=device)
+    if blk.mixer == "mamba":
+        return mb.init_mamba_cache(cfg, batch, device)
+    if blk.mixer == "mlstm":
+        return xl.init_mlstm_cache(cfg, batch, device)
+    if blk.mixer == "slstm":
+        return xl.init_slstm_cache(cfg, batch, device)
+    raise ValueError(f"unknown mixer {blk.mixer}")
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Dict:
     """Fresh (empty) decode cache for ``batch`` rows."""
     check_supported(cfg)
     dev = resolve_device(device)
-    one = attn.init_kv_cache(cfg, batch, max_len, window=cfg.window, device=dev)
     return {
         "periods": {
             f"b{bi}": {
                 "mixer": {
                     name: t[None].repeat((cfg.n_periods,) + (1,) * t.dim())
-                    for name, t in one.items()
+                    for name, t in _init_block_cache(cfg, blk, batch, max_len, dev).items()
                 }
             }
-            for bi in range(len(cfg.pattern))
+            for bi, blk in enumerate(cfg.pattern)
         }
     }
+
+
+_DECODE = {"mamba": mb.mamba_decode, "mlstm": xl.mlstm_decode, "slstm": xl.slstm_decode}
 
 
 def decode_step(params: Transformer, token, cache: Dict, cur_pos: int, cfg):
     """token ``[B, 1]`` ints, ``cur_pos`` an int (same for every row) ->
     (logits ``[B, pv]`` float32, new cache).  ``cache`` is left as it was:
-    the step writes into one copy of it."""
+    attention layers write into one copy of their K/V, recurrent layers
+    return new states.  MoE layers route at ``cfg.moe_capacity_serve``."""
     with torch.inference_mode():
+        kinds = [blk.mixer for blk in cfg.pattern]
         new = {
             "periods": {
                 b: {"mixer": {n: t.clone() for n, t in c["mixer"].items()}}
-                for b, c in cache["periods"].items()
+                for (b, c), kind in zip(cache["periods"].items(), kinds) if kind == "attn"
             }
         }
+        states = {f"b{bi}": [] for bi, kind in enumerate(kinds) if kind != "attn"}
         tokens = torch.as_tensor(token, device=params.device).long()
         x = params.embed[tokens].to(cfg.dtype)
         if cfg.pos == "learned":
             x = x + params.pos_embed[cur_pos][None, None]
         for (period, name), blk in zip(_layers(cfg), params.blocks):
-            layer = {n: t[period] for n, t in new["periods"][name]["mixer"].items()}
             h = apply_norm(x, blk.mixer_norm, cfg.norm)
-            x = x + attn.decode_into(blk.mixer, h, layer, cur_pos, cfg, window=cfg.window)
-            x = _ffn(blk, x, cfg)
+            if blk.mixer_kind == "attn":
+                layer = {n: t[period] for n, t in new["periods"][name]["mixer"].items()}
+                y = attn.decode_into(blk.mixer, h, layer, cur_pos, cfg, window=cfg.window)
+            else:
+                layer = {n: t[period] for n, t in cache["periods"][name]["mixer"].items()}
+                y, state = _DECODE[blk.mixer_kind](blk.mixer, h, layer, cfg)
+                states[name].append(state)
+            x, _ = _ffn(blk, x + y, cfg, cfg.moe_capacity_serve)
+        for name, per_period in states.items():
+            new["periods"][name] = {
+                "mixer": {n: torch.stack([st[n] for st in per_period]) for n in per_period[0]}
+            }
+        # the blocks in init_cache's order: the engine pairs leaves by position
+        new["periods"] = {f"b{bi}": new["periods"][f"b{bi}"] for bi in range(len(kinds))}
         x = apply_norm(x, params.final_norm, cfg.norm)
         return _head(params, x, cfg)[:, 0], new

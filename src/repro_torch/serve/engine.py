@@ -7,16 +7,19 @@ semantics.  The step functions come from ``repro_torch.models.model``
 * **slot-based continuous batching** — a fixed decode batch of ``slots``;
   finished sequences free their slot, queued requests are prefilled into
   the vacant slot's cache lines (``index_copy_`` on the batch axis);
-* one prefill shape: prompts are right-padded to ``prefill_len``, and the
-  pad K/V stays masked until real tokens overwrite its slots;
+* attention-only architectures prefill one shape: prompts are
+  right-padded to ``prefill_len``, and the pad K/V stays masked until real
+  tokens overwrite its slots (pad tokens are routed through MoE layers and
+  take capacity, as in the reference);
+* architectures with a recurrent mixer (Mamba, mLSTM, sLSTM) prefill at
+  the prompt's exact length, since pad tokens would run through the
+  recurrence; the first new token is sampled from the prefill logits;
 * greedy / temperature sampling (an explicit ``torch.Generator`` on the
   engine's device, seeded from ``ServeConfig.seed``);
 * per-request max-token and EOS stopping.
 
-Only attention mixers are ported (the model refuses the others), so every
-architecture here takes the padded prefill; the reference's exact-length
-prefill for recurrent mixers comes with them.  The engine runs where its
-weights are: on the card, unless the caller drew them on the CPU.
+The engine runs where its weights are: on the card, unless the caller drew
+them on the CPU.
 """
 
 from __future__ import annotations
@@ -89,6 +92,10 @@ class Engine:
         self._last_tok = np.zeros(scfg.slots, np.int64)
 
         self.cache = model_lib.init_cache(cfg, scfg.slots, scfg.max_len, self.device)
+        # recurrent mixers carry state: right-padding would push pad tokens
+        # through the recurrence, so those architectures prefill at the
+        # prompt's exact length
+        self.exact_prefill = any(b.mixer != "attn" for b in cfg.pattern)
 
     # -- public API ----------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -110,22 +117,35 @@ class Engine:
                 continue
             req = self._queue.popleft()
             self._slot_t0[slot] = time.perf_counter()
-            toks = np.zeros((1, self.scfg.prefill_len), np.int64)
-            toks[0, : len(req.tokens)] = req.tokens
+            if self.exact_prefill:
+                toks = np.asarray([req.tokens], np.int64)
+            else:
+                toks = np.zeros((1, self.scfg.prefill_len), np.int64)
+                toks[0, : len(req.tokens)] = req.tokens
             batch = {"tokens": torch.from_numpy(toks).to(self.device)}
-            _, cache1 = model_lib.prefill(self.params, batch, self.cfg, self.scfg.max_len)
+            logits, cache1 = model_lib.prefill(self.params, batch, self.cfg, self.scfg.max_len)
             # place the prefilled cache lines into this slot
             idx = torch.tensor([slot], device=self.device)
             for full, one in zip(_leaves(self.cache), _leaves(cache1)):
                 full.index_copy_(1, idx, one)
             self._slot_req[slot] = req
             self._slot_new[slot] = []
-            # attention caches are idempotent under re-write: the first
-            # decode tick re-emits the last prompt token's KV and samples the
-            # next token; pad KV entries stay masked until real tokens
-            # overwrite their slots.
-            self._slot_pos[slot] = len(req.tokens) - 1
-            self._last_tok[slot] = req.tokens[-1]
+            if self.exact_prefill:
+                # the recurrence consumed the prompt once; the first new
+                # token comes straight from the prefill logits
+                tok0 = int(self._sample(logits)[0])
+                self._slot_pos[slot] = len(req.tokens)
+                self._last_tok[slot] = tok0
+                self._slot_new[slot].append(tok0)
+                if req.max_new_tokens <= 1 or tok0 == req.eos:
+                    self._finish_slot(slot)
+            else:
+                # attention caches are idempotent under re-write: the first
+                # decode tick re-emits the last prompt token's KV and samples
+                # the next token; pad KV entries stay masked until real
+                # tokens overwrite their slots.
+                self._slot_pos[slot] = len(req.tokens) - 1
+                self._last_tok[slot] = req.tokens[-1]
 
     def _sample(self, logits: torch.Tensor) -> np.ndarray:
         logits = logits[:, : self.cfg.vocab]  # drop padded vocab tail

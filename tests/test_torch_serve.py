@@ -6,7 +6,12 @@ The JAX package draws the weights and the port loads them through
 reference's ``tests/test_serve.py`` (one request against the full-forward
 oracle, continuous batching with more requests than slots, EOS stopping)
 plus one request padded to a 2,304-token prefill, which takes the chunked
-attention path.
+attention path.  The reference's four cache families (``tests/test_serve.py``
+``FAMILIES``: full attention, the sliding-window ring, recurrent, hybrid
+with MoE) and qwen2-moe run the same cases; architectures with a recurrent
+mixer take the exact-length prefill, and a padded MoE prefill whose pad
+tokens take expert capacity (dropping real tokens' picks) gives the
+reference's tokens at the same ``prefill_len``.
 """
 
 import dataclasses
@@ -24,21 +29,26 @@ from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import model as PM
+from repro_torch.models import moe as PMOE
 from repro_torch.serve import Engine, Request, ServeConfig
 
 KEY = jax.random.key(0)
+# the reference's FAMILIES, plus the shared-expert MoE
+FAMILIES = ["smollm-135m", "mixtral-8x7b", "xlstm-1.3b", "jamba-1.5-large-398b",
+            "qwen2-moe-a2.7b"]
 
 
-def _models(name="smollm-135m"):
-    jcfg, pcfg = jax_config(name, smoke=True), get_config(name, smoke=True)
+def _models(name="smollm-135m", **overrides):
+    jcfg = dataclasses.replace(jax_config(name, smoke=True), **overrides)
+    pcfg = dataclasses.replace(get_config(name, smoke=True), **overrides)
     jparams = JM.init_params(KEY, jcfg)
     tree = jax.tree.map(lambda a: np.asarray(a, np.float32), jparams)
     return jcfg, pcfg, jparams, params_from_jax(tree, pcfg, device="cpu")
 
 
-def _serve_both(name, scfg, requests):
+def _serve_both(name, scfg, requests, **overrides):
     """{uid: tokens} from the JAX engine and from the port's."""
-    jcfg, pcfg, jparams, model = _models(name)
+    jcfg, pcfg, jparams, model = _models(name, **overrides)
     jeng = JS.Engine(jparams, jcfg, scfg)
     peng = Engine(model, pcfg, ServeConfig(**dataclasses.asdict(scfg)))
     for r in requests:
@@ -50,7 +60,9 @@ def _serve_both(name, scfg, requests):
 
 
 def _greedy(model, cfg, prompt, n_new):
-    """The full-forward oracle of the reference's serve tests, on the port."""
+    """The full-forward oracle of the reference's serve tests, on the port
+    (MoE layers at the serving capacity factor)."""
+    cfg = dataclasses.replace(cfg, moe_capacity=cfg.moe_capacity_serve)
     toks = list(prompt)
     for _ in range(n_new):
         logits, _ = PM.forward(model, {"tokens": torch.tensor([toks])}, cfg)
@@ -58,7 +70,7 @@ def _greedy(model, cfg, prompt, n_new):
     return toks[len(prompt):]
 
 
-@pytest.mark.parametrize("name", ["smollm-135m", "olmo-1b"])
+@pytest.mark.parametrize("name", ["olmo-1b"] + FAMILIES)
 def test_engine_matches_reference_and_full_forward(name):
     prompt = [int(t) for t in np.random.RandomState(0).randint(1, 512, 7)]
     got, want, (model, cfg) = _serve_both(
@@ -136,3 +148,50 @@ def test_serving_defaults_to_cuda(entry):
             Engine(PM.init_params(cfg), cfg, ServeConfig())
         else:
             launch_serve.main(["--smoke"])
+
+
+@pytest.mark.parametrize("name", ["xlstm-1.3b", "jamba-1.5-large-398b"])
+def test_exact_prefill_continuous_batching_matches_reference(name):
+    """Recurrent mixers prefill each prompt at its own length; more
+    requests than slots, mixed lengths and budgets (one of a single token,
+    which the prefill's own logits answer)."""
+    rng = np.random.RandomState(3)
+    reqs = [Request(uid=uid, tokens=[int(t) for t in rng.randint(1, 512, int(rng.randint(3, 16)))],
+                    max_new_tokens=1 if uid == 2 else int(rng.randint(2, 6)))
+            for uid in range(5)]
+    got, want, (model, cfg) = _serve_both(
+        name, JS.ServeConfig(slots=2, prefill_len=8, max_len=64), reqs)
+    assert len(got) == 5 and got == want and len(got[2]) == 1
+    eng = Engine(model, cfg, ServeConfig(slots=2, prefill_len=8, max_len=64))
+    assert eng.exact_prefill
+
+
+def test_exact_prefill_eos_on_the_first_token_like_reference():
+    jcfg, pcfg, jparams, model = _models("xlstm-1.3b")
+    first = int(jnp.argmax(JM.forward(jparams, {"tokens": jnp.asarray([[1, 2, 3]])}, jcfg)[0][0, -1, : jcfg.vocab]))
+    got, want, _ = _serve_both(
+        "xlstm-1.3b", JS.ServeConfig(slots=1, prefill_len=8, max_len=32),
+        [Request(uid=0, tokens=[1, 2, 3], max_new_tokens=10, eos=first),
+         Request(uid=1, tokens=[4, 5, 6, 7], max_new_tokens=3)])
+    assert got == want and got[0] == [first]
+
+
+def test_padded_moe_prefill_routes_pads_like_reference(monkeypatch):
+    """qwen2-moe at serving capacity factor 0.25 and a 512-token padded
+    prefill: the pads take expert slots and real tokens' picks are dropped,
+    as in the reference, whose tokens the port reproduces."""
+    dropped = []
+    real_route = PMOE.route
+
+    def counting(probs, k, cap):
+        out = real_route(probs, k, cap)
+        dropped.append(int((~out[3]).sum()))
+        return out
+
+    monkeypatch.setattr(PMOE, "route", counting)
+    prompt = [int(t) for t in np.random.RandomState(4).randint(1, 512, 40)]
+    got, want, _ = _serve_both(
+        "qwen2-moe-a2.7b", JS.ServeConfig(slots=2, prefill_len=512, max_len=560),
+        [Request(uid=0, tokens=prompt, max_new_tokens=4)], moe_capacity_serve=0.25)
+    assert got == want and len(got[0]) == 4
+    assert max(dropped) > 0

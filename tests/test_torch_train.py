@@ -405,9 +405,9 @@ def test_optimizer_steps_equal_reference(name):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **F32)
 
 
-def _smoke_pair(**overrides):
-    jcfg = dataclasses.replace(jax_config("smollm-135m", smoke=True), **overrides)
-    pcfg = dataclasses.replace(get_config("smollm-135m", smoke=True), **overrides)
+def _smoke_pair(name="smollm-135m", **overrides):
+    jcfg = dataclasses.replace(jax_config(name, smoke=True), **overrides)
+    pcfg = dataclasses.replace(get_config(name, smoke=True), **overrides)
     return jcfg, pcfg
 
 
@@ -464,6 +464,26 @@ def test_train_step_equals_reference(micro, compress):
     # the input state is left as it was
     for a, b in zip(tree_leaves(state), jax.tree.leaves(jstate)):
         np.testing.assert_array_equal(_np(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("name", ["qwen2-moe-a2.7b", "xlstm-1.3b", "jamba-1.5-large-398b"])
+def test_mixer_train_step_equals_reference(name):
+    """One step of the MoE, recurrent and hybrid smoke configs from a state
+    carried by ``state_from_jax`` (the router, expert, Mamba and xLSTM
+    leaves in the reference's layouts and dtypes; the router aux in the
+    loss): loss, grad norm, parameters and optimizer state."""
+    jcfg, pcfg = _smoke_pair(name)
+    hp_kw = dict(peak_lr=1e-3, total_steps=20, warmup_steps=1)
+    jstate, jstep, state = _carried(jcfg, pcfg, hp_kw)
+    for a, b in zip(tree_leaves(state), jax.tree.leaves(jstate)):
+        np.testing.assert_array_equal(_np(a), np.asarray(b))
+    batch = JPipeline(jcfg.vocab, 32, 4, seed=0).batch_at(1)
+    jnew, jm = jstep(jstate, batch)
+    new, m = make_train_step(pcfg, TrainHParams(**hp_kw))(state, batch)
+    np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5)
+    np.testing.assert_allclose(float(m["grad_norm"]), float(jm["grad_norm"]), rtol=1e-5)
+    for a, b in zip(tree_leaves(new), jax.tree.leaves(jnew)):
+        np.testing.assert_allclose(_np(a), np.asarray(b), rtol=1e-5, atol=1e-6)
 
 
 def test_checkpoints_cross_packages():
