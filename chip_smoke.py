@@ -26,7 +26,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    multi_segment_gram per-column fallback, and flash at the serving
    path's shape (bf16 and float32),
    olmo-1b's and mixtral's head layouts (the latter windowed), non-causal
-   ragged lengths and the head dims 8 to 256.
+   ragged lengths and the head dims 8 to 256, and phase 13's model
+   shapes: whisper-medium's cross attention (4,096 queries over 1,500
+   keys, non-causal, bf16 and float32) and causal self attention (16
+   heads of 64), llava-next-mistral-7b's prefill (32 / 8 heads of 128).
 3. Main path: ``favorita_like(1684, 54, 4100, 0.05, seed=0)`` (18,641,880
    sales rows) through ``linear_regression`` v1 (BGD) and closed form, both
    with the moments kernel, then one degree-1 aggregate batch.  Launch
@@ -120,9 +123,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    first, its segment_view and segment_blocks calls captured and run
    again against their plain versions (1e-4 of the largest sum) beside
    ``index_add_`` and their bound.  Then
-   ``polynomial_cofactors`` at degrees 1 and 3 (aggregates up to degree 6,
-   float64 on the card through segment_reduce; degree 1 equal to the
-   float64 quadratic engine at 1e-10); the degree-3 run's
+   ``polynomial_cofactors`` at degree 3 (aggregates up to degree 6,
+   float64 on the card through segment_reduce; its degree-1 block equal
+   to the float64 quadratic engine at 1e-10; degrees 1 and 2 are cut at
+   full size for the smoke's time); the degree-3 run's
    ``segment_blocks`` calls are captured and run again against their plain
    version beside ``index_add_`` and their bound (until PR 23 a second
    degree-3 run was captured).  On the oracle cell: the
@@ -228,8 +232,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
 12. The MoE, Mamba and xLSTM mixers, after phase 11.  Leg 1: qwen2-moe-a2.7b
    at full width and depth (24 layers of attention + MoE, 60 experts top-4
    and the shared experts, bf16, seeded weights) behind the ``Engine``
-   with phase 7's prompts and budget (8 requests of 2,049–4,096 tokens, 32 new, 4
-   slots, prefill 4,096): flash must launch exactly 24 times a prefill;
+   with phase 7's prompts and budget (4 requests of 2,049–4,096 tokens, 32
+   new, 4 slots, prefill 4,096): flash must launch exactly 24 times a prefill;
    the dropped (token, pick) share of each prefill (pads are routed, as
    in the reference), tokens/s, latency, prefill and decode-step ms, a
    profiled decode step.  flash at this shape (16 heads of 128) as in
@@ -255,12 +259,40 @@ Phases, in order; any failed check raises and the script exits non-zero:
    end to end through the ``Engine``, card tokens equal to the CPU's.
    ``launch.serve --arch qwen2-moe-a2.7b`` and ``--arch xlstm-1.3b`` run
    at full size after their legs.
+13. whisper's encoder and cross attention and llava's patch prefix, after
+   phase 12.  Leg 1: whisper-medium at full width and depth (24 encoder
+   and 24 decoder layers, d_model 1,024, 16 heads of 64, bf16, seeded
+   weights) serves 4 requests of 1,500 seeded stub frames and a 64-token
+   prompt, 128 greedy new tokens each, through ``prefill`` and
+   ``decode_step`` (the engine takes token prompts only): the encoder
+   and cross attention stay dense at 1,500 frames, so flash must launch
+   0 times; encode, prefill and decode-step ms, tokens/s, peak memory, a
+   profiled decode step.  The bf16 forward at 4,096 decoder tokens (the
+   repo's prefill_32k shape cut as phase 7 cuts it) launches flash
+   exactly 48 times (24 self, 24 cross) and is held to the plain path
+   and to the float32 model with phase 7's ratios; the float32 replica
+   (the weights cast in place) decodes the 4 requests again: every
+   decode step's logits (through the cross cache) within 1e-4 of the
+   teacher-forced full forward's largest, and its greedy tokens the
+   forward's top logit but near-ties.  Leg 2: llava-next-mistral-7b at
+   full width and depth (32 layers, d_model 4,096, 32 / 8 heads of 128,
+   bf16) serves 2 requests of 2,880 seeded patch embeddings and 1,216
+   tokens (4,096 positions), 32 greedy new tokens each, decode
+   positions after the prefix: flash exactly 32 times a prefill; the
+   bf16 forward at 4,096 positions as leg 1's; the float32 replica at
+   full depth against the full forward as leg 1's; then its first 2
+   layers in one row's prefill on the card (the patch prefix and 64
+   tokens, 2,944 positions), each layer's attention and MLP again on the
+   CPU on the card's own input (as phase 12 holds each MoE layer):
+   outputs, cached V and cached K before RoPE within 1e-5 of the largest
+   (RoPE's float32 angles round apart on the two devices).
 
 The last lines are the phase-8 JSON object, the phase-9 JSON object
-(``{"service": ...}``), the phase-10, phase-11 and phase-12 JSON objects
-(``{"distribution": ...}``, ``{"training": ...}``, ``{"mixers": ...}``),
-the kernels JSON object, the card's name and power limit, and ``{"ok":
-true, "device": {...}}``.
+(``{"service": ...}``), the phase-10, phase-11, phase-12 and phase-13
+JSON objects (``{"distribution": ...}``, ``{"training": ...}``,
+``{"mixers": ...}``, ``{"encoder_decoder": ...}``), the kernels JSON
+object, the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -358,7 +390,9 @@ PHASE8_KERNELS = ("segment_view", "segment_reduce")
 IRLS_STEPS = ("_hessian", "_grad_theta", "_family_stats")
 POLY_STEPS = ("_encode", "_combine", "_extend", "_aggregate_out")
 POLY_DEGREES = (1, 2, 3)
-POLY_FULL_DEGREES = (1, 3)  # full size: degree 2 is cut for the smoke's time
+# full size: degree 3 alone (degrees 1 and 2 cut for the smoke's time; its
+# degree-1 block is held to the quadratic engine)
+POLY_FULL_DEGREES = (3,)
 # polynomial aggregates are float64 on both sides: the card vs the CPU, and
 # degree 1 vs the quadratic engine, are the same sums in another order
 POLY_DEVICE_RTOL = 1e-12  # of the largest aggregate
@@ -875,6 +909,12 @@ FLASH_SHAPES = [
     ("head dim 40, window 50", 1, 300, 300, 2, 1, 40, True, 50, None, F32, False),
     ("head dim 256", 1, 333, 333, 2, 2, 256, True, None, None, BF16, False),
     ("head dim 256", 1, 333, 333, 2, 2, 256, True, None, None, F32, False),
+    # phase 13's model shapes: whisper's cross attention (more queries than
+    # keys) and decoder self attention, llava's prefill
+    ("whisper-medium cross attention", 1, 4096, 1500, 16, 16, 64, False, None, None, BF16, True),
+    ("whisper-medium cross attention", 1, 4096, 1500, 16, 16, 64, False, None, None, F32, True),
+    ("whisper-medium self attention", 1, 4096, 4096, 16, 16, 64, True, None, None, BF16, True),
+    ("llava-next-mistral-7b prefill", 1, 4096, 4096, 32, 8, 128, True, None, None, BF16, True),
 ]
 
 
@@ -2283,7 +2323,8 @@ def poly_calls(rt, calls) -> list:
 def poly_phase(rt, bundle) -> tuple:
     """bench_polynomial's degrees (POLY_FULL_DEGREES) on the 18.6 M-row store: each degree's
     seconds, kernel 3's launches (zeroed before, read after) and peak
-    memory; degree 1 against the quadratic engine in float64; the last
+    memory; the first degree's degree-1 block (intercept, features,
+    label) against the quadratic engine in float64; the last
     degree's ``segment_blocks`` calls captured and run again (poly_calls),
     so its peak counts the captured calls' inputs."""
     store, vorder = bundle.store, bundle.vorder
@@ -2312,12 +2353,17 @@ def poly_phase(rt, bundle) -> tuple:
         log(f"polynomial degree {d}: {sec:.3f}s, {k} columns, launches {got}, "
             f"peak memory {row['peak_bytes']}; seconds in " + " ".join(
                 f"{n}={v:.3f}" for n, v in steps.seconds.items()))
-        if d == 1:
+        if d == POLY_FULL_DEGREES[0]:
+            # the intercept, the degree-1 monomials (sorted features, first
+            # of the monomials) and the label: the degree-1 cofactors
+            lin = list(range(1 + len(feats))) + [mat.shape[0] - 1]
             quad = rt.cofactors_factorized(
                 store, vorder, sorted(feats) + [label], backend="torch",
                 dtype=torch.float64, use_view_cache=False, device="cuda").matrix()
-            err, tol = float(np.abs(mat - quad).max()), POLY_QUAD_RTOL * float(np.abs(quad).max())
-            log(f"  degree 1 vs the quadratic engine (float64): max_abs_err={err:.3e} tol={tol:.3e}")
+            sub = mat[np.ix_(lin, lin)]
+            err, tol = float(np.abs(sub - quad).max()), POLY_QUAD_RTOL * float(np.abs(quad).max())
+            log(f"  degree-1 block vs the quadratic engine (float64): max_abs_err={err:.3e} "
+                f"tol={tol:.3e}")
             if not err <= tol:
                 raise AssertionError(f"polynomial degree 1 off the quadratic engine: {err}")
             row["vs_quadratic"] = dict(max_abs_err=err, tol=tol)
@@ -3157,14 +3203,17 @@ def service_phase(rt, bundle, theta) -> tuple:
 
 def plain_flash(chunked_attention):
     """A stand-in for ``ops.flash_attention`` that runs its plain version on
-    the model's path, ``chunked_attention`` with arange positions (patched
-    in for the logits comparison only; it launches no kernel)."""
+    the model's path, ``chunked_attention`` with arange query and key
+    positions (patched in for the logits comparison only; it launches no
+    kernel).  Queries and keys may differ in number (cross attention); every
+    key is the model's (``kv_len`` = Sk)."""
     def run(q, k, v, *, causal, window, kv_len):
         b, sq, sk = q.shape[0], q.shape[1], k.shape[1]
-        if not sq == sk == kv_len:
-            raise ValueError(f"prefill attention expected, got Sq {sq}, Sk {sk}, kv_len {kv_len}")
-        pos = torch.arange(sq, dtype=torch.int32, device=q.device)[None].expand(b, sq)
-        return chunked_attention(q, k, v, pos, pos, causal=causal, window=window,
+        if kv_len != sk:
+            raise ValueError(f"model attention expected, got Sk {sk}, kv_len {kv_len}")
+        qpos = torch.arange(sq, dtype=torch.int32, device=q.device)[None].expand(b, sq)
+        kpos = torch.arange(sk, dtype=torch.int32, device=q.device)[None].expand(b, sk)
+        return chunked_attention(q, k, v, qpos, kpos, causal=causal, window=window,
                                  out_dtype=q.dtype)
     return run
 
@@ -3200,13 +3249,14 @@ def count_flash(lm, what, fn, expect) -> tuple:
     return out, n
 
 
-def bf16_forward_check(lm, params, cfg, float32, batch) -> dict:
+def bf16_forward_check(lm, params, cfg, float32, batch, launches=None) -> dict:
     """The serving dtype end to end: bf16 forward logits at every position of
     ``batch`` through flash against the plain ``chunked_attention`` path, both
     held to the float32 model on the same weights (on the plain path too, so
     that no kernel is in the baseline).  ``float32()`` gives that model and
     its config; it is called after the bf16 logits, so it may convert
-    ``params`` in place.  Returns the per-position relative errors."""
+    ``params`` in place.  flash must launch ``launches`` times (default: once
+    a layer).  Returns the per-position relative errors."""
     v = cfg.vocab
 
     def logits(p, c):
@@ -3214,7 +3264,7 @@ def bf16_forward_check(lm, params, cfg, float32, batch) -> dict:
             return lm.forward(p, batch, c)[0][0, :, :v]
 
     kern, _ = count_flash(lm, "bf16 forward", functools.partial(logits, params, cfg),
-                          cfg.n_layers)
+                          cfg.n_layers if launches is None else launches)
     with mock.patch.object(lm.kops, "flash_attention", plain_flash(lm.chunked_attention)):
         plain, _ = count_flash(lm, "bf16 forward, plain path",
                                functools.partial(logits, params, cfg), 0)
@@ -3707,8 +3757,8 @@ def train_phase(tr) -> dict:
 
 # -- phase 12: the MoE, Mamba and xLSTM mixers -------------------------------------
 
-MOE_ARCH = "qwen2-moe-a2.7b"  # phase 7's traffic (LM_SERVE, LM_NEW, LM_PROMPT), 8 requests
-MOE_REQUESTS = 8
+MOE_ARCH = "qwen2-moe-a2.7b"  # phase 7's traffic (LM_SERVE, LM_NEW, LM_PROMPT)
+MOE_REQUESTS = 4  # 8 until phase 13 needed the smoke's time
 MOE_REPLICA_LAYERS = 4  # the float32 replica's depth at full width (11.6 GB)
 MOE_OUT_RTOL = 1e-5  # a layer's output, card vs CPU, float32, of the largest
 MOE_TIE = 1e-6  # k-th and (k+1)-th router probabilities this close: a near-tie
@@ -4156,11 +4206,317 @@ def mixers_phase(lm) -> tuple:
     return dict(moe=moe, xlstm=xlstm, mamba=mamba, seconds=seconds), launches, flash_row
 
 
+# -- phase 13: whisper-medium and llava-next-mistral-7b -------------------------------
+
+WHISPER_ARCH = "whisper-medium"
+# 4 requests of 1,500 stub frames (input_specs' shape) and a 64-token prompt,
+# 128 greedy new tokens (positions up to 192, inside the released model's 448)
+WHISPER_REQUESTS, WHISPER_PROMPT, WHISPER_NEW = 4, 64, 128
+# the bf16 forward's decoder tokens: the repo's prefill_32k shape cut to
+# 4,096, as phase 7 cuts it; self and cross attention both take flash there
+WHISPER_FORWARD = 4_096
+LLAVA_ARCH = "llava-next-mistral-7b"
+# 2 requests of 2,880 patch embeddings + 1,216 text tokens (4,096
+# positions), 32 greedy new tokens
+LLAVA_REQUESTS, LLAVA_TEXT, LLAVA_NEW = 2, 1_216, 32
+LLAVA_CPU_LAYERS = 2  # the first layers, float32, card vs CPU,
+LLAVA_CPU_TEXT = 64  # over the patch prefix and a row's first tokens (2,944 positions)
+LLAVA_CPU_RTOL = 1e-5  # a layer's attention or MLP on the card's input, of the largest
+DECODE_LOGIT_RTOL = 1e-4  # decode-step logits vs the full forward, float32, of max |logit|
+
+
+def generate(lm, params, cfg, batch, n_new: int) -> dict:
+    """``prefill`` of ``batch`` (tokens, and frames or patches), then greedy
+    ``decode_step`` s to ``n_new`` tokens a row (the first from the prefill's
+    logits), every row at the same position: the tokens ``[B, n_new]``, each
+    step's logits (float32, on the card) and the seconds of the prefill and
+    of the decode steps."""
+    v = cfg.vocab
+    start = batch["tokens"].shape[1] + cfg.n_patches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = lm.prefill(params, batch, cfg, start + n_new)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    steps, toks = [], []
+    for i in range(n_new):
+        steps.append(logits[:, :v])
+        toks.append(steps[-1].argmax(-1))
+        if i + 1 < n_new:
+            logits, cache = lm.decode_step(params, toks[-1][:, None], cache, start + i, cfg)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    tokens = torch.stack(toks, 1)
+    if not bool(((tokens >= 0) & (tokens < v)).all()):
+        raise AssertionError(f"{cfg.name}: generated tokens out of the vocabulary")
+    return dict(tokens=tokens, logits=torch.stack(steps, 1), prefill_s=t1 - t0,
+                decode_s=t2 - t1)
+
+
+def oracle_check(lm, params32, cfg32, batch, got, what: str, launches: int) -> dict:
+    """float32 decode against one teacher-forced full forward of each row's
+    prompt and generated tokens (with its frames or patches; flash must
+    launch ``launches`` times): every step's logits within
+    DECODE_LOGIT_RTOL of the forward's largest, every greedy pick the
+    forward's top logit or within NEAR_TIE of it (a near-tie, returned)."""
+    toks, n_new = got["tokens"], got["tokens"].shape[1]
+    seq = torch.cat([batch["tokens"], toks[:, :-1]], dim=1)
+
+    def forward():
+        with torch.no_grad():
+            return lm.forward(params32, dict(batch, tokens=seq), cfg32)[0]
+    logits, _ = count_flash(lm, f"{what} oracle forward", forward, launches)
+    first = cfg32.n_patches + batch["tokens"].shape[1] - 1
+    want = logits[:, first : first + n_new, : cfg32.vocab]
+    err = float((got["logits"] - want).abs().max())
+    scale = float(want.abs().max())
+    log(f"{what}: decode-step logits vs the full forward: max_abs_err={err:.3e} "
+        f"tol={DECODE_LOGIT_RTOL * scale:.3e}")
+    if not err <= DECODE_LOGIT_RTOL * scale:
+        raise AssertionError(f"{what}: decode logits {err} off the forward's "
+                             f"(tol {DECODE_LOGIT_RTOL * scale})")
+    top = want.max(dim=-1).values
+    gap = (top - want.gather(-1, toks[..., None])[..., 0]).cpu().numpy()
+    ties = [(int(b), int(t), float(gap[b, t])) for b, t in zip(*np.nonzero(gap > 0))]
+    for b, t, g in ties:
+        if not g < NEAR_TIE:
+            raise AssertionError(f"{what}: row {b} step {t} picked {int(toks[b, t])}, "
+                                 f"{g:.3e} under the forward's top logit")
+    log(f"{what}: greedy tokens vs the full forward: {toks.numel() - len(ties)} of "
+        f"{toks.numel()} the top logit; near-ties {ties}")
+    return dict(max_abs_err=err, scale=scale, rtol=DECODE_LOGIT_RTOL, near_ties=ties)
+
+
+def encdec_serve(lm, params, cfg, batch, n_new: int, launches: int, what: str) -> tuple:
+    """One short warm-up, then ``generate`` counted (flash must launch
+    ``launches`` times, all in the prefill) and timed: prefill ms,
+    decode-step ms, tokens/s and peak memory; the decode step also
+    profiled.  Returns (its JSON, what ``generate`` returned)."""
+    generate(lm, params, cfg, {k: t[:1] for k, t in batch.items()}, 2)
+    torch.cuda.reset_peak_memory_stats()
+    got, _ = count_flash(lm, what, functools.partial(generate, lm, params, cfg, batch, n_new),
+                         launches)
+    peak = torch.cuda.max_memory_allocated()
+    rows, n = got["tokens"].shape
+    wall = got["prefill_s"] + got["decode_s"]
+    start = batch["tokens"].shape[1] + cfg.n_patches
+    prefill = functools.partial(lm.prefill, params, batch, cfg, start + n_new)
+    prefill_ms = time_ms(prefill, reps=3, warmup=1)
+    _, cache = prefill()
+    decode = functools.partial(lm.decode_step, params, got["tokens"][:, :1], cache, start, cfg)
+    decode_ms = time_ms(decode, reps=5)
+    out = dict(requests=rows, new_tokens=n, wall_s=wall, tokens_per_s=rows * n / wall,
+               prefill_s=got["prefill_s"], decode_s=got["decode_s"], prefill_ms=prefill_ms,
+               decode_step_ms=decode_ms, max_memory_allocated=peak)
+    log(f"{what}: {rows} requests x {n} tokens in {wall:.3f}s ({rows * n / wall:.1f} tok/s; "
+        f"prefill {got['prefill_s']:.3f}s, {n - 1} decode steps {got['decode_s']:.3f}s); "
+        f"prefill {prefill_ms:.3f} ms, decode step {decode_ms:.3f} ms; "
+        f"max_memory_allocated={peak}")
+    out["decode_step_profiled"] = profiled_step(decode, decode_ms, f"{what} decode step")
+    del cache
+    return out, got
+
+
+def float32_of(params, cfg):
+    """``float32()`` for ``bf16_forward_check``: the weights cast in place."""
+    def run():
+        to_float32(params)
+        return params, dataclasses.replace(cfg, dtype_name="float32", param_dtype_name="float32")
+    return run
+
+
+def whisper_leg(lm, gen) -> tuple:
+    """whisper-medium at full width and depth (24 + 24 layers, bf16): 4
+    requests served through prefill / decode_step (at 1,500 frames and a
+    64-token prompt every attention is dense: no kernel), encode timed; the
+    bf16 forward at 4,096 decoder tokens, flash 48 times (24 self, 24
+    cross), against the plain path and the float32 model; then the float32
+    replica's greedy tokens and decode logits (the cross cache) against the
+    full forward.  Returns (the leg's JSON, flash launches of the forward)."""
+    cfg = lm.get_config(WHISPER_ARCH)
+    t = time.perf_counter()
+    params = lm.init_params(cfg, seed=SEED, device="cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"{cfg.name}: {cfg.n_layers} decoder + {cfg.enc_layers} encoder layers, d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, vocab "
+        f"{cfg.vocab}, {cfg.n_frames} frames, {cfg.dtype}, {n_params} parameters, "
+        f"{time.perf_counter() - t:.2f}s to draw")
+    rng = np.random.RandomState(SEED + 13)
+    frames = torch.randn(WHISPER_REQUESTS, cfg.n_frames, cfg.d_model, device="cuda",
+                         generator=gen)
+    tokens = torch.from_numpy(rng.randint(1, cfg.vocab, (WHISPER_REQUESTS, WHISPER_PROMPT)))
+    batch = dict(tokens=tokens.cuda(), frames=frames)
+    serve, got = encdec_serve(lm, params, cfg, batch, WHISPER_NEW, 0, "whisper bf16 serve")
+    serve["encode_ms"] = time_ms(functools.partial(lm.encode, params, frames, cfg), reps=5)
+    log(f"whisper bf16 encode of {WHISPER_REQUESTS} x {cfg.n_frames} frames "
+        f"{serve['encode_ms']:.3f} ms")
+
+    launches = 2 * cfg.n_layers
+    long = dict(tokens=torch.from_numpy(rng.randint(1, cfg.vocab, (1, WHISPER_FORWARD))).cuda(),
+                frames=frames[:1])
+    bf16 = bf16_forward_check(lm, params, cfg, float32_of(params, cfg), long, launches)
+    cfg32 = dataclasses.replace(cfg, dtype_name="float32", param_dtype_name="float32")
+    got32, _ = count_flash(lm, "whisper float32 replica",
+                           functools.partial(generate, lm, params, cfg32, batch, WHISPER_NEW), 0)
+    same = int((got32["tokens"] == got["tokens"]).sum())
+    log(f"whisper: bf16 and float32 agree on {same} of {got['tokens'].numel()} tokens")
+    oracle = oracle_check(lm, params, cfg32, batch, got32, "whisper float32 replica", 0)
+    del params
+    torch.cuda.empty_cache()
+    return (dict(arch=cfg.name, params=n_params, serve=serve, bf16_forward=bf16,
+                 replica=dict(prefill_s=got32["prefill_s"], decode_s=got32["decode_s"],
+                              bf16_tokens_equal=same, **oracle)),
+            launches)
+
+
+def unrotate(lm, k, cfg, device) -> torch.Tensor:
+    """Cached keys ``[B, S, KH, hd]`` (positions 0..S-1) rotated back by
+    RoPE's tables as ``device`` computes them."""
+    k = k.to(device)
+    pos = torch.arange(k.shape[1], device=device)[None]
+    cos, sin = lm.layers.rotary_embedding(pos, cfg.head_dim, cfg.rope_theta)
+    return lm.layers.apply_rotary(k, cos, -sin)
+
+
+def llava_cpu_check(lm, params, cfg32, batch) -> dict:
+    """The first LLAVA_CPU_LAYERS layers of the float32 weights (the rest
+    dropped), one row's prefill on the card (its patch prefix and first
+    LLAVA_CPU_TEXT tokens: flash once a layer) with each
+    layer's attention and MLP captured: each again on the CPU on the card's
+    own input (the attention through ``chunked_attention``), its output and
+    the attention's cached K (before RoPE) and V within LLAVA_CPU_RTOL of
+    the largest, cached positions equal (as phase 12 holds each MoE
+    layer)."""
+    del params.blocks[LLAVA_CPU_LAYERS:]
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(cfg32, n_layers=LLAVA_CPU_LAYERS)
+    one = dict(tokens=batch["tokens"][:1, :LLAVA_CPU_TEXT], patches=batch["patches"][:1])
+    max_len = LLAVA_CPU_TEXT + cfg.n_patches
+    real_attn, real_mlp = lm.attn.attention_prefill, lm.layers.mlp_apply
+    calls = []
+
+    def attention_prefill(mod, x, c, n, **kw):
+        out, cache = real_attn(mod, x, c, n, **kw)
+        calls.append(("attention", mod, x.cpu(), dict(out=out.cpu(), **{
+            k: t.cpu() for k, t in cache.items()}), kw))
+        return out, cache
+
+    def mlp_apply(mod, x, kind):
+        out = real_mlp(mod, x, kind)
+        calls.append(("mlp", mod, x.cpu(), dict(out=out.cpu()), kind))
+        return out
+
+    with mock.patch.object(lm.attn, "attention_prefill", attention_prefill), \
+            mock.patch.object(lm.layers, "mlp_apply", mlp_apply):
+        count_flash(lm, f"llava float32, first {LLAVA_CPU_LAYERS} layers, card",
+                    functools.partial(lm.prefill, params, one, cfg, max_len), LLAVA_CPU_LAYERS)
+    if [c[0] for c in calls] != ["attention", "mlp"] * LLAVA_CPU_LAYERS:
+        raise AssertionError(f"llava card vs CPU: captured {[c[0] for c in calls]}")
+    t = time.perf_counter()
+    rows = []
+    for i, (kind, mod, x, card, extra) in enumerate(calls):
+        host = copy.deepcopy(mod).cpu()
+        with torch.inference_mode():
+            if kind == "attention":
+                out, cache = real_attn(host, x, cfg, max_len, **extra)
+                want = dict(out=out, **cache)
+            else:
+                want = dict(out=real_mlp(host, x, extra))
+        del host
+        errs = {}
+        if kind == "attention":
+            # K is cached after RoPE, whose float32 angles pos · θ^(-2i/d)
+            # the two devices round apart (1.7e-4 of the largest K at 4,095
+            # positions): each K is held after its own device's inverse
+            # rotation, and the rotated K's error is reported
+            errs["k_rotated"] = float((card["k"] - want["k"]).abs().max()
+                                      / want["k"].abs().max())
+            card["k"] = unrotate(lm, card["k"], cfg, "cuda").cpu()
+            want["k"] = unrotate(lm, want["k"], cfg, "cpu")
+        for name, w in want.items():
+            if name == "pos":
+                if not torch.equal(card[name], w):
+                    raise AssertionError(f"llava layer {i // 2} {kind}: cached positions differ")
+                continue
+            errs[name] = within(f"llava layer {i // 2} {kind} {name}, card vs CPU",
+                                card[name].float(), w.float(), LLAVA_CPU_RTOL)
+        rows.append(dict(layer=i // 2, part=kind, rel_err=errs))
+        log(f"llava float32 layer {i // 2} {kind} on the card's input, card vs CPU over "
+            f"{max_len} positions: errors of the largest {errs} (tol {LLAVA_CPU_RTOL})")
+    cpu_s = time.perf_counter() - t
+    log(f"llava card vs CPU: {len(rows)} sublayers, CPU {cpu_s:.3f}s")
+    return dict(layers=LLAVA_CPU_LAYERS, positions=max_len, cpu_s=cpu_s, sublayers=rows,
+                rtol=LLAVA_CPU_RTOL)
+
+
+def llava_leg(lm, gen) -> tuple:
+    """llava-next-mistral-7b at full width and depth (32 layers, bf16): 2
+    requests of 2,880 patch embeddings + 1,216 tokens through prefill /
+    decode_step, flash 32 times a prefill; the bf16 forward at 4,096
+    positions against the plain path and the float32 model; the float32
+    replica (full depth) against the full forward; then its first layers on
+    the card against the CPU.  Returns (the leg's JSON, flash launches of
+    the serving prefill)."""
+    cfg = lm.get_config(LLAVA_ARCH)
+    t = time.perf_counter()
+    params = lm.init_params(cfg, seed=SEED, device="cuda")
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"{cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} of {cfg.head_dim}, vocab {cfg.vocab}, "
+        f"{cfg.n_patches} patches, {cfg.dtype}, {n_params} parameters, "
+        f"{time.perf_counter() - t:.2f}s to draw")
+    rng = np.random.RandomState(SEED + 14)
+    patches = torch.randn(LLAVA_REQUESTS, cfg.n_patches, cfg.d_model, device="cuda",
+                          generator=gen)
+    tokens = torch.from_numpy(rng.randint(1, cfg.vocab, (LLAVA_REQUESTS, LLAVA_TEXT)))
+    batch = dict(tokens=tokens.cuda(), patches=patches)
+    launches = cfg.n_layers
+    serve, got = encdec_serve(lm, params, cfg, batch, LLAVA_NEW, launches, "llava bf16 serve")
+
+    one = {k: t[:1] for k, t in batch.items()}
+    bf16 = bf16_forward_check(lm, params, cfg, float32_of(params, cfg), one)
+    bf16["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    cfg32 = dataclasses.replace(cfg, dtype_name="float32", param_dtype_name="float32")
+    got32, _ = count_flash(lm, "llava float32 replica",
+                           functools.partial(generate, lm, params, cfg32, batch, LLAVA_NEW),
+                           launches)
+    same = int((got32["tokens"] == got["tokens"]).sum())
+    log(f"llava: bf16 and float32 agree on {same} of {got['tokens'].numel()} tokens")
+    oracle = oracle_check(lm, params, cfg32, batch, got32, "llava float32 replica", launches)
+    cpu = llava_cpu_check(lm, params, cfg32, batch)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (dict(arch=cfg.name, params=n_params, serve=serve, bf16_forward=bf16,
+                 replica=dict(prefill_s=got32["prefill_s"], decode_s=got32["decode_s"],
+                              bf16_tokens_equal=same, **oracle),
+                 cpu_check=cpu),
+            launches)
+
+
+def encdec_phase(lm) -> tuple:
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    whisper, n_whisper = whisper_leg(lm, gen)
+    log(f"phase 13 leg 1 (whisper-medium): {time.perf_counter() - t:.1f}s")
+    t2 = time.perf_counter()
+    llava, n_llava = llava_leg(lm, gen)
+    log(f"phase 13 leg 2 (llava-next-mistral-7b): {time.perf_counter() - t2:.1f}s")
+    seconds = time.perf_counter() - t
+    log(f"phase 13: {seconds:.1f}s")
+    launches = dict(whisper_forward=n_whisper, llava_prefill=n_llava)
+    return dict(whisper=whisper, llava=llava, seconds=seconds), launches
+
+
 def lm_namespace() -> types.SimpleNamespace:
-    """The LM substrate's entry points that phases 7 and 12 drive."""
+    """The LM substrate's entry points that phases 7, 12 and 13 drive."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops as kops, ref
     from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import attention as lm_attention
+    from repro_torch.models import layers as lm_layers
     from repro_torch.models import mamba as lm_mamba
     from repro_torch.models import model as lm_model
     from repro_torch.models import moe as lm_moe
@@ -4170,11 +4526,12 @@ def lm_namespace() -> types.SimpleNamespace:
 
     return types.SimpleNamespace(
         get_config=get_config, init_params=lm_model.init_params,
-        init_cache=lm_model.init_cache, prefill=lm_model.prefill,
+        init_cache=lm_model.init_cache, prefill=lm_model.prefill, encode=lm_model.encode,
         decode_step=lm_model.decode_step, forward=lm_model.forward,
         chunked_attention=chunked_attention, Engine=Engine, Request=Request,
         ServeConfig=ServeConfig, kops=kops, ref=ref, moe=lm_moe, mb=lm_mamba, xl=lm_xlstm,
         num_moe_layers=lm_model.num_moe_layers, launch_serve=launch_serve.main,
+        attn=lm_attention, layers=lm_layers,
     )
 
 
@@ -4372,14 +4729,20 @@ def main() -> None:
     log("phase 12: the MoE, Mamba and xLSTM mixers")
     mixers, launches12, flash12 = mixers_phase(lm)
     rows["flash"]["launches"] += launches12
-    rows["flash"]["launches_by_phase"] = dict(phase7=launches7, phase12=launches12)
     rows["flash"]["phase12"] = flash12
+
+    log("phase 13: whisper-medium and llava-next-mistral-7b")
+    encdec, launches13 = encdec_phase(lm)
+    rows["flash"]["launches"] += sum(launches13.values())
+    rows["flash"]["launches_by_phase"] = dict(phase7=launches7, phase12=launches12,
+                                              phase13=launches13)
 
     print(json.dumps({"phase8": glm_poly}))
     print(json.dumps({"service": service}))
     print(json.dumps({"distribution": distribution}))
     print(json.dumps({"training": training}))
     print(json.dumps({"mixers": mixers}))
+    print(json.dumps({"encoder_decoder": encdec}))
     print(json.dumps({"kernels": [rows[n] for n in ALL_KERNELS]}))
     print(card)
     print(json.dumps({

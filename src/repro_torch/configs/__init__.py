@@ -4,11 +4,15 @@
 ``get_config("mixtral-8x7b", smoke=True)`` the reduced same-family variant
 used by CPU tests.  Shapes only, no weights: the configuration modules are
 copies of the JAX package's, and ``ModelConfig.dtype`` is a torch dtype.
+``input_specs(cfg, shape)`` gives every model input of one (arch × shape)
+cell as a tensor on the ``meta`` device (shape and dtype, no memory).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
+
+import torch
 
 from . import (
     deepseek_67b,
@@ -32,6 +36,7 @@ __all__ = [
     "ModelConfig",
     "ShapeConfig",
     "get_config",
+    "input_specs",
     "paper_arch",
 ]
 
@@ -85,3 +90,37 @@ def paper_arch() -> ModelConfig:
         remat=False,
         skip_shapes=("long_500k",),
     )
+
+
+def input_specs(
+    cfg: ModelConfig, shape: ShapeConfig, batch_override: Optional[int] = None
+) -> Dict[str, torch.Tensor]:
+    """``meta`` tensors for every input of one (arch × shape) cell, with the
+    reference's keys, shapes and dtypes.
+
+    * train:    {tokens, labels} (+ frames / patches stubs)
+    * prefill:  {tokens} (+ frames / patches)
+    * decode:   {token, cur_pos}; the cache comes from ``models.model.init_cache``.
+    """
+    b = batch_override or shape.global_batch
+
+    def spec(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return {"token": spec((b, 1), torch.int32), "cur_pos": spec((), torch.int32)}
+
+    s_text = cfg.text_len(shape.seq_len)
+    if s_text <= 0:
+        raise ValueError(
+            f"{cfg.name}: modality prefix {cfg.n_patches} exceeds "
+            f"seq_len {shape.seq_len}"
+        )
+    specs = {"tokens": spec((b, s_text), torch.int32)}
+    if cfg.is_encoder_decoder:
+        specs["frames"] = spec((b, cfg.n_frames, cfg.d_model), cfg.dtype)
+    if cfg.n_patches:
+        specs["patches"] = spec((b, cfg.n_patches, cfg.d_model), cfg.dtype)
+    if shape.kind == "train":
+        specs["labels"] = spec((b, s_text), torch.int32)
+    return specs

@@ -170,10 +170,7 @@ def flash_attention(
     if out.numel() == 0:
         return out
     fn = _build.function("flash", f"flash_attention_{_SUFFIX[q.dtype]}", _ARGTYPES)
-    # the current stream's handle, as torch.cuda.current_stream(q.device)
-    # .cuda_stream gives it, without building a Stream object (a few µs a
-    # call, on every layer of a prefill)
-    stream = torch._C._cuda_getCurrentRawStream(q.get_device())
+    stream = torch.cuda.current_stream(q.get_device()).cuda_stream
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         b, sq, sk, h, kh, d, int(causal), window or 0, kv_len, stream,

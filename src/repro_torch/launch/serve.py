@@ -4,7 +4,9 @@ Boots the continuous-batching engine with random weights (a
 ``torch.Generator`` seeded with ``--seed``) and drives a synthetic request
 trace through it (prompt lengths drawn from a seeded distribution),
 reporting throughput and per-request latency.  Runs on the card unless
-``--device cpu`` is given.
+``--device cpu`` is given.  whisper-medium and llava-next-mistral-7b need
+frames / patches besides the tokens, which the engine's requests do not
+carry: for them it raises ``ValueError`` before drawing any weight.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 from repro_torch.configs import get_config
 from repro_torch.models import model as model_lib
 from repro_torch.serve import Engine, Request, ServeConfig
+from repro_torch.serve.engine import check_servable
 
 __all__ = ["main"]
 
@@ -36,6 +39,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     cfg = get_config(args.arch, smoke=args.smoke)
+    check_servable(cfg)
     params = model_lib.init_params(cfg, seed=args.seed, device=args.device)
     eng = Engine(
         params,

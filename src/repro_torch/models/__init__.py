@@ -3,8 +3,9 @@
 ``model`` assembles the blocks below according to a declarative
 ``ModelConfig`` (see ``repro_torch.configs``):
 
-* ``attention`` — GQA / MQA / sliding-window attention + KV caches; long
-  prefills run through the hand-written flash kernel on the card
+* ``attention`` — GQA / MQA / sliding-window / cross attention + KV
+  caches; long prefills run through the hand-written flash kernel on the
+  card
 * ``mamba``     — selective state space (jamba's mixer)
 * ``xlstm``     — mLSTM / sLSTM blocks
 * ``moe``       — top-k capacity-dispatch mixture of experts
@@ -14,7 +15,9 @@
 from . import attention, layers, mamba, model, moe, xlstm
 from .model import (
     Transformer,
+    abstract_params,
     decode_step,
+    encode,
     forward,
     init_cache,
     init_params,
@@ -25,8 +28,10 @@ from .model import (
 
 __all__ = [
     "Transformer",
+    "abstract_params",
     "attention",
     "decode_step",
+    "encode",
     "forward",
     "init_cache",
     "init_params",

@@ -1,4 +1,4 @@
-"""Grouped-query attention with KV caching (full and sliding-window).
+"""Grouped-query attention with KV caching (full, sliding-window, cross).
 
 PyTorch port of the JAX package's ``models/attention.py``:
 
@@ -7,20 +7,24 @@ PyTorch port of the JAX package's ``models/attention.py``:
 * Sliding-window attention (mixtral): banded mask in prefill; a
   **ring-buffer KV cache of size window** in decode.  Absolute positions are
   stored next to the ring so masking needs no modular arithmetic.
-* Long sequences (over ``CHUNKED_THRESHOLD``) take the online-softmax path:
-  on a CUDA tensor the hand-written flash kernel (``ops.flash_attention``,
-  which derives positions from indices, as the TPU kernel does), on a CPU
-  tensor its plain version here, :func:`chunked_attention`.  The model's
-  positions are always ``arange``, so the port's functions take
-  ``positions=None`` to mean exactly that; an explicit ``positions`` on a
-  CUDA tensor in that branch raises rather than leave the kernel.  The
-  kernel has no backward, so the branch raises ``NotImplementedError``
-  where autograd records the call.
+* Cross attention (whisper's decoder): keys / values projected from the
+  encoder states (``kv_states``), no RoPE, every key visible; the decode
+  path projects them once (:func:`cross_kv`, cached at prefill) and
+  attends over them (:func:`cross_attention_decode`).
+* Long sequences (more than ``CHUNKED_THRESHOLD`` queries or keys) take
+  the online-softmax path: on a CUDA tensor the hand-written flash kernel
+  (``ops.flash_attention``, which derives positions from indices, as the
+  TPU kernel does), on a CPU tensor its plain version here,
+  :func:`chunked_attention`, with query positions and key positions of
+  their own lengths.  The model's positions are always ``arange``, so the
+  port's functions take ``positions=None`` to mean exactly that; an
+  explicit ``positions`` on a CUDA tensor in that branch raises rather
+  than leave the kernel.  The kernel has no backward, so the branch raises
+  ``NotImplementedError`` where autograd records the call.
 
 Scores and softmax run in float32 whatever the activation dtype (bf16
 inputs are upcast: their products are exact in float32, so this is the
-reference's ``preferred_element_type=float32``).  Cross attention (whisper)
-is not ported yet.
+reference's ``preferred_element_type=float32``).
 """
 
 from __future__ import annotations
@@ -41,6 +45,9 @@ __all__ = [
     "attention_init",
     "attention_prefill",
     "chunked_attention",
+    "cross_attention",
+    "cross_attention_decode",
+    "cross_kv",
     "init_kv_cache",
 ]
 
@@ -182,20 +189,25 @@ def chunked_attention(
     return torch.cat(out, dim=1).to(out_dtype)
 
 
-def _long_attention(q, k, v, positions, *, causal: bool, window: Optional[int], out_dtype):
+def _long_attention(
+    q, k, v, qpos, kpos, *, causal: bool, window: Optional[int], out_dtype,
+    k_chunk: int = DEFAULT_K_CHUNK,
+):
     """The chunked branch: the flash kernel on a CUDA tensor (positions are
-    the indices), :func:`chunked_attention` on a CPU tensor.  The kernel has
-    no backward, so a call that autograd records raises on either device
-    (the CPU's plain version stands in for the kernel and behaves alike)."""
+    the indices), :func:`chunked_attention` on a CPU tensor, with query
+    positions ``qpos [B, Sq]`` and key positions ``kpos [B, Sk]`` (None:
+    arange of each length).  The kernel has no backward, so a call that
+    autograd records raises on either device (the CPU's plain version
+    stands in for the kernel and behaves alike)."""
     if q.requires_grad or k.requires_grad or v.requires_grad:
         raise NotImplementedError(
-            f"attention over {q.shape[1]} tokens (more than {CHUNKED_THRESHOLD}) "
-            "takes the flash kernel, which has no backward yet (ROADMAP queue "
-            "1, item 10.2): train at sequences up to the threshold, or with "
-            "cfg.dense_attention"
+            f"attention over {q.shape[1]} queries and {k.shape[1]} keys (more "
+            f"than {CHUNKED_THRESHOLD}) takes the flash kernel, which has no "
+            "backward yet (ROADMAP queue 1, item 10.2): train at sequences "
+            "up to the threshold, or with cfg.dense_attention"
         )
     if q.is_cuda:
-        if positions is not None:
+        if qpos is not None or kpos is not None:
             raise ValueError(
                 "the flash kernel derives positions from indices: pass "
                 "positions=None (arange) on a CUDA tensor"
@@ -204,11 +216,14 @@ def _long_attention(q, k, v, positions, *, causal: bool, window: Optional[int], 
             q, k, v, causal=causal, window=window, kv_len=k.shape[1]
         )
         return out.to(out_dtype)
-    if positions is None:
-        positions = _arange_positions(q.shape[0], q.shape[1], q.device)
+    b = q.shape[0]
+    if qpos is None:
+        qpos = _arange_positions(b, q.shape[1], q.device)
+    if kpos is None:
+        kpos = _arange_positions(b, k.shape[1], q.device)
     return chunked_attention(
-        q, k, v, positions, positions,
-        causal=causal, window=window, out_dtype=out_dtype,
+        q, k, v, qpos, kpos,
+        causal=causal, window=window, out_dtype=out_dtype, k_chunk=k_chunk,
     )
 
 
@@ -219,6 +234,30 @@ def _rope(q, k, positions, cfg):
     return apply_rotary(q, cos, sin), apply_rotary(k, cos, sin)
 
 
+def _long(s: int, sk: int, cfg) -> bool:
+    """Whether attention of ``s`` queries over ``sk`` keys takes the chunked
+    branch (the flash kernel on the card)."""
+    return max(s, sk) > CHUNKED_THRESHOLD and not cfg.dense_attention
+
+
+def cross_attention(params: Attention, x: torch.Tensor, ckv: dict, cfg) -> torch.Tensor:
+    """Cross attention of ``x [B, S, d]`` over projected encoder keys and
+    values ``ckv`` (:func:`cross_kv`): no RoPE, every key visible (the
+    chunked branch keeps the whole key sequence in one chunk, as the
+    reference does)."""
+    q = torch.einsum("bsd,dhe->bshe", x, params.wq)
+    k, v = ckv["k"], ckv["v"]
+    sk = k.shape[1]
+    if _long(x.shape[1], sk, cfg):
+        out = _long_attention(
+            q, k, v, None, None, causal=False, window=None, out_dtype=x.dtype, k_chunk=sk
+        )
+    else:
+        probs = torch.softmax(_gqa_scores(q, k, cfg.head_dim**-0.5), dim=-1)
+        out = _gqa_out(probs, v, x.dtype)
+    return _out(params, out)
+
+
 def attention_apply(
     params: Attention,
     x: torch.Tensor,
@@ -227,17 +266,22 @@ def attention_apply(
     positions: Optional[torch.Tensor] = None,
     causal: bool = True,
     window: Optional[int] = None,
+    kv_states: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Self attention over full sequences: x [B, S, d]; ``positions``
-    [B, S] absolute positions for RoPE and masking (None: arange).
-    Returns [B, S, d]."""
+    """Self (or cross, via ``kv_states [B, Sk, d]``) attention over full
+    sequences: x [B, S, d]; ``positions`` [B, S] absolute positions for RoPE
+    and masking (None: arange).  Cross attention takes K / V from
+    ``kv_states``, skips RoPE and sees every key (``positions``, ``causal``
+    and ``window`` do not apply).  Returns [B, S, d]."""
+    if kv_states is not None:
+        return cross_attention(params, x, cross_kv(params, kv_states), cfg)
     b, s, _ = x.shape
     q, k, v = _project(params, x)
     pos = _arange_positions(b, s, x.device) if positions is None else positions
     q, k = _rope(q, k, pos, cfg)
-    if s > CHUNKED_THRESHOLD and not cfg.dense_attention:
+    if _long(s, s, cfg):
         out = _long_attention(
-            q, k, v, positions, causal=causal, window=window, out_dtype=x.dtype
+            q, k, v, positions, positions, causal=causal, window=window, out_dtype=x.dtype
         )
     else:
         out = _dense(q, k, v, pos, pos, causal=causal, window=window, out_dtype=x.dtype)
@@ -263,9 +307,9 @@ def attention_prefill(
     q, k, v = _project(params, x)
     pos = _arange_positions(b, s, x.device) if positions is None else positions
     q, k = _rope(q, k, pos, cfg)
-    if s > CHUNKED_THRESHOLD and not cfg.dense_attention:
+    if _long(s, s, cfg):
         out = _long_attention(
-            q, k, v, positions, causal=True, window=window, out_dtype=x.dtype
+            q, k, v, positions, positions, causal=True, window=window, out_dtype=x.dtype
         )
     else:
         out = _dense(q, k, v, pos, pos, causal=True, window=window, out_dtype=x.dtype)
@@ -354,3 +398,24 @@ def attention_decode(
     Returns (out, new cache); ``cache`` is left as it was."""
     new = {name: t.clone() for name, t in cache.items()}
     return decode_into(params, x, new, cur_pos, cfg, window=window), new
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention decode against a precomputed (cached) encoder KV
+# ---------------------------------------------------------------------------
+
+def cross_kv(params: Attention, enc_states: torch.Tensor) -> dict:
+    """Encoder K / V ``[B, Sk, KH, hd]``, projected once (whisper's prefill
+    caches them)."""
+    return {
+        "k": torch.einsum("bsd,dke->bske", enc_states, params.wk),
+        "v": torch.einsum("bsd,dke->bske", enc_states, params.wv),
+    }
+
+
+def cross_attention_decode(params: Attention, x: torch.Tensor, ckv: dict, cfg) -> torch.Tensor:
+    """x [B, 1, d] attends over the cached encoder K / V ``ckv`` (no mask,
+    float32 scores).  Returns [B, 1, d]."""
+    q = torch.einsum("bsd,dhe->bshe", x, params.wq)
+    probs = torch.softmax(_gqa_scores(q, ckv["k"], cfg.head_dim**-0.5), dim=-1)
+    return _out(params, _gqa_out(probs, ckv["v"], x.dtype))

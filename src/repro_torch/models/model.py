@@ -3,23 +3,31 @@ decode (PyTorch port of the JAX package's ``models/model.py``).
 
 The depth is the config's block pattern repeated ``n_periods`` times; here
 the blocks are an ``nn.ModuleList`` run in a Python loop (layer ``i`` is
-block ``i % len(pattern)`` of period ``i // len(pattern)``).  Ported:
-mixers GQA attention (full and sliding-window), Mamba, mLSTM and sLSTM;
+block ``i % len(pattern)`` of period ``i // len(pattern)``).  Mixers GQA
+attention (full and sliding-window), Mamba, mLSTM and sLSTM;
 feed-forwards a dense MLP (SwiGLU / GELU), MoE (top-k capacity dispatch)
 or none; RMS / Layer / non-parametric LayerNorm, RoPE, learned or no
-positions, tied or separate LM head.  Not ported yet
-(``NotImplementedError``, ROADMAP queue 1 item 10.4): the whisper encoder
-and the llava patch prefix.  One card holds the whole model, so the
-reference's sharding constraints have no counterpart here.
+positions, tied or separate LM head.  Modality frontends are stubs, as in
+the reference: whisper's encoder (``enc_layers`` LayerNorm / GELU blocks
+over precomputed frame embeddings, ``batch["frames"] [B, n_frames, d]``)
+feeds cross attention in every decoder block, and llava's precomputed
+patch embeddings (``batch["patches"] [B, n_patches, d]``) are projected by
+``mm_proj`` into a prefix ahead of the tokens.  One card holds the whole
+model, so the reference's sharding constraints have no counterpart here.
 
 Public entry points (``params`` is a :class:`Transformer`)::
 
     init_params(cfg, seed, device)              -> Transformer
+    abstract_params(cfg)                        -> Transformer on "meta"
+    encode(params, frames, cfg)                 -> encoder states
     forward(params, batch, cfg)                 -> (logits, aux_loss)
     loss_fn(params, batch, cfg)                 -> (loss, metrics)
     prefill(params, batch, cfg, max_len)        -> (last_logits, cache)
     init_cache(cfg, batch, max_len, device)     -> cache
     decode_step(params, token, cache, pos, cfg) -> (logits, cache)
+
+A llava batch's positions run over the patch prefix and the tokens, so its
+decode steps continue from ``n_patches + text length``.
 
 ``forward`` and ``loss_fn`` are differentiable: they run under whatever
 grad mode the caller sets, and the weights' ``requires_grad`` (False as
@@ -33,8 +41,10 @@ per-layer views of it (``tree_views``).
 Caches keep the reference's structure: ``{"periods": {"b<i>": {"mixer":
 {...}}}}`` with leaves stacked over periods (``[n_periods, B, ...]``):
 attention ``{"k", "v", "pos"}``, Mamba ``{"conv", "h"}``, mLSTM ``{"conv",
-"S", "n"}``, sLSTM ``{"h", "c", "n"}``.  Logits are float32 ``[..,
-padded_vocab]``.
+"S", "n"}``, sLSTM ``{"h", "c", "n"}``; an encoder-decoder's blocks also
+hold ``"cross": {"k", "v"}`` (``[n_periods, B, n_frames, KH, hd]``, written
+by ``prefill``, carried through ``decode_step``).  Logits are float32
+``[.., padded_vocab]``.
 """
 
 from __future__ import annotations
@@ -48,13 +58,25 @@ from . import attention as attn
 from . import mamba as mb
 from . import moe as moe_mod
 from . import xlstm as xl
-from .layers import MLP, Norm, apply_norm, dense_init, embed_init, truncated_normal
+from .layers import (
+    MLP,
+    Norm,
+    apply_norm,
+    dense_init,
+    embed_init,
+    mlp_apply,
+    sinusoidal_positions,
+    truncated_normal,
+)
 
 __all__ = [
+    "EncoderLayer",
     "Transformer",
     "TransformerBlock",
+    "abstract_params",
     "check_supported",
     "decode_step",
+    "encode",
     "forward",
     "init_cache",
     "init_params",
@@ -67,9 +89,6 @@ __all__ = [
     "tree_path",
     "tree_views",
 ]
-
-_TODO = "is not ported yet (ROADMAP queue 1, item 10.4)"
-
 
 def _round_up(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
@@ -101,14 +120,10 @@ def resolve_device(device) -> torch.device:
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` for the parts of ``cfg`` the port does
-    not run yet."""
-    if cfg.is_encoder_decoder:
-        raise NotImplementedError(f"{cfg.name}: the encoder (encode) {_TODO}")
-    if cfg.n_patches:
-        raise NotImplementedError(f"{cfg.name}: the n_patches image prefix {_TODO}")
+    """Raise ``NotImplementedError`` for a position scheme the port does not
+    run (every config of ``configs/`` runs)."""
     if cfg.pos not in ("rope", "learned", "none"):
-        raise NotImplementedError(f"{cfg.name}: {cfg.pos} positions {_TODO}")
+        raise NotImplementedError(f"{cfg.name}: {cfg.pos} decoder positions are not ported")
 
 
 _MIXERS = {
@@ -131,6 +146,9 @@ class TransformerBlock(nn.Module):
         self.mixer_kind, self.ffn_kind = blk.mixer, blk.ffn
         self.mixer_norm = Norm(cfg.d_model, cfg.norm, device)
         self.mixer = _MIXERS[blk.mixer](cfg, generator, device)
+        if cfg.is_encoder_decoder:
+            self.cross_norm = Norm(cfg.d_model, cfg.norm, device)
+            self.cross = attn.attention_init(cfg, generator, device)
         if blk.ffn != "none":
             self.ffn_norm = Norm(cfg.d_model, cfg.norm, device)
         if blk.ffn == "mlp":
@@ -139,10 +157,35 @@ class TransformerBlock(nn.Module):
             self.ffn = moe_mod.moe_init(cfg, generator, device)
 
 
+class EncoderLayer(nn.Module):
+    """One block of whisper's encoder: LayerNorm, non-causal self attention,
+    LayerNorm, GELU MLP."""
+
+    def __init__(self, cfg, generator=None, device=None) -> None:
+        super().__init__()
+        self.attn_norm = Norm(cfg.d_model, "ln", device)
+        self.attn = attn.attention_init(cfg, generator, device)
+        self.mlp_norm = Norm(cfg.d_model, "ln", device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, "gelu", cfg.param_dtype, generator, device)
+
+
+class Encoder(nn.Module):
+    """``enc_layers`` :class:`EncoderLayer` s and a final LayerNorm."""
+
+    def __init__(self, cfg, generator=None, device=None) -> None:
+        super().__init__()
+        self.layers = nn.ModuleList(
+            EncoderLayer(cfg, generator, device) for _ in range(cfg.enc_layers)
+        )
+        self.final_norm = Norm(cfg.d_model, "ln", device)
+
+
 class Transformer(nn.Module):
     """The weights of one model; layouts as the reference's parameter tree
-    (``embed [pv, d]``, ``lm_head [d, pv]``, ``pos_embed [max_pos, d]``).
-    ``generator=None`` leaves the matrices uninitialised (for loading)."""
+    (``embed [pv, d]``, ``lm_head [d, pv]``, ``pos_embed [max_pos, d]``,
+    ``mm_proj [d, d]``; ``encoder.layers.<i>`` is layer ``i`` of the
+    reference's stacked ``encoder.layers``).  ``generator=None`` leaves the
+    matrices uninitialised (for loading)."""
 
     def __init__(self, cfg, generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
@@ -160,6 +203,10 @@ class Transformer(nn.Module):
             self.lm_head = dense_init(d, pv, dt, generator, device=device)
         if cfg.pos == "learned":
             self.pos_embed = truncated_normal((cfg.max_pos, d), dt, 0.02, generator, device)
+        if cfg.is_encoder_decoder:
+            self.encoder = Encoder(cfg, generator, device)
+        if cfg.n_patches:
+            self.mm_proj = dense_init(d, d, dt, generator, device=device)
 
     @property
     def device(self) -> torch.device:
@@ -176,6 +223,14 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Transformer:
     return Transformer(cfg, torch.Generator(device=dev).manual_seed(seed))
 
 
+def abstract_params(cfg) -> Transformer:
+    """The :class:`Transformer` of ``cfg`` on the ``meta`` device: every
+    parameter has its shape and dtype and no memory (the reference's
+    ``jax.eval_shape`` of ``init_params``; ``param_tree`` of it gives the
+    reference's stacked tree of shapes)."""
+    return Transformer(cfg, device="meta")
+
+
 def _layers(cfg):
     """(period, block name) of each layer, in depth order."""
     n = len(cfg.pattern)
@@ -184,12 +239,42 @@ def _layers(cfg):
 
 
 def _embed_inputs(params: Transformer, batch, cfg):
-    """Token embedding (+ learned positions) in ``cfg.dtype``: ``[B, S, d]``."""
+    """Token embedding, after llava's projected patch prefix, plus learned
+    positions over the whole sequence, in ``cfg.dtype``: ``[B, S, d]``."""
     tokens = torch.as_tensor(batch["tokens"], device=params.device).long()
     x = params.embed[tokens]
+    if cfg.n_patches:
+        patches = torch.as_tensor(batch["patches"], device=params.device).to(cfg.dtype)
+        x = torch.cat([patches @ params.mm_proj.to(cfg.dtype), x.to(cfg.dtype)], dim=1)
     if cfg.pos == "learned":
-        x = x + params.pos_embed[: tokens.shape[1]][None]
+        x = x + params.pos_embed[: x.shape[1]][None]
     return x.to(cfg.dtype)
+
+
+def encode(params: Transformer, frames, cfg) -> torch.Tensor:
+    """Encoder states ``[B, n_frames, d]`` of the stub frame embeddings
+    ``frames [B, n_frames, d]``: sinusoidal positions added, then
+    ``enc_layers`` blocks of non-causal self attention and a GELU MLP."""
+    x = torch.as_tensor(frames, device=params.device).to(cfg.dtype)
+    pos = torch.from_numpy(sinusoidal_positions(x.shape[1], cfg.d_model))
+    x = x + pos.to(x.device, cfg.dtype)[None]
+    for lp in params.encoder.layers:
+        y = apply_norm(x, lp.attn_norm, "ln")
+        x = x + attn.attention_apply(lp.attn, y, cfg, causal=False)
+        y = apply_norm(x, lp.mlp_norm, "ln")
+        x = x + mlp_apply(lp.mlp, y, "gelu")
+    return apply_norm(x, params.encoder.final_norm, "ln")
+
+
+def _enc_states(params: Transformer, batch, cfg) -> Optional[torch.Tensor]:
+    return encode(params, batch["frames"], cfg) if cfg.is_encoder_decoder else None
+
+
+def _cross(blk: TransformerBlock, x: torch.Tensor, ckv: Dict, cfg) -> torch.Tensor:
+    """The block's cross attention over the encoder's K / V ``ckv``, with
+    its residual."""
+    h = apply_norm(x, blk.cross_norm, cfg.norm)
+    return x + attn.cross_attention(blk.cross, h, ckv, cfg)
 
 
 def _head(params: Transformer, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -227,9 +312,12 @@ def forward(params: Transformer, batch, cfg) -> Tuple[torch.Tensor, torch.Tensor
     """Full-sequence logits ``[B, S, padded_vocab]`` (float32) and the MoE
     aux loss summed over the MoE layers (float32; 0 without one)."""
     x = _embed_inputs(params, batch, cfg)
+    enc = _enc_states(params, batch, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in params.blocks:
         x = x + _mixer_apply(blk, apply_norm(x, blk.mixer_norm, cfg.norm), cfg)
+        if enc is not None:
+            x = _cross(blk, x, attn.cross_kv(blk.cross, enc), cfg)
         x, a = _ffn(blk, x, cfg)
         if a is not None:
             aux = aux + a
@@ -240,10 +328,12 @@ def forward(params: Transformer, batch, cfg) -> Tuple[torch.Tensor, torch.Tensor
 def loss_fn(params: Transformer, batch, cfg):
     """Mean next-token cross entropy plus ``router_aux · aux / n`` over the
     ``n`` MoE layers (if any).  ``labels`` are already aligned to
-    predict-next; positions with label < 0 are masked out.  Returns
-    ``(loss, metrics)``, metrics ``loss`` / ``ce`` / ``aux`` / ``ntok`` as
-    float32 scalars."""
+    predict-next; positions with label < 0 are masked out, and llava's
+    patch prefix carries no labels.  Returns ``(loss, metrics)``, metrics
+    ``loss`` / ``ce`` / ``aux`` / ``ntok`` as float32 scalars."""
     logits, aux = forward(params, batch, cfg)
+    if cfg.n_patches:
+        logits = logits[:, cfg.n_patches :]
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
     mask = (labels >= 0).float()
     safe = labels.clamp(min=0)
@@ -260,14 +350,17 @@ def loss_fn(params: Transformer, batch, cfg):
 
 def tree_path(name: str, cfg) -> Tuple[Tuple[str, ...], Optional[int]]:
     """Where the :class:`Transformer` parameter ``name`` lives in the
-    reference's parameter tree: (its key path, the period it is stacked at,
-    or None outside ``periods``).  Layer ``i`` is period ``i //
-    len(pattern)`` of block ``b{i % len(pattern)}``."""
+    reference's parameter tree: (its key path, the index it is stacked at,
+    or None for an unstacked leaf).  Layer ``i`` is period ``i //
+    len(pattern)`` of block ``b{i % len(pattern)}``; encoder layer ``i`` is
+    index ``i`` of ``encoder.layers``."""
     path = name.split(".")
-    if path[0] != "blocks":
-        return tuple(path), None
-    layer, n = int(path[1]), len(cfg.pattern)
-    return ("periods", f"b{layer % n}", *path[2:]), layer // n
+    if path[0] == "blocks":
+        layer, n = int(path[1]), len(cfg.pattern)
+        return ("periods", f"b{layer % n}", *path[2:]), layer // n
+    if path[:2] == ["encoder", "layers"]:
+        return ("encoder", "layers", *path[3:]), int(path[2])
+    return tuple(path), None
 
 
 def param_tree(params: Transformer, cfg) -> Dict:
@@ -295,8 +388,9 @@ def _put(tree: Dict, path: Tuple[str, ...], leaf) -> None:
 
 def tree_views(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
     """``{parameter name: tensor}`` of a :class:`Transformer` over the
-    reference-layout ``tree``: each stacked leaf unbound into its periods'
-    views (no copy; differentiable back to the stacked leaf), for
+    reference-layout ``tree``: each stacked leaf (``periods``,
+    ``encoder.layers``) unbound into its layers' views (no copy;
+    differentiable back to the stacked leaf), for
     ``torch.func.functional_call``."""
     n = len(cfg.pattern)
     out: Dict[str, torch.Tensor] = {}
@@ -309,6 +403,10 @@ def tree_views(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
                 block, rest = int(path[1][1:]), ".".join(path[2:] + (key,))
                 for period, view in enumerate(sub.unbind(0)):
                     out[f"blocks.{period * n + block}.{rest}"] = view
+            elif path[:2] == ("encoder", "layers"):
+                rest = ".".join(path[2:] + (key,))
+                for layer, view in enumerate(sub.unbind(0)):
+                    out[f"encoder.layers.{layer}.{rest}"] = view
             else:
                 out[".".join(path + (key,))] = sub
 
@@ -317,16 +415,17 @@ def tree_views(tree: Mapping, cfg) -> Dict[str, torch.Tensor]:
 
 
 def _stack_cache(cfg, layer_caches) -> Dict:
-    """Per-layer mixer caches → the reference's structure, leaves stacked
-    over periods."""
+    """Per-layer caches (``{"mixer": {...}}``, plus ``"cross"`` with an
+    encoder) → the reference's structure, leaves stacked over periods."""
     n = len(cfg.pattern)
     return {
         "periods": {
             f"b{bi}": {
-                "mixer": {
-                    name: torch.stack([c[name] for c in layer_caches[bi::n]])
-                    for name in layer_caches[bi]
+                part: {
+                    name: torch.stack([c[part][name] for c in layer_caches[bi::n]])
+                    for name in layer_caches[bi][part]
                 }
+                for part in layer_caches[bi]
             }
             for bi in range(n)
         }
@@ -348,11 +447,16 @@ def prefill(params: Transformer, batch, cfg, max_len: int):
     route at ``cfg.moe_capacity_serve``."""
     with torch.inference_mode():
         x = _embed_inputs(params, batch, cfg)
+        enc = _enc_states(params, batch, cfg)
         caches = []
         for blk in params.blocks:
             h, c = _mixer_prefill(blk, apply_norm(x, blk.mixer_norm, cfg.norm), cfg, max_len)
-            x, _ = _ffn(blk, x + h, cfg, cfg.moe_capacity_serve)
-            caches.append(c)
+            x, cache = x + h, {"mixer": c}
+            if enc is not None:
+                cache["cross"] = attn.cross_kv(blk.cross, enc)
+                x = _cross(blk, x, cache["cross"], cfg)
+            x, _ = _ffn(blk, x, cfg, cfg.moe_capacity_serve)
+            caches.append(cache)
         x = apply_norm(x[:, -1:], params.final_norm, cfg.norm)
         return _head(params, x, cfg)[:, 0], _stack_cache(cfg, caches)
 
@@ -370,20 +474,24 @@ def _init_block_cache(cfg, blk, batch: int, max_len: int, device) -> Dict:
 
 
 def init_cache(cfg, batch: int, max_len: int, device="cuda") -> Dict:
-    """Fresh (empty) decode cache for ``batch`` rows."""
+    """Fresh (empty) decode cache for ``batch`` rows (an encoder-decoder's
+    cross K / V zero until ``prefill`` writes them)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return {
-        "periods": {
-            f"b{bi}": {
-                "mixer": {
-                    name: t[None].repeat((cfg.n_periods,) + (1,) * t.dim())
-                    for name, t in _init_block_cache(cfg, blk, batch, max_len, dev).items()
-                }
+
+    def stacked(layer: Dict) -> Dict:
+        return {name: t[None].repeat((cfg.n_periods,) + (1,) * t.dim())
+                for name, t in layer.items()}
+
+    periods = {}
+    for bi, blk in enumerate(cfg.pattern):
+        periods[f"b{bi}"] = {"mixer": stacked(_init_block_cache(cfg, blk, batch, max_len, dev))}
+        if cfg.is_encoder_decoder:
+            shape = (cfg.n_periods, batch, cfg.n_frames, cfg.n_kv_heads, cfg.head_dim)
+            periods[f"b{bi}"]["cross"] = {
+                name: torch.zeros(shape, dtype=cfg.dtype, device=dev) for name in ("k", "v")
             }
-            for bi, blk in enumerate(cfg.pattern)
-        }
-    }
+    return {"periods": periods}
 
 
 _DECODE = {"mamba": mb.mamba_decode, "mlstm": xl.mlstm_decode, "slstm": xl.slstm_decode}
@@ -393,7 +501,9 @@ def decode_step(params: Transformer, token, cache: Dict, cur_pos: int, cfg):
     """token ``[B, 1]`` ints, ``cur_pos`` an int (same for every row) ->
     (logits ``[B, pv]`` float32, new cache).  ``cache`` is left as it was:
     attention layers write into one copy of their K/V, recurrent layers
-    return new states.  MoE layers route at ``cfg.moe_capacity_serve``."""
+    return new states, and the cross K / V (which no step writes) are
+    carried over as they are.  MoE layers route at
+    ``cfg.moe_capacity_serve``."""
     with torch.inference_mode():
         kinds = [blk.mixer for blk in cfg.pattern]
         new = {
@@ -416,11 +526,19 @@ def decode_step(params: Transformer, token, cache: Dict, cur_pos: int, cfg):
                 layer = {n: t[period] for n, t in cache["periods"][name]["mixer"].items()}
                 y, state = _DECODE[blk.mixer_kind](blk.mixer, h, layer, cfg)
                 states[name].append(state)
-            x, _ = _ffn(blk, x + y, cfg, cfg.moe_capacity_serve)
+            x = x + y
+            if cfg.is_encoder_decoder:
+                ckv = {n: t[period] for n, t in cache["periods"][name]["cross"].items()}
+                h = apply_norm(x, blk.cross_norm, cfg.norm)
+                x = x + attn.cross_attention_decode(blk.cross, h, ckv, cfg)
+            x, _ = _ffn(blk, x, cfg, cfg.moe_capacity_serve)
         for name, per_period in states.items():
             new["periods"][name] = {
                 "mixer": {n: torch.stack([st[n] for st in per_period]) for n in per_period[0]}
             }
+        for name, c in cache["periods"].items():
+            if "cross" in c:
+                new["periods"][name]["cross"] = c["cross"]
         # the blocks in init_cache's order: the engine pairs leaves by position
         new["periods"] = {f"b{bi}": new["periods"][f"b{bi}"] for bi in range(len(kinds))}
         x = apply_norm(x, params.final_norm, cfg.norm)

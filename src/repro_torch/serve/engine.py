@@ -19,7 +19,11 @@ semantics.  The step functions come from ``repro_torch.models.model``
 * per-request max-token and EOS stopping.
 
 The engine runs where its weights are: on the card, unless the caller drew
-them on the CPU.
+them on the CPU.  Its requests are token prompts only, as the reference's
+are, so it refuses the configs whose prefill needs a modality input
+besides the tokens (whisper's ``frames``, llava's ``patches``):
+:func:`check_servable` raises ``ValueError`` for them, and they are served
+through ``models.model.prefill`` / ``decode_step`` directly.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import torch
 
 from ..models import model as model_lib
 
-__all__ = ["Request", "Result", "ServeConfig", "Engine"]
+__all__ = ["Request", "Result", "ServeConfig", "Engine", "check_servable"]
 
 
 @dataclasses.dataclass
@@ -62,6 +66,20 @@ class ServeConfig:
     seed: int = 0
 
 
+def check_servable(cfg) -> None:
+    """Raise ``ValueError`` for a config the engine cannot serve: one whose
+    prefill needs encoder frames or image patches, which a token request
+    does not carry."""
+    need = [name for name, on in (("frames", cfg.is_encoder_decoder),
+                                  ("patches", bool(cfg.n_patches))) if on]
+    if need:
+        raise ValueError(
+            f"{cfg.name}: its prefill needs batch[{need[0]!r}] besides the tokens, "
+            "and the engine's requests carry tokens only; serve it through "
+            "models.model.prefill(params, batch, cfg, max_len) and decode_step"
+        )
+
+
 def _leaves(cache):
     """The cache's tensors, in a fixed order."""
     return [
@@ -76,6 +94,7 @@ class Engine:
     ``Transformer``); it runs on the weights' device."""
 
     def __init__(self, params, cfg, scfg: ServeConfig) -> None:
+        check_servable(cfg)
         self.device = params.device
         self.params = params
         self.cfg = cfg

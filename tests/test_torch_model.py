@@ -153,12 +153,6 @@ def test_params_from_jax_casts_matrices_to_param_dtype():
         params_from_jax(bad, cfg, device="cpu")
 
 
-@pytest.mark.parametrize("name", ["whisper-medium", "llava-next-mistral-7b"])
-def test_unported_parts_raise_not_implemented(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PM.Transformer(get_config(name, smoke=True), device="cpu")
-
-
 @pytest.mark.parametrize("entry", ["init_params", "init_cache", "params_from_jax"])
 def test_model_defaults_to_cuda(entry):
     """Without a GPU the default device raises; it never falls back."""
