@@ -30,9 +30,19 @@ Phases, in order; any failed check raises and the script exits non-zero:
    shapes: whisper-medium's cross attention (4,096 queries over 1,500
    keys, non-causal, bf16 and float32) and causal self attention (16
    heads of 64), llava-next-mistral-7b's prefill (32 / 8 heads of 128).
+   At every one of those shapes the flash backward (``flash_bwd``: dq, dk,
+   dv from the forward kernel's output and row log-sum-exp) is held to
+   ``flash_backward_ref`` by flash's three bounds, each of dq, dk and dv
+   (elementwise FLASH_TOL, each row FLASH_ROW_RTOL, the whole tensor
+   FLASH_NORM_RTOL; exact zeros where no row sees a key), and timed at the
+   training shapes (smollm-135m's, qwen2-moe-a2.7b's 16 heads of 128 as
+   olmo-1b's, llava-next-mistral-7b's) beside its bound (2.5 times the
+   forward's operations; the bytes of q, k, v, o, dO, dq, dk, dv, L and Δ)
+   and the backward of ``scaled_dot_product_attention``.
 3. Main path: ``favorita_like(1684, 54, 4100, 0.05, seed=0)`` (18,641,880
-   sales rows) through ``linear_regression`` v1 (BGD) and closed form, both
-   with the moments kernel, then one degree-1 aggregate batch.  Launch
+   sales rows) through ``linear_regression`` v1 (BGD, V1_MAX_ITER steps)
+   and closed form, both with the moments kernel, then one degree-1
+   aggregate batch.  Launch
    counters are zeroed just before and read just after; every kernel must
    have launched.  The degree-1 batch is checked against float64 sums of
    the fact table.  The arguments of the profiled closed-form traversal's
@@ -223,12 +233,25 @@ Phases, in order; any failed check raises and the script exits non-zero:
    20 steps).  Step 2 (the first with a learning rate) on the card is held
    against the same step on the CPU from a copy of the same state: loss
    and grad norm at float32 tolerance, parameters within 1e-2 of the
-   learning rate, moments within 1e-4 of each leaf's largest.  Then 20
-   steps with an async checkpoint at step 10: the mean loss of the last 5
-   below that of the first 5; a fresh run resumed from the step-10
-   checkpoint alone repeats steps 10–19 within 1e-4 of their losses; a
-   10-step ``--compress-grads`` run's loss falls.  Step ms (median),
-   tokens/s and peak memory are reported.
+   learning rate, moments within 1e-4 of each leaf's largest.  Then 10
+   steps with an async checkpoint at step 5: the mean loss of the last 5
+   below that of the first 5; a fresh run resumed from the step-5
+   checkpoint alone repeats steps 5–9 within 1e-4 of their losses; a
+   5-step ``--compress-grads`` run's loss falls.  Step ms (median),
+   tokens/s and peak memory are reported.  Over the 2,048-token threshold
+   (the configs' ``train_4k`` length): one float32 microbatch of 1 × 4,096
+   tokens at full width and depth, its loss and every leaf's gradient
+   through the kernels (flash and flash_bwd exactly 30 times each, counted
+   from zero) against the same step through the plain
+   ``chunked_attention`` on the card (checkpointed; no kernel launched):
+   loss 1e-6 relative, grad norm 1e-5, each leaf 1e-4 of its largest;
+   then the config's bf16 at 4 × 4,096 tokens in 4 microbatches for 6
+   steps through ``launch.train`` (flash and flash_bwd 720 times each):
+   the mean loss of the last 3 steps below that of the first 3, step ms,
+   tokens/s, peak memory.  Last, ``--mesh 1x1`` (a NCCL group of one that
+   the run starts and ends; the state and batches DTensors under the train
+   policy) for 3 steps at 8 × 128 against the same run without a mesh:
+   losses, grad norms and every leaf of the final state within 1e-5.
 12. The MoE, Mamba and xLSTM mixers, after phase 11.  Leg 1: qwen2-moe-a2.7b
    at full width and depth (24 layers of attention + MoE, 60 experts top-4
    and the shared experts, bf16, seeded weights) behind the ``Engine``
@@ -247,7 +270,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
    (a differing selection must be a near-tie, within 1e-6); and, dropless,
    the engine's greedy tokens against the full-forward oracle, as in
    phase 7.  Leg 2: xlstm-1.3b at full width and depth (6 sLSTM and 42
-   mLSTM layers, bf16) serves 4 prompts of 2,048–4,096 tokens (multiples
+   mLSTM layers, bf16) serves 2 prompts of 2,048–4,096 tokens (multiples
    of ``xlstm_chunk``) through the exact-length prefill, 32 new tokens
    each: sLSTM and mLSTM prefill seconds, decode-step ms; in float32, a
    2,048-token prefill and 256 teacher-forced decode steps against the
@@ -320,12 +343,15 @@ import torch
 import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+from repro_torch.launch.mesh import HW  # noqa: E402  (the card's constants; imports torch alone)
+
 SEED = 0
 N_SALES = 18_641_880  # favorita_like(1684, 54, 4100, 0.05) fact rows
 SALES_FRACTION = 0.05  # the cut's share of (date, store, item) triples
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-FP32_FLOPS = 67e12  # H100 SXM, off the tensor cores
-BF16_FLOPS = 989e12  # H100 SXM, dense tensor cores
+HBM_BYTES_PER_S = HW.hbm_bw  # H100 SXM, 3.35e12
+FP32_FLOPS = HW.peak_flops_fp32  # H100 SXM, off the tensor cores, 67e12
+BF16_FLOPS = HW.peak_flops_bf16  # H100 SXM, dense tensor cores, 989e12
 # kernel vs plain: both sum in float32 in run-dependent orders (atomics);
 # the rounding error of a sum of n terms is ~sqrt(n)·2^-24·Σ|terms|, under
 # 1e-5 of the largest sum at the ≤ 10^4 terms per group these shapes have
@@ -352,12 +378,15 @@ FD_ATOL = 1e-10  # FD-reduced vs full, float64 (the reference's own bound)
 CAT = ("store_nbr", "item_nbr")
 N_CAT_PARAMS = 1 + 2 + 54 + 4_100 + 1  # intercept, date, onpromotion, blocks, label
 STREAM_ROWS = 4_000_000
+# phase 3: v1's BGD budget (the version's own 200,000 until the flash
+# backward's checks needed the smoke's time; v1's θ is checked finite)
+V1_MAX_ITER = 25_000
 GRAM_WIDE = (1_000_000, 130)  # the reference's widest gram test, scaled up
 # the kernels each path must launch: phase 3 (the continuous main path)
 # and phase 4 (all seven)
 PHASE3_KERNELS = ("segment_view", "segment_view1", "segment_reduce", "moments")
 PHASE4_KERNELS = PHASE3_KERNELS + ("gram", "segment_gram", "multi_segment_gram")
-ALL_KERNELS = PHASE4_KERNELS + ("flash",)  # phase 7 launches flash
+ALL_KERNELS = PHASE4_KERNELS + ("flash", "flash_bwd")  # phases 7 and 11 launch these
 # the engine's host-side structure work, timed by name (Timers): joins and
 # group keys where the engine and polynomial modules call them, group ids
 # where kernels.ops does
@@ -376,7 +405,7 @@ WARM_THETA_RTOL = 1e-8
 # phase 8: bench_categorical's GLM leg and bench_polynomial's degrees
 GLM_CONT, GLM_LABEL, GLM_RIDGE = ("transactions",), "onpromotion", 1e-3
 GLM_CAT = CAT
-GLM_GD_STEPS = 250  # the GD budget of the 18.6 M-row legs (cut for phases 9 and 12's time)
+GLM_GD_STEPS = 125  # the GD budget of the 18.6 M-row legs (250 until phase 11's legs, 500 until phase 12)
 GLM_ORACLE_GD_STEPS = 100_000  # the reference's default cap
 GLM_GD_PROFILE_STEPS = 128  # one chunk of predicated steps, profiled
 GLM_PRED_ATOL = 5e-3  # GD vs IRLS predictions: the reference's own bound
@@ -399,7 +428,7 @@ POLY_DEVICE_RTOL = 1e-12  # of the largest aggregate
 POLY_QUAD_RTOL = 1e-10  # of the largest entry (tests/test_property.py's check)
 POLY_FLAT_RTOL = 1e-7  # degree 2 vs the flat oracle, bench_polynomial's bound
 FD_NLL_ATOL = 1e-8  # FD-reduced vs full penalized NLL (tests/test_fd.py)
-FP64_FLOPS = 34e12  # H100 SXM, off the tensor cores
+FP64_FLOPS = HW.peak_flops_fp64  # H100 SXM, off the tensor cores, 34e12
 # flash vs its plain version; three bounds must all hold.  Elementwise
 # |a - b| <= tol·(1 + |b|): the reference's own flash tolerances
 # (tests/test_kernels.py).  Those floors are as large as the outputs once an
@@ -732,6 +761,7 @@ def kernel_phase(ref, sv, sg, mom, kops, kflash) -> dict:
                 raise AssertionError(f"segment_reduce float64 {label}: error {err}")
     rows.update(gram_family(ref, kops, sg, gen, check))
     rows["flash"] = flash_rows(ref, kops, kflash, gen)
+    rows["flash_bwd"] = flash_bwd_rows(ref, kflash, gen)
     # the date column: SalesF + Transactions + Oil rows
     m = N_SALES + 90_936 + 1_684
     x = torch.randint(0, 1_684, (m,), device="cuda", generator=gen).float()
@@ -894,16 +924,23 @@ BF16, F32 = torch.bfloat16, torch.float32
 # (what, B, Sq, Sk, H, KH, D, causal, window, kv_len, dtype, timed), kv_len
 # None meaning Sk; the first row is the serving path's prefill (the JSON
 # row), the others ride in "also"
+# the flash backward is timed at the training shapes alone: smollm-135m's,
+# qwen2-moe-a2.7b's (16 heads of 128, as olmo-1b's) and llava's (every shape
+# until phase 11's legs needed the smoke's time; all are checked)
+FLASH_BWD_TIMED = ("smollm-135m prefill", "olmo-1b heads", "llava-next-mistral-7b prefill")
 FLASH_SHAPES = [
     ("smollm-135m prefill", 1, 4096, 4096, 9, 3, 64, True, None, None, BF16, True),
     ("smollm-135m prefill", 1, 4096, 4096, 9, 3, 64, True, None, None, F32, True),
     ("olmo-1b heads", 1, 4096, 4096, 16, 16, 128, True, None, None, BF16, True),
     ("mixtral heads, window 1024", 1, 4096, 4096, 32, 8, 128, True, 1024, None, BF16, True),
+    ("mixtral heads, window 1024", 1, 4096, 4096, 32, 8, 128, True, 1024, None, F32, False),
     ("non-causal ragged", 2, 1000, 3001, 8, 2, 64, False, None, None, BF16, True),
     ("non-causal ragged", 2, 1000, 3001, 8, 2, 64, False, None, None, F32, True),
     ("non-causal, kv_len 2,777 of 3,001", 2, 1000, 3001, 8, 2, 64, False, None, 2777, BF16, True),
+    ("non-causal, kv_len 2,777 of 3,001", 2, 1000, 3001, 8, 2, 64, False, None, 2777, F32, False),
     ("non-causal, kv_len 0", 2, 1000, 3001, 8, 2, 64, False, None, 0, BF16, False),
     ("causal 1,111 tokens, head dim 128", 1, 1111, 1111, 4, 1, 128, True, None, None, BF16, True),
+    ("causal 1,111 tokens, head dim 128", 1, 1111, 1111, 4, 1, 128, True, None, None, F32, False),
     ("head dim 8", 1, 300, 300, 2, 1, 8, True, None, None, BF16, False),
     ("head dim 40, window 50", 1, 300, 300, 2, 1, 40, True, 50, None, BF16, False),
     ("head dim 40, window 50", 1, 300, 300, 2, 1, 40, True, 50, None, F32, False),
@@ -1025,6 +1062,112 @@ def flash_case(ref, kops, gen, shape) -> dict:
     return row
 
 
+def library_attention_bwd(q, k, v, dout, causal, window, kv_len):
+    """The backward of ``scaled_dot_product_attention`` (as
+    ``library_attention`` calls it) on [B, H, S, D] copies of the same
+    inputs, as one call of ``torch.autograd.grad`` (timed as the backward's
+    ``library_ms``; the port never calls it)."""
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k[:, :kv_len], v[:, :kv_len]))
+    kw = dict(is_causal=causal)
+    if window is not None:
+        i = torch.arange(q.shape[1], device=q.device)[:, None]
+        j = torch.arange(kv_len, device=q.device)[None, :]
+        kw = dict(attn_mask=(j > i - window) & ((j <= i) if causal else True))
+    with torch.enable_grad():
+        out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw)
+    gt = dout.transpose(1, 2).contiguous()
+    return functools.partial(torch.autograd.grad, out, (qt, kt, vt), gt, retain_graph=True)
+
+
+def flash_bwd_rows(ref, kflash, gen) -> dict:
+    """The flash backward (``flash_bwd``) against ``ref.flash_backward_ref``
+    at every shape of FLASH_SHAPES, from the forward kernel's own output and
+    row log-sum-exp; the JSON row of the first shape, the others in
+    ``also``."""
+    out = [flash_bwd_case(ref, kflash, gen, shape) for shape in FLASH_SHAPES]
+    return dict(
+        name="flash_bwd", route="cuda", source="src/repro_torch/csrc/flash_bwd.cu",
+        replaces=("none: the gradient of src/repro/kernels/flash.py:106 flash_kernel_call, "
+                  "which has no backward (the reference differentiates chunked_attention, "
+                  "src/repro/models/attention.py:97)"),
+        **out[0], also=out[1:],
+    )
+
+
+def flash_bwd_case(ref, kflash, gen, shape) -> dict:
+    """dq, dk, dv of the backward kernel against its plain version at one
+    ``FLASH_SHAPES`` entry (each within flash's three bounds: elementwise
+    FLASH_TOL, per row FLASH_ROW_RTOL, whole FLASH_NORM_RTOL; where no row
+    sees a key, exact zeros), timed at FLASH_BWD_TIMED beside its bound (2.5
+    times the forward's operations: five products for two; the bytes of q,
+    k, v, o, dO, dq, dk, dv, L and Δ) and the backward of
+    ``scaled_dot_product_attention``."""
+    what, b, sq, sk, h, kh, d, causal, window, kv_len, dt, timed = shape
+    timed = timed and what in FLASH_BWD_TIMED
+    kv_len = sk if kv_len is None else kv_len
+    q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dt)
+    k = torch.randn(b, sk, kh, d, device="cuda", generator=gen).to(dt)
+    v = torch.randn(b, sk, kh, d, device="cuda", generator=gen).to(dt)
+    dout = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dt)
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    o, lse = kflash.flash_attention(q, k, v, with_lse=True, **kw)
+    kern = functools.partial(kflash.flash_backward, q, k, v, o, dout, lse, **kw)
+    plain = functools.partial(ref.flash_backward_ref, q, k, v, o, dout, **kw)
+    got, want = kern(), plain()
+    tol, row_rtol, norm_rtol = FLASH_TOL[dt], FLASH_ROW_RTOL[dt], FLASH_NORM_RTOL[dt]
+    name = f"{what} {str(dt).split('.')[-1]}"
+    errs = []  # (max |Δ|, worst row, whole) of dq, dk, dv
+    for part, a, w in zip(("dq", "dk", "dv"), got, want):
+        a, w = a.float(), w.float()
+        diff = a - w
+        if kv_len == 0:  # no row sees a key: exact zeros
+            if bool(a.any()) or bool(w.any()):
+                raise AssertionError(f"flash_bwd at {name}: {part} not exactly 0")
+            row_err = norm_err = 0.0
+        else:
+            # a row is one query's (dq) or one key's (dk, dv) vector of one head
+            floor = d**0.5 * float(w.square().mean().sqrt())
+            row_err = float((diff.norm(dim=-1) / (w.norm(dim=-1) + floor)).max())
+            norm_err = float(diff.norm() / w.norm())
+        errs.append((float(diff.abs().max()), row_err, norm_err))
+        if not (bool(torch.isfinite(a).all()) and bool((diff.abs() <= tol * (1 + w.abs())).all())
+                and row_err <= row_rtol and norm_err <= norm_rtol):
+            raise AssertionError(
+                f"flash_bwd at {name}: {part} error {errs[-1][0]}, row {row_err}, norm "
+                f"{norm_err} over tolerance {tol} / {row_rtol} / {norm_rtol}")
+    err, row_err, norm_err = (max(e[i] for e in errs) for i in range(3))
+    log(f"{'flash_bwd':15s} {name:34s} max_abs_err={err:.3e} tol={tol:.0e} "
+        f"row_err={row_err:.3e} rtol={row_rtol:.0e} norm_err={norm_err:.3e} "
+        f"rtol={norm_rtol:.0e} (dq, dk, dv: "
+        + "; ".join(f"{e:.2e} {r:.2e} {n:.2e}" for e, r, n in errs) + ")")
+    row = dict(
+        shape=dict(what=what, batch=b, sq=sq, sk=sk, heads=h, kv_heads=kh,
+                   head_dim=d, causal=causal, window=window, kv_len=kv_len,
+                   dtype=str(dt).split(".")[-1]),
+        max_abs_err=err, tol=tol, row_err=row_err, row_rtol=row_rtol,
+        norm_err=norm_err, norm_rtol=norm_rtol,
+    )
+    if timed:
+        s = q.element_size()
+        nbytes = (4 * b * sq * h * d * s + 4 * b * kv_len * kh * d * s
+                  + 2 * b * h * sq * 4)
+        flops = 2.5 * 4 * d * h * b * visible_pairs(sq, kv_len, causal, window)
+        bnd, by = bound_ms(nbytes, flops, BF16_FLOPS if dt == BF16 else FP32_FLOPS)
+        lib = library_attention_bwd(q, k, v, dout, causal, window, kv_len)
+        row.update(ms=time_ms(kern), plain_ms=time_ms(plain, reps=3, warmup=1),
+                   bound_ms=bnd, bound_by=by, library_ms=time_ms(lib),
+                   ms_back_to_back=time_ms_back_to_back(kern, launches=5))
+        row["pct_of_bound"] = 100 * bnd / row["ms"]
+        log(f"{'flash_bwd':15s} {name:34s} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+            f"bound_ms={bnd:.4f} ({by}, {row['pct_of_bound']:.2f} %) "
+            f"library_ms={row['library_ms']:.4f} (SDPA backward); back to back "
+            f"{row['ms_back_to_back']:.4f}")
+        del lib
+    del q, k, v, dout, o, lse, got, want
+    return row
+
+
 # -- phase 3: the main path ---------------------------------------------------
 
 class Timers:
@@ -1135,6 +1278,8 @@ def main_path(rt, bundle) -> dict:
                 rt.VERSIONS[version], backend="torch", device="cuda",
                 use_kernel=True,
             )
+            if version == "v1":
+                cfg = dataclasses.replace(cfg, max_iter=V1_MAX_ITER)
             t = time.perf_counter()
             r = rt.linear_regression(store, vorder, feats, label, cfg)
             torch.cuda.synchronize()
@@ -1148,7 +1293,7 @@ def main_path(rt, bundle) -> dict:
                 f"wall={wall:.3f}s")
         # device time of the closed-form run, from a second, profiled run
         # (the profiler's own host cost would inflate its wall time; BGD's
-        # 200,000 small steps would swamp the trace)
+        # 25,000 small steps would swamp the trace)
         activities = [
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA,
@@ -3586,8 +3731,9 @@ def dist_phase(rt, inp) -> dict:
 
 # -- phase 11: LM training --------------------------------------------------------
 
-# 20 steps (30 until phase 12 needed the smoke's time), checkpoint at 10
-TRAIN_STEPS, TRAIN_CKPT_STEP, TRAIN_COMPRESS_STEPS = 20, 10, 10
+# 10 steps (20 until phase 11's 4,096-token and mesh legs needed the
+# smoke's time, 30 until phase 12 did), checkpoint at 5
+TRAIN_STEPS, TRAIN_CKPT_STEP, TRAIN_COMPRESS_STEPS = 10, 5, 5
 TRAIN_ARGV = ["--arch", LM_ARCH, "--batch", "8", "--seq", "128", "--dtype", "float32",
               "--device", "cuda", "--seed", str(SEED)]
 # one step on the card against the same step on the CPU, float32 both (TF32
@@ -3755,6 +3901,171 @@ def train_phase(tr) -> dict:
                 compressed=dict(losses=closs, **step_stats(squeezed.history, tokens)))
 
 
+# phase 11's legs over the 2,048-token threshold and on a mesh: one float32
+# step of 1 x 4,096 tokens held to the plain chunked path on the card, a
+# bf16 run at 4 x 4,096 in 4 microbatches, and --mesh 1x1 against no mesh
+LONG_TRAIN_ARGV = ["--arch", LM_ARCH, "--batch", "1", "--seq", "4096", "--microbatches", "1",
+                   "--dtype", "float32", "--device", "cuda", "--seed", str(SEED), "--steps", "1"]
+# kernels vs the plain chunked path, float32 both: the loss a mean over 4,095
+# tokens of 49,152-way log-sum-exps, attention's sums in other orders
+LONG_LOSS_RTOL = 1e-6
+LONG_NORM_RTOL = 1e-5
+LONG_LEAF_RTOL = 1e-4  # of each leaf's largest gradient
+BF16_TRAIN_STEPS = 6  # 10 until the flash backward's checks needed the smoke's time
+BF16_TRAIN_ARGV = ["--arch", LM_ARCH, "--batch", "4", "--seq", "4096", "--microbatches", "4",
+                   "--device", "cuda", "--seed", str(SEED), "--steps", str(BF16_TRAIN_STEPS)]
+MESH_TRAIN_STEPS = 3
+# one rank on NCCL: the same sums, DTensor around them
+MESH_RTOL = 1e-5
+
+
+def plain_flash_fn(chunked_attention):
+    """A stand-in for ``ops.flash_attention_fn`` that runs its plain version,
+    ``chunked_attention`` over arange positions, under activation
+    checkpointing (else autograd would keep every chunk's probabilities: ~72
+    GB at 30 layers of 4,096 tokens).  Launches no kernel."""
+    plain = plain_flash(chunked_attention)
+
+    def run(q, k, v, *, causal, window, kv_len):
+        return torch.utils.checkpoint.checkpoint(
+            functools.partial(plain, causal=causal, window=window, kv_len=kv_len),
+            q, k, v, use_reentrant=False)
+    return run
+
+
+def tree_grads(tr, cfg, params, batch) -> tuple:
+    """(loss, grads by leaf) of the train step's loss on ``batch``, as its
+    ``grad_fn`` differentiates: ``functional_call`` over the tree's views."""
+    leaves = [p.detach().requires_grad_(True) for p in tr.tree_leaves(params)]
+    views = tr.tree_views(tr.tree_unflatten(params, leaves), cfg)
+    with torch.enable_grad():
+        loss, _ = torch.func.functional_call(
+            tr.TreeLoss(cfg), {f"model.{n}": t for n, t in views.items()}, (batch,))
+        grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), grads
+
+
+def long_step_leg(tr) -> dict:
+    """One float32 microbatch of 1 x 4,096 tokens at full width and depth:
+    loss and gradients through the kernels (flash and flash_bwd exactly
+    once a layer, counted from zero) against the same step through the
+    plain ``chunked_attention`` on the card (no kernel launched)."""
+    args, cfg, hp, pipe = tr.setup(LONG_TRAIN_ARGV)
+    state = tr.init_state(args.seed, cfg, hp, device="cuda")
+    batch = pipe.batch_at(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr.kops.reset_launch_counts()
+    t = time.perf_counter()
+    loss, grads = tree_grads(tr, cfg, state.params, batch)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t
+    counts = tr.kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: counts[name] for name in ("flash", "flash_bwd")}
+    log(f"1 x 4,096 float32 step: launches {launches} (expected {cfg.n_layers} each), "
+        f"{kernel_s:.2f}s, peak memory {peak}")
+    if launches != {"flash": cfg.n_layers, "flash_bwd": cfg.n_layers}:
+        raise AssertionError(f"1 x 4,096 step: launches {launches}, expected "
+                             f"{cfg.n_layers} of flash and of flash_bwd")
+    tr.kops.reset_launch_counts()
+    with mock.patch.object(tr.attention.ops, "flash_attention_fn",
+                           plain_flash_fn(tr.attention.chunked_attention)):
+        t = time.perf_counter()
+        ploss, pgrads = tree_grads(tr, cfg, state.params, batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+    if any(tr.kops.launch_counts().values()):
+        raise AssertionError(f"the plain step launched {tr.kops.launch_counts()}")
+    norm = float(torch.sqrt(sum(g.double().square().sum() for g in grads)))
+    pnorm = float(torch.sqrt(sum(g.double().square().sum() for g in pgrads)))
+    loss_err, norm_err = abs(loss - ploss) / abs(ploss), abs(norm - pnorm) / pnorm
+    leaf_err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                   for a, b in zip(grads, pgrads))
+    row = dict(tokens=4096, loss=loss, plain_loss=ploss, loss_rel_err=loss_err,
+               loss_rtol=LONG_LOSS_RTOL, grad_norm=norm, plain_grad_norm=pnorm,
+               grad_norm_rel_err=norm_err, grad_norm_rtol=LONG_NORM_RTOL,
+               leaf_max_rel_err=leaf_err, leaf_rtol=LONG_LEAF_RTOL, launches=launches,
+               kernel_s=kernel_s, plain_s=plain_s, max_memory_allocated=peak)
+    log(f"1 x 4,096 float32 step, kernels vs plain chunked_attention: loss {loss:.7f} / "
+        f"{ploss:.7f} (rel {loss_err:.2e}), grad norm {norm:.6f} / {pnorm:.6f} (rel "
+        f"{norm_err:.2e}), leaves {leaf_err:.2e} of their largest; {kernel_s:.2f}s vs "
+        f"{plain_s:.2f}s")
+    if not (loss_err <= LONG_LOSS_RTOL and norm_err <= LONG_NORM_RTOL
+            and leaf_err <= LONG_LEAF_RTOL):
+        raise AssertionError(f"1 x 4,096 step: kernels and plain path disagree: {row}")
+    del state, grads, pgrads
+    return row
+
+
+def bf16_train_leg(tr) -> dict:
+    """smollm-135m in the config's bf16 at 4 x 4,096 tokens in 4
+    microbatches through ``launch.train``: the loss must fall; step ms,
+    tokens/s and peak memory; flash and flash_bwd launch once a layer a
+    microbatch."""
+    _, cfg, _, _ = tr.setup(BF16_TRAIN_ARGV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr.kops.reset_launch_counts()
+    t = time.perf_counter()
+    res = tr.run(BF16_TRAIN_ARGV, log=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = tr.kops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = cfg.n_layers * 4 * BF16_TRAIN_STEPS
+    launches = {name: counts[name] for name in ("flash", "flash_bwd")}
+    losses = [h["loss"] for h in res.history]
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    stats = step_stats(res.history, 4 * 4096)
+    log(f"bf16 4 x 4,096, microbatches 4: {len(losses)} steps in {wall:.1f}s, step "
+        f"{stats['step_ms_median']:.1f} ms (median), {stats['tokens_per_s']:.0f} tokens/s, "
+        f"loss {first:.4f} -> {last:.4f} (means of the first and last 3), peak memory "
+        f"{peak}, launches {launches} (expected {want} each)")
+    if launches != {"flash": want, "flash_bwd": want}:
+        raise AssertionError(f"bf16 4 x 4,096: launches {launches}, expected {want} each")
+    if len(losses) != BF16_TRAIN_STEPS or not np.all(np.isfinite(losses)) or not last < first:
+        raise AssertionError(f"bf16 4 x 4,096: losses {losses}")
+    return dict(dtype=str(cfg.dtype), batch=4, seq=4096, microbatches=4, losses=losses,
+                loss_first3=first, loss_last3=last, wall_s=wall, max_memory_allocated=peak,
+                launches=launches, **stats)
+
+
+def mesh_leg(tr) -> dict:
+    """``launch.train --mesh 1x1`` on a NCCL group of one (the run starts and
+    ends it) against the same run without a mesh: losses and grad norms of
+    its first three steps, and every leaf of the final state, within 1e-5
+    (relative; leaves of their largest)."""
+    argv = TRAIN_ARGV + ["--steps", str(MESH_TRAIN_STEPS)]
+    plain = tr.run(argv, log=log)
+    t = time.perf_counter()
+    meshed = tr.run(argv + ["--mesh", "1x1"], log=log)
+    wall = time.perf_counter() - t
+    if tr.dist.is_initialized():
+        raise AssertionError("--mesh 1x1 left its process group up")
+    hist = [(h["loss"], h["grad_norm"]) for h in meshed.history]
+    want = [(h["loss"], h["grad_norm"]) for h in plain.history]
+    hist_err = max(max(abs(a - c) / abs(c), abs(b - d) / abs(d))
+                   for (a, b), (c, d) in zip(hist, want))
+    leaf_err = 0.0
+    for a, b in zip(tr.tree_leaves(meshed.state), tr.tree_leaves(plain.state)):
+        a = a.full_tensor() if hasattr(a, "full_tensor") else a
+        if b.numel():
+            scale = max(float(b.abs().max()), 1e-30)
+            leaf_err = max(leaf_err, float((a.double() - b.double()).abs().max()) / scale)
+    row = dict(steps=MESH_TRAIN_STEPS, losses=[h[0] for h in hist],
+               plain_losses=[h[0] for h in want], history_max_rel_err=hist_err,
+               state_leaf_max_rel_err=leaf_err, rtol=MESH_RTOL, wall_s=wall,
+               step_s=[h["sec"] for h in meshed.history],
+               plain_step_s=[h["sec"] for h in plain.history])
+    log(f"--mesh 1x1 (NCCL) vs no mesh, {MESH_TRAIN_STEPS} steps: losses and grad norms "
+        f"within {hist_err:.2e}, state within {leaf_err:.2e} of each leaf's largest; step "
+        f"seconds {row['step_s']} vs {row['plain_step_s']}")
+    if len(hist) != MESH_TRAIN_STEPS or not (hist_err <= MESH_RTOL and leaf_err <= MESH_RTOL):
+        raise AssertionError(f"--mesh 1x1: {row}")
+    return row
+
+
 # -- phase 12: the MoE, Mamba and xLSTM mixers -------------------------------------
 
 MOE_ARCH = "qwen2-moe-a2.7b"  # phase 7's traffic (LM_SERVE, LM_NEW, LM_PROMPT)
@@ -3765,7 +4076,7 @@ MOE_TIE = 1e-6  # k-th and (k+1)-th router probabilities this close: a near-tie
 MOE_FLASH_SHAPE = ("qwen2-moe-a2.7b prefill", 1, 4096, 4096, 16, 16, 128, True, None, None,
                    BF16, True)
 XLSTM_ARCH = "xlstm-1.3b"
-XLSTM_REQUESTS, XLSTM_NEW = 4, 32
+XLSTM_REQUESTS, XLSTM_NEW = 2, 32  # 4 requests until phase 11's legs needed the time
 XLSTM_PROMPT = (2_048, 4_096)  # lengths multiples of xlstm_chunk (256): the reference's domain
 XLSTM_CHECK = (2_048, 256)  # float32: prefill, then teacher-forced decode steps
 XLSTM_RTOL = 1e-4  # decode logits vs the full forward, of max |logit|
@@ -4539,7 +4850,6 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device available")
     sys.stdout.reconfigure(line_buffering=True)
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import (
         VERSIONS,
         AggregateQuery,
@@ -4579,7 +4889,10 @@ def main() -> None:
     from repro_torch.kernels import segment_view as sv
     from repro_torch.launch import train as launch_train
     from repro_torch.train import compression, init_state, make_train_step
-    from repro_torch.train._tree import tree_leaves, tree_map
+    from repro_torch.models import attention as lm_attention
+    from repro_torch.models import model as lm_model
+    from repro_torch.train._tree import tree_leaves, tree_map, tree_unflatten
+    from repro_torch.train.train_step import _TreeLoss as TreeLoss
     from repro_torch.train.checkpoint import latest_step
     from repro_torch.serve import (
         FactorizedService,
@@ -4613,7 +4926,9 @@ def main() -> None:
     tr = types.SimpleNamespace(
         setup=launch_train.setup, run=launch_train.run, init_state=init_state,
         make_train_step=make_train_step, tree_leaves=tree_leaves, tree_map=tree_map,
-        latest_step=latest_step,
+        latest_step=latest_step, tree_unflatten=tree_unflatten, TreeLoss=TreeLoss,
+        tree_views=lm_model.tree_views, attention=lm_attention, kops=kops,
+        dist=torch.distributed,
     )
     lm = lm_namespace()
     torch.backends.cuda.matmul.allow_tf32 = False  # float32 means float32
@@ -4725,6 +5040,19 @@ def main() -> None:
 
     log("phase 11: LM training")
     training = train_phase(tr)
+    log("phase 11: one float32 step of 1 x 4,096 tokens, kernels vs the plain path")
+    training["long_step"] = long_step_leg(tr)
+    log("phase 11: bf16 at 4 x 4,096 tokens, microbatches 4")
+    training["bf16_4k"] = bf16_train_leg(tr)
+    log("phase 11: --mesh 1x1 on NCCL")
+    training["mesh_1x1"] = mesh_leg(tr)
+    launches11 = {name: training["long_step"]["launches"][name]
+                  + training["bf16_4k"]["launches"][name] for name in ("flash", "flash_bwd")}
+    rows["flash_bwd"]["launches"] = launches11["flash_bwd"]
+    rows["flash_bwd"]["launches_by_phase"] = dict(
+        phase11=dict(long_step=training["long_step"]["launches"]["flash_bwd"],
+                     bf16_4k=training["bf16_4k"]["launches"]["flash_bwd"]))
+    rows["flash"]["launches"] += launches11["flash"]
 
     log("phase 12: the MoE, Mamba and xLSTM mixers")
     mixers, launches12, flash12 = mixers_phase(lm)
@@ -4734,8 +5062,8 @@ def main() -> None:
     log("phase 13: whisper-medium and llava-next-mistral-7b")
     encdec, launches13 = encdec_phase(lm)
     rows["flash"]["launches"] += sum(launches13.values())
-    rows["flash"]["launches_by_phase"] = dict(phase7=launches7, phase12=launches12,
-                                              phase13=launches13)
+    rows["flash"]["launches_by_phase"] = dict(phase7=launches7, phase11=launches11["flash"],
+                                              phase12=launches12, phase13=launches13)
 
     print(json.dumps({"phase8": glm_poly}))
     print(json.dumps({"service": service}))

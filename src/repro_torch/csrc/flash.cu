@@ -14,7 +14,10 @@
 // elsewhere (so a row with no visible key yet stays at l = 0, acc = 0);
 // l' = l·exp(m - m') + Σp;  acc' = acc·exp(m - m') + p·V, with p rounded to
 // V's dtype before the product.  The output is acc / max(l, 1e-30) in q's
-// dtype, so a fully masked row is 0.
+// dtype, so a fully masked row is 0.  Given a pointer (training), each
+// kernel also writes the row log-sum-exp L = m + ln l in float32, [B, H,
+// Sq], -inf for a row that sees no key: flash_bwd.cu recomputes the
+// probabilities from it.  Serving passes none.
 //
 // What bounds it on an H100.  Two matrix products of 2·D flops per visible
 // (query, key) pair each, against reading q, k, v and writing the output
@@ -91,6 +94,7 @@ struct Args {
   const void* k;  // [B, Sk, KH, D]
   const void* v;  // [B, Sk, KH, D]
   void* out;      // [B, Sq, H, D]
+  float* lse;     // [B, H, Sq] row log-sum-exp, or null (serving)
   int sq, sk, h, kh, d, causal, window, kv_len;
   float scale;
 };
@@ -126,6 +130,7 @@ constexpr int kThreads16 = 384;       // + one producer warpgroup
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // the instantiation for padded width DP; flash_bf16_geometry reports it
 template <int DP>
@@ -584,6 +589,11 @@ __global__ void __launch_bounds__(kThreads16, 1)
     const float denom = fmaxf(l, 1e-30f);
     const int qi = row0 + 8 * rr;
     if (qi >= a.sq) continue;
+    // L = ln Σ exp(s·scale) = (m + log2 l)·ln 2 (m in the log2 domain); a
+    // row that saw no key gets -inf
+    if (a.lse != nullptr && t4 == 0)
+      a.lse[((int64_t)batch * a.h + head) * a.sq + qi] =
+          l > 0.f ? (m_row[rr] + log2f(l)) * kLn2 : -INFINITY;
 #pragma unroll
     for (int p = 0; p < G::kPanels; ++p)
 #pragma unroll
@@ -726,6 +736,9 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(Args a) {
   const float l = l_part + __shfl_xor_sync(kFull, l_part, 1);
   const float denom = fmaxf(l, 1e-30f);
   if (qi >= a.sq) return;
+  if (a.lse != nullptr && half == 0)  // a row that saw no key: -inf
+    a.lse[((int64_t)batch * a.h + head) * a.sq + qi] =
+        l > 0.f ? m_row + logf(l) : -INFINITY;
   float* og = static_cast<float*>(a.out) +
               ((int64_t)batch * a.sq * a.h + head) * a.d + qi * q_stride;
 #pragma unroll
@@ -853,11 +866,12 @@ int padded_dim(int d) {
   return 0;
 }
 
-Args make_args(const void* q, const void* k, const void* v, void* out, int sq,
-               int sk, int h, int kh, int d, int causal, int window,
-               int kv_len) {
+Args make_args(const void* q, const void* k, const void* v, void* out,
+               void* lse, int sq, int sk, int h, int kh, int d, int causal,
+               int window, int kv_len) {
   Args a;
   a.q = q; a.k = k; a.v = v; a.out = out;
+  a.lse = static_cast<float*>(lse);
   a.sq = sq; a.sk = sk; a.h = h; a.kh = kh; a.d = d;
   a.causal = causal; a.window = window; a.kv_len = kv_len;
   a.scale = (float)pow((double)d, -0.5);  // D^-1/2 rounded once to float
@@ -872,13 +886,15 @@ bool bad_shape(int b, int sq, int sk, int h, int kh, int d, int kv_len) {
 }  // namespace
 
 // q [B, Sq, H, D], k / v [B, Sk, KH, D], out [B, Sq, H, D], all contiguous
-// and 16-byte aligned; window <= 0 means none.  Returns a cudaError_t.
+// and 16-byte aligned; lse a float32 [B, H, Sq] for the row log-sum-exp (the
+// backward's input) or null; window <= 0 means none.  Returns a cudaError_t.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
-                                    void* out, int b, int sq, int sk, int h,
+                                    void* out, void* lse, int b, int sq, int sk, int h,
                                     int kh, int d, int causal, int window,
                                     int kv_len, void* stream) {
   if (bad_shape(b, sq, sk, h, kh, d, kv_len)) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(q, k, v, out, sq, sk, h, kh, d, causal, window, kv_len);
+  const Args a =
+      make_args(q, k, v, out, lse, sq, sk, h, kh, d, causal, window, kv_len);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (padded_dim(d)) {
     case 16: return (int)launch_bf16<16>(a, b, s);
@@ -906,11 +922,12 @@ extern "C" int flash_bf16_geometry(int d, int* out) {
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
-                                   void* out, int b, int sq, int sk, int h,
+                                   void* out, void* lse, int b, int sq, int sk, int h,
                                    int kh, int d, int causal, int window,
                                    int kv_len, void* stream) {
   if (bad_shape(b, sq, sk, h, kh, d, kv_len)) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(q, k, v, out, sq, sk, h, kh, d, causal, window, kv_len);
+  const Args a =
+      make_args(q, k, v, out, lse, sq, sk, h, kh, d, causal, window, kv_len);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (padded_dim(d)) {
     case 16: return (int)launch_f32<16>(a, b, s);

@@ -37,7 +37,7 @@ __all__ = [
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES: Tuple[str, ...] = (
-    "segment_view", "moments", "gram", "segment_gram", "flash",
+    "segment_view", "moments", "gram", "segment_gram", "flash", "flash_bwd",
 )
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,4 +1,5 @@
-"""ctypes wrapper of the flash-attention kernel (``csrc/flash.cu``).
+"""ctypes wrappers of the flash-attention kernels (``csrc/flash.cu``, and
+its backward, ``csrc/flash_bwd.cu``).
 
 :func:`flash_attention` runs online-softmax attention over the model's
 ``[B, S, H, D]`` layout through ``flash_attention_bf16`` (Hopper tensor
@@ -15,12 +16,19 @@ instantiation per head dim), :func:`tensor_map` (the TMA maps),
 need the mask).  :func:`kernel_bf16_geometry` asks the built library for
 its own numbers; ``chip_smoke.py`` holds the two equal.
 
-The function takes CUDA tensors only and raises on anything else; its plain
-PyTorch version with the same signature is
-``repro_torch.kernels.ref.flash_attention_ref``, and ``ops.flash_attention``
-checks shapes, dtypes and head dims before either.  The output is allocated
-here and the kernel runs on the current stream without synchronising.
-``launches`` counts its launches.
+:func:`flash_backward` runs ``flash_backward_{bf16,f32}`` (a Δ pre-pass,
+a dK/dV kernel and a dQ kernel, scalar float32 FMAs) from the forward's
+row log-sum-exp, which :func:`flash_attention` returns when asked
+(``with_lse``).  Replaces no TPU kernel: the reference differentiates its
+jnp recurrence instead.
+
+The functions take CUDA tensors only and raise on anything else; their
+plain PyTorch versions are ``repro_torch.kernels.ref.flash_attention_ref``
+and ``flash_backward_ref``, and ``ops.flash_attention`` /
+``ops.flash_attention_fn`` check shapes, dtypes and head dims before
+either.  Outputs and scratch are allocated here and the kernels run on the
+current stream without synchronising.  ``launches`` counts the forward's
+launches and the backward's (one a backward).
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ __all__ = [
     "bf16_geometry",
     "block_order",
     "flash_attention",
+    "flash_backward",
     "kernel_bf16_geometry",
     "key_tiles",
     "launches",
@@ -45,12 +54,16 @@ __all__ = [
     "tile_interior",
 ]
 
-#: launches since the last reset (chip_smoke.py zeroes and reads)
-launches = {"flash": 0}
+#: launches since the last reset (chip_smoke.py zeroes and reads); one
+#: backward is one count of ``flash_bwd`` (its three kernels together)
+launches = {"flash": 0, "flash_bwd": 0}
 
 _P, _I32 = ctypes.c_void_p, ctypes.c_int
-# (q, k, v, out, b, sq, sk, h, kh, d, causal, window, kv_len, stream)
-_ARGTYPES = [_P, _P, _P, _P] + [_I32] * 9 + [_P]
+# (q, k, v, out, lse, b, sq, sk, h, kh, d, causal, window, kv_len, stream)
+_ARGTYPES = [_P] * 5 + [_I32] * 9 + [_P]
+# (q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, sk, h, kh, d, causal,
+#  window, kv_len, stream)
+_BWD_ARGTYPES = [_P] * 10 + [_I32] * 9 + [_P]
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 
 #: queries per bf16 consumer warpgroup (wgmma's M)
@@ -156,10 +169,13 @@ def flash_attention(
     causal: bool,
     window: Optional[int],
     kv_len: int,
-) -> torch.Tensor:
+    with_lse: bool = False,
+):
     """q ``[B, Sq, H, D]``, k / v ``[B, Sk, KH, D]`` bf16 or float32 CUDA
     tensors (shapes already checked by ``ops.flash_attention``) →
-    ``[B, Sq, H, D]`` in q's dtype."""
+    ``[B, Sq, H, D]`` in q's dtype; with ``with_lse``, ``(out, lse)``, the
+    row log-sum-exp float32 ``[B, H, Sq]`` (-inf for a row that sees no
+    key) that :func:`flash_backward` takes."""
     if q.dtype not in _SUFFIX:
         raise ValueError(f"flash: unsupported dtype {q.dtype}")
     q = _operand("q", q, q)
@@ -167,15 +183,59 @@ def flash_attention(
     b, sq, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     fn = _build.function("flash", f"flash_attention_{_SUFFIX[q.dtype]}", _ARGTYPES)
     stream = torch.cuda.current_stream(q.get_device()).cuda_stream
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        0 if lse is None else lse.data_ptr(),
         b, sq, sk, h, kh, d, int(causal), window or 0, kv_len, stream,
     )
     if err != 0:
         raise RuntimeError(f"flash launch failed: cudaError_t {err}")
     launches["flash"] += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_backward(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    dout: torch.Tensor,
+    lse: torch.Tensor,
+    *,
+    causal: bool,
+    window: Optional[int],
+    kv_len: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dq, dk, dv of :func:`flash_attention` (``csrc/flash_bwd.cu``): the
+    forward's inputs, its output ``out`` and row log-sum-exp ``lse``, and
+    the output's gradient ``dout``, all CUDA tensors of one dtype (``lse``
+    float32) → gradients in that dtype, shaped as q, k, v."""
+    if q.dtype not in _SUFFIX:
+        raise ValueError(f"flash backward: unsupported dtype {q.dtype}")
+    q = _operand("q", q, q)
+    k, v = _operand("k", k, q), _operand("v", v, q)
+    out, dout = _operand("out", out, q), _operand("dout", dout.to(q.dtype), q)
+    lse = _operand("lse", lse, q)
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dq.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    fn = _build.function("flash_bwd", f"flash_backward_{_SUFFIX[q.dtype]}", _BWD_ARGTYPES)
+    stream = torch.cuda.current_stream(q.get_device()).cuda_stream
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, sq, sk, h, kh, d, int(causal), window or 0, kv_len, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"flash backward launch failed: cudaError_t {err}")
+    launches["flash_bwd"] += 1
+    return dq, dk, dv

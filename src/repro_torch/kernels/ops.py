@@ -21,7 +21,9 @@ accumulator fits it.  Both paths (kernel and plain version) chunk alike,
 and both refuse a width whose single group exceeds the budget or
 ``GROUP_BYTES`` (K > 313 in float32, K > 221 in float64).
 ``flash_attention`` reads the model's ``[B, S, H, D]`` layout and the KV
-heads of GQA in place: no transposes, no repeated K/V, no padding.
+heads of GQA in place: no transposes, no repeated K/V, no padding;
+``flash_attention_fn`` is the same attention as an autograd function whose
+backward is the ``flash_bwd`` kernel.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ __all__ = [
     "FLASH_MAX_HEAD_DIM",
     "fast_device_grouping",
     "flash_attention",
+    "flash_attention_fn",
     "gram",
     "group_ids_device",
     "launch_counts",
@@ -281,24 +284,9 @@ def group_ids_device(key, device=None, *, with_order: bool = False) -> tuple:
     return out + (order.to(torch.int32),) if with_order else out
 
 
-def flash_attention(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    *,
-    causal: bool = True,
-    window: Optional[int] = None,
-    kv_len: Optional[int] = None,
-) -> torch.Tensor:
-    """Fused online-softmax attention: q ``[B, Sq, H, D]``, k / v
-    ``[B, Sk, KH, D]`` with ``H % KH == 0`` → ``[B, Sq, H, D]`` in q's dtype.
-
-    Positions are the sequence indices: query ``i`` sees key ``j`` iff
-    ``j < kv_len`` (default ``Sk``), ``j <= i`` when ``causal`` and
-    ``j > i - window`` when ``window`` is set; a row that sees no key is 0.
-    Takes bfloat16 or float32 (all three alike) and a head dim that is a
-    multiple of 8 up to :data:`FLASH_MAX_HEAD_DIM`; refuses anything else
-    with ``ValueError``."""
+def _check_flash(q, k, v, window, kv_len) -> int:
+    """Refuse what the flash kernels do not take (``ValueError``); returns
+    ``kv_len`` resolved (default ``Sk``)."""
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
             f"flash_attention: expected q [B, Sq, H, D] and k, v [B, Sk, KH, D], "
@@ -327,5 +315,71 @@ def flash_attention(
     kv_len = sk if kv_len is None else int(kv_len)
     if not 0 <= kv_len <= sk:
         raise ValueError(f"flash_attention: kv_len {kv_len} outside [0, {sk}]")
+    return kv_len
+
+
+def flash_attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    kv_len: Optional[int] = None,
+) -> torch.Tensor:
+    """Fused online-softmax attention: q ``[B, Sq, H, D]``, k / v
+    ``[B, Sk, KH, D]`` with ``H % KH == 0`` → ``[B, Sq, H, D]`` in q's dtype.
+
+    Positions are the sequence indices: query ``i`` sees key ``j`` iff
+    ``j < kv_len`` (default ``Sk``), ``j <= i`` when ``causal`` and
+    ``j > i - window`` when ``window`` is set; a row that sees no key is 0.
+    Takes bfloat16 or float32 (all three alike) and a head dim that is a
+    multiple of 8 up to :data:`FLASH_MAX_HEAD_DIM`; refuses anything else
+    with ``ValueError``.  Not differentiable: :func:`flash_attention_fn` is."""
+    kv_len = _check_flash(q, k, v, window, kv_len)
     impl = _flash.flash_attention if q.is_cuda else ref.flash_attention_ref
     return impl(q, k, v, causal=causal, window=window, kv_len=kv_len)
+
+
+class _FlashFunction(torch.autograd.Function):
+    """The flash forward (with the row log-sum-exp) and its backward on
+    plain tensors: the kernels on a CUDA tensor, the plain versions on a
+    CPU tensor."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kv_len):
+        kw = dict(causal=causal, window=window, kv_len=kv_len)
+        if q.is_cuda:
+            out, lse = _flash.flash_attention(q, k, v, with_lse=True, **kw)
+        else:
+            out, lse = ref.flash_attention_ref(q, k, v, **kw), None
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        if q.is_cuda:
+            grads = _flash.flash_backward(q, k, v, out, dout, lse, **ctx.kw)
+        else:
+            grads = ref.flash_backward_ref(q, k, v, out, dout, **ctx.kw)
+        return (*grads, None, None, None)
+
+
+def flash_attention_fn(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    kv_len: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`flash_attention`, differentiable in q, k and v: on a CUDA
+    tensor the forward kernel writes the row log-sum-exp and the backward
+    is the hand-written ``flash_bwd`` kernel (either raises if it cannot
+    build or launch); on a CPU tensor ``ref.flash_attention_ref`` and
+    ``ref.flash_backward_ref``."""
+    kv_len = _check_flash(q, k, v, window, kv_len)
+    return _FlashFunction.apply(q, k, v, causal, window, kv_len)

@@ -4,7 +4,9 @@ Each function has the signature and output of its kernel wrapper in
 ``segment_view`` / ``moments`` / ``gram`` / ``segment_gram`` / ``flash``
 and computes the same thing the direct way: materialize the extended
 blocks (or the per-row outer products), then ``index_add_`` each per
-segment; attention forms the whole score matrix and takes one softmax.
+segment; attention forms the whole score matrix and takes one softmax,
+and its backward differentiates that dense softmax with the kernel's
+formulas.
 The ops layer runs them for CPU tensors; ``chip_smoke.py`` holds every
 kernel against them on the card.  Sums accumulate in the inputs' dtype
 (attention: in float32); segment ids outside ``[0, num_groups)``
@@ -21,6 +23,7 @@ import torch
 
 __all__ = [
     "flash_attention_ref",
+    "flash_backward_ref",
     "flash_ref",
     "gram_ref",
     "moments_ref",
@@ -180,3 +183,53 @@ def flash_attention_ref(
     vf = v.transpose(1, 2).reshape(b * h, sk, d)
     out = flash_ref(qf, kf, vf, causal=causal, window=window, kv_len=kv_len)
     return out.reshape(b, h, sq, d).transpose(1, 2)
+
+
+def flash_backward_ref(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    out: torch.Tensor,
+    dout: torch.Tensor,
+    *,
+    causal: bool,
+    window: Optional[int],
+    kv_len: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dq, dk, dv of :func:`flash_attention_ref` on the model's layout, as
+    ``flash.flash_backward`` computes them: the dense masked softmax P
+    recomputed in float32, ``Δ = rowsum(dO ∘ out)``, ``dV = Pᵀ dO``,
+    ``dS = P ∘ (dO Vᵀ − Δ)``, ``dK = dSᵀ Q · D^-1/2`` (summed over each KV
+    head's G query heads), ``dQ = dS K · D^-1/2``; a row that sees no key
+    has P = 0, so zero gradients.  One KV head's group at a time; the
+    gradients in the inputs' dtype."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = d**-0.5
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = kpos < kv_len
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=q.device)
+    for j in range(kh):
+        heads = slice(j * g, (j + 1) * g)
+        qf = q[:, :, heads].float().transpose(1, 2)  # [B, G, Sq, D]
+        of = out[:, :, heads].float().transpose(1, 2)
+        gf = dout[:, :, heads].float().transpose(1, 2)
+        kf = k[:, :, j].float()[:, None]  # [B, 1, Sk, D]
+        vf = v[:, :, j].float()[:, None]
+        s = torch.where(mask, qf @ kf.transpose(-1, -2) * scale, -torch.inf)
+        lse = torch.logsumexp(s, dim=-1, keepdim=True)  # -inf: no visible key
+        p = torch.where(mask & (lse > -torch.inf), torch.exp(s - lse), 0.0)
+        delta = (gf * of).sum(-1, keepdim=True)
+        ds = p * (gf @ vf.transpose(-1, -2) - delta)
+        dq[:, :, heads] = (ds @ kf * scale).transpose(1, 2)
+        dk[:, :, j] = (ds.transpose(-1, -2) @ qf).sum(1) * scale
+        dv[:, :, j] = (p.transpose(-1, -2) @ gf).sum(1)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -19,8 +19,12 @@ PyTorch port of the JAX package's ``models/attention.py``:
   their own lengths.  The model's positions are always ``arange``, so the
   port's functions take ``positions=None`` to mean exactly that; an
   explicit ``positions`` on a CUDA tensor in that branch raises rather
-  than leave the kernel.  The kernel has no backward, so the branch raises
-  ``NotImplementedError`` where autograd records the call.
+  than leave the kernel.  Where autograd records the call (training over
+  more than 2,048 tokens), the branch takes ``ops.flash_attention_fn``:
+  the forward kernel with its row log-sum-exp and the hand-written
+  backward kernel on the card, their plain versions on the CPU (the
+  reference differentiates its chunked recurrence under ``jax.checkpoint``
+  instead; both give the same gradient).
 
 Scores and softmax run in float32 whatever the activation dtype (bf16
 inputs are upcast: their products are exact in float32, so this is the
@@ -29,12 +33,14 @@ reference's ``preferred_element_type=float32``).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..kernels import ops
+from ..sharding import is_dtensor, on_head_shards
 from .layers import apply_rotary, dense_init, rotary_embedding
 
 __all__ = [
@@ -87,7 +93,12 @@ def _project(params: Attention, x: torch.Tensor):
 
 
 def _out(params: Attention, o: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshe,hed->bsd", o, params.wo)
+    """``o [B, S, H, hd]`` through ``wo [H, hd, d]``: one product over the
+    (head, head_dim) pairs, flattened head first, so that a DTensor whose
+    heads are sharded flattens them as it can (an einsum would put them
+    second)."""
+    b, s, h, e = o.shape
+    return o.reshape(b, s, h * e) @ params.wo.reshape(h * e, params.wo.shape[-1])
 
 
 def _arange_positions(b: int, s: int, device) -> torch.Tensor:
@@ -117,6 +128,12 @@ def _masked_softmax(scores, mask):
 
 
 def _dense(q, k, v, qpos, kpos, *, causal: bool, window: Optional[int], out_dtype):
+    if is_dtensor(q):
+        # per (batch, head) work on each rank's shards, as flash runs (DTensor
+        # cannot flatten batch with sharded heads in these products)
+        return on_head_shards(
+            functools.partial(_dense, causal=causal, window=window, out_dtype=out_dtype),
+            q, k, v, qpos, kpos)
     scores = _gqa_scores(q, k, q.shape[-1] ** -0.5)
     qp = qpos[:, None, None, :, None]
     kp = kpos[:, None, None, None, :]
@@ -124,6 +141,15 @@ def _dense(q, k, v, qpos, kpos, *, causal: bool, window: Optional[int], out_dtyp
     if window is not None:
         mask = mask & (kp > qp - window)
     return _gqa_out(_masked_softmax(scores, mask), v, out_dtype)
+
+
+def _all_keys(q, k, v, *, out_dtype):
+    """Dense attention with every key visible (cross attention); on each
+    rank's shards for DTensors, as :func:`_dense`."""
+    if is_dtensor(q):
+        return on_head_shards(functools.partial(_all_keys, out_dtype=out_dtype), q, k, v)
+    probs = torch.softmax(_gqa_scores(q, k, q.shape[-1] ** -0.5), dim=-1)
+    return _gqa_out(probs, v, out_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -196,26 +222,24 @@ def _long_attention(
     """The chunked branch: the flash kernel on a CUDA tensor (positions are
     the indices), :func:`chunked_attention` on a CPU tensor, with query
     positions ``qpos [B, Sq]`` and key positions ``kpos [B, Sk]`` (None:
-    arange of each length).  The kernel has no backward, so a call that
-    autograd records raises on either device (the CPU's plain version
-    stands in for the kernel and behaves alike)."""
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            f"attention over {q.shape[1]} queries and {k.shape[1]} keys (more "
-            f"than {CHUNKED_THRESHOLD}) takes the flash kernel, which has no "
-            "backward yet (ROADMAP queue 1, item 10.2): train at sequences "
-            "up to the threshold, or with cfg.dense_attention"
-        )
-    if q.is_cuda:
+    arange of each length).  A call that autograd records takes
+    ``ops.flash_attention_fn`` on either device: on the card the forward
+    kernel and the hand-written backward, on the CPU their plain versions
+    (positions are the indices there too).  DTensors take the kernels on
+    each rank's batch and head shards (``sharding.on_head_shards``)."""
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if q.is_cuda or grad:
         if qpos is not None or kpos is not None:
             raise ValueError(
                 "the flash kernel derives positions from indices: pass "
-                "positions=None (arange) on a CUDA tensor"
+                "positions=None (arange) on a CUDA tensor or under autograd"
             )
-        out = ops.flash_attention(
-            q, k, v, causal=causal, window=window, kv_len=k.shape[1]
-        )
-        return out.to(out_dtype)
+        flash = functools.partial(ops.flash_attention_fn if grad else ops.flash_attention,
+                                  causal=causal, window=window, kv_len=k.shape[1])
+        if is_dtensor(q):
+            # the kernels on each rank's batch and head shards, as _dense
+            return on_head_shards(flash, q, k, v).to(out_dtype)
+        return flash(q, k, v).to(out_dtype)
     b = q.shape[0]
     if qpos is None:
         qpos = _arange_positions(b, q.shape[1], q.device)
@@ -253,8 +277,7 @@ def cross_attention(params: Attention, x: torch.Tensor, ckv: dict, cfg) -> torch
             q, k, v, None, None, causal=False, window=None, out_dtype=x.dtype, k_chunk=sk
         )
     else:
-        probs = torch.softmax(_gqa_scores(q, k, cfg.head_dim**-0.5), dim=-1)
-        out = _gqa_out(probs, v, x.dtype)
+        out = _all_keys(q, k, v, out_dtype=x.dtype)
     return _out(params, out)
 
 

@@ -12,8 +12,10 @@ the reference: whisper's encoder (``enc_layers`` LayerNorm / GELU blocks
 over precomputed frame embeddings, ``batch["frames"] [B, n_frames, d]``)
 feeds cross attention in every decoder block, and llava's precomputed
 patch embeddings (``batch["patches"] [B, n_patches, d]``) are projected by
-``mm_proj`` into a prefix ahead of the tokens.  One card holds the whole
-model, so the reference's sharding constraints have no counterpart here.
+``mm_proj`` into a prefix ahead of the tokens.  Activations carry the
+reference's ``sharding.constrain`` annotations at the same places (no-ops
+without an active policy; under one, a DTensor is redistributed to the
+resolved placements).
 
 Public entry points (``params`` is a :class:`Transformer`)::
 
@@ -54,6 +56,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
+from ..sharding import constrain
 from . import attention as attn
 from . import mamba as mb
 from . import moe as moe_mod
@@ -242,13 +245,16 @@ def _embed_inputs(params: Transformer, batch, cfg):
     """Token embedding, after llava's projected patch prefix, plus learned
     positions over the whole sequence, in ``cfg.dtype``: ``[B, S, d]``."""
     tokens = torch.as_tensor(batch["tokens"], device=params.device).long()
-    x = params.embed[tokens]
+    # an embedding lookup (not indexing, whose backward DTensor cannot
+    # shard) on the whole table (a vocab-sharded lookup cannot take
+    # batch-sharded ids); both no-ops for plain tensors
+    x = torch.nn.functional.embedding(tokens, constrain(params.embed, (None, None)))
     if cfg.n_patches:
         patches = torch.as_tensor(batch["patches"], device=params.device).to(cfg.dtype)
         x = torch.cat([patches @ params.mm_proj.to(cfg.dtype), x.to(cfg.dtype)], dim=1)
     if cfg.pos == "learned":
         x = x + params.pos_embed[: x.shape[1]][None]
-    return x.to(cfg.dtype)
+    return constrain(x.to(cfg.dtype), ("batch", "seq", "embed"))
 
 
 def encode(params: Transformer, frames, cfg) -> torch.Tensor:
@@ -257,12 +263,12 @@ def encode(params: Transformer, frames, cfg) -> torch.Tensor:
     ``enc_layers`` blocks of non-causal self attention and a GELU MLP."""
     x = torch.as_tensor(frames, device=params.device).to(cfg.dtype)
     pos = torch.from_numpy(sinusoidal_positions(x.shape[1], cfg.d_model))
-    x = x + pos.to(x.device, cfg.dtype)[None]
+    x = constrain(x + pos.to(x.device, cfg.dtype)[None], ("batch", "seq", "embed"))
     for lp in params.encoder.layers:
         y = apply_norm(x, lp.attn_norm, "ln")
         x = x + attn.attention_apply(lp.attn, y, cfg, causal=False)
         y = apply_norm(x, lp.mlp_norm, "ln")
-        x = x + mlp_apply(lp.mlp, y, "gelu")
+        x = constrain(x + mlp_apply(lp.mlp, y, "gelu"), ("batch", "seq", "embed"))
     return apply_norm(x, params.encoder.final_norm, "ln")
 
 
@@ -321,8 +327,10 @@ def forward(params: Transformer, batch, cfg) -> Tuple[torch.Tensor, torch.Tensor
         x, a = _ffn(blk, x, cfg)
         if a is not None:
             aux = aux + a
+        # the block boundary (what the reference's remat'd scan saves)
+        x = constrain(x, ("batch", "act_seq", "embed"))
     x = apply_norm(x, params.final_norm, cfg.norm)
-    return _head(params, x, cfg), aux
+    return constrain(_head(params, x, cfg), ("batch", "seq", "vocab")), aux
 
 
 def loss_fn(params: Transformer, batch, cfg):
@@ -332,6 +340,9 @@ def loss_fn(params: Transformer, batch, cfg):
     patch prefix carries no labels.  Returns ``(loss, metrics)``, metrics
     ``loss`` / ``ce`` / ``aux`` / ``ntok`` as float32 scalars."""
     logits, aux = forward(params, batch, cfg)
+    # DTensor's gather along a vocab-sharded dim leaves a masked partial
+    # that the next op cannot reduce: take the targets from whole rows
+    logits = constrain(logits, ("batch", "seq", None))
     if cfg.n_patches:
         logits = logits[:, cfg.n_patches :]
     labels = torch.as_tensor(batch["labels"], device=logits.device).long()
@@ -456,6 +467,7 @@ def prefill(params: Transformer, batch, cfg, max_len: int):
                 cache["cross"] = attn.cross_kv(blk.cross, enc)
                 x = _cross(blk, x, cache["cross"], cfg)
             x, _ = _ffn(blk, x, cfg, cfg.moe_capacity_serve)
+            x = constrain(x, ("batch", "seq", "embed"))
             caches.append(cache)
         x = apply_norm(x[:, -1:], params.final_norm, cfg.norm)
         return _head(params, x, cfg)[:, 0], _stack_cache(cfg, caches)
@@ -517,6 +529,7 @@ def decode_step(params: Transformer, token, cache: Dict, cur_pos: int, cfg):
         x = params.embed[tokens].to(cfg.dtype)
         if cfg.pos == "learned":
             x = x + params.pos_embed[cur_pos][None, None]
+        x = constrain(x, ("batch", None, "embed"))
         for (period, name), blk in zip(_layers(cfg), params.blocks):
             h = apply_norm(x, blk.mixer_norm, cfg.norm)
             if blk.mixer_kind == "attn":
@@ -532,6 +545,7 @@ def decode_step(params: Transformer, token, cache: Dict, cur_pos: int, cfg):
                 h = apply_norm(x, blk.cross_norm, cfg.norm)
                 x = x + attn.cross_attention_decode(blk.cross, h, ckv, cfg)
             x, _ = _ffn(blk, x, cfg, cfg.moe_capacity_serve)
+            x = constrain(x, ("batch", None, "embed"))
         for name, per_period in states.items():
             new["periods"][name] = {
                 "mixer": {n: torch.stack([st[n] for st in per_period]) for n in per_period[0]}

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..sharding import constrain
 from .layers import MLP, dense_init, mlp_apply
 
 __all__ = ["MoE", "capacity", "moe_apply", "moe_apply_row_local", "moe_init", "route"]
@@ -102,6 +103,9 @@ def _moe_groups(params: MoE, xg: torch.Tensor, cfg, cf: float):
     g, t, d = xg.shape
     e, k = cfg.moe_experts, cfg.moe_topk
     cap = capacity(t, k, e, cf)
+    # DTensor has no sharding rule for the dispatch's gathers and scatters
+    # along a sharded token axis: route whole groups (no-op without a policy)
+    xg = constrain(xg, (None, None, None))
 
     probs = torch.softmax(xg.float() @ params.router, dim=-1)  # [G, T, E]
     gate_w, sel, pos, keep = route(probs, k, cap)

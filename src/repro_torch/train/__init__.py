@@ -7,8 +7,10 @@ port of the JAX package's ``train/``).
 * ``checkpoint``   — atomic async checkpoints, device-agnostic restore
 * ``loop``         — watchdog / preemption / resume envelope
 
-The reference's ``pipeline`` (pipeline parallelism over a mesh) is not
-ported yet: it waits for ``sharding.py`` (ROADMAP queue 1, item 10.5).
+Sharded training places the state on a mesh through ``repro_torch.sharding``
+(``launch.train --mesh``); the same step runs on DTensors.  The reference's
+``pipeline`` (a differentiable ring over the ``pod`` axis) is not ported
+yet (ROADMAP queue 1, item 10.5).
 """
 
 from . import checkpoint, compression, loop, optim, train_step

@@ -26,7 +26,10 @@ Guarantees used by the restart path:
   by tree path; ``restore`` puts each on the device of the state it
   restores into;
 * **retention** — ``keep`` most recent checkpoints are retained, older ones
-  deleted after a successful save (never before).
+  deleted after a successful save (never before);
+* **sharded state** — a DTensor leaf (``launch.train --mesh``) is gathered
+  into its full tensor on every rank and written by rank 0 alone; restore
+  places each leaf as the DTensor it restores into is placed.
 """
 
 from __future__ import annotations
@@ -40,9 +43,25 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from ..sharding import full_tensor, is_dtensor
 from ._tree import tree_map, tree_paths, tree_unflatten
 
 __all__ = ["Checkpointer", "save", "restore", "latest_step"]
+
+
+def _group_size() -> int:
+    dist = torch.distributed
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def _writer() -> bool:
+    """Whether this process writes checkpoints: rank 0, or no group."""
+    return _group_size() == 1 or torch.distributed.get_rank() == 0
+
+
+def _barrier() -> None:
+    if _group_size() > 1:
+        torch.distributed.barrier()
 
 
 def _host(leaf) -> tuple:
@@ -69,11 +88,15 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def save(directory: str, step: int, state) -> str:
-    """Synchronous atomic save.  Returns the final checkpoint path."""
-    os.makedirs(directory, exist_ok=True)
+    """Synchronous atomic save (DTensor leaves gathered; only rank 0
+    writes).  Returns the final checkpoint path."""
+    state = tree_map(full_tensor, state)
     name = f"step_{step:06d}"
     tmp = os.path.join(directory, f".tmp-{name}")
     final = os.path.join(directory, name)
+    if not _writer():
+        return final
+    os.makedirs(directory, exist_ok=True)
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
@@ -131,6 +154,10 @@ def restore(directory: str, state_like, step: Optional[int] = None):
         t = torch.from_numpy(arr)
         if isinstance(like, torch.Tensor):
             t = t.to(device=like.device, dtype=like.dtype)
+        if is_dtensor(like):
+            from torch.distributed.tensor import distribute_tensor
+
+            t = distribute_tensor(t, like.device_mesh, like.placements)
         leaves.append(t)
     return tree_unflatten(state_like, leaves), manifest["step"]
 
@@ -156,9 +183,12 @@ class Checkpointer:
 
     def save_async(self, step: int, state) -> None:
         self.wait()
-        # copy to the host NOW (cheap vs. step time; a CPU leaf is copied too)
-        host_state = tree_map(lambda x: x.detach().to("cpu", copy=True)
+        # copy to the host NOW (cheap vs. step time; a CPU leaf is copied too;
+        # a DTensor is gathered first, on every rank)
+        host_state = tree_map(lambda x: full_tensor(x).detach().to("cpu", copy=True)
                               if isinstance(x, torch.Tensor) else x, state)
+        if not _writer():
+            return
 
         def work():
             try:
@@ -173,11 +203,14 @@ class Checkpointer:
     def save_sync(self, step: int, state) -> str:
         self.wait()
         out = save(self.directory, step, state)
-        self._gc()
+        if _writer():
+            self._gc()
+        _barrier()  # every rank sees the checkpoint once this returns
         return out
 
     def restore_latest(self, state_like):
         self.wait()
+        _barrier()
         return restore(self.directory, state_like)
 
     def _gc(self) -> None:

@@ -19,8 +19,13 @@ periods), so the optimizer state, the clipping norm, compression's per-leaf
 scales and the checkpoint's leaf names are the reference's.  The model runs
 on per-layer views of it (``models.model.tree_views`` through
 ``torch.func.functional_call``), and autograd returns grads in the tree's
-layout.  One card holds the whole state; the reference's sharding
-constraints wait for ``sharding.py`` (ROADMAP queue 1, item 10.5).
+layout.
+
+Sharding-agnostic, as the reference's: under an active ``sharding`` policy
+the state's leaves are DTensors (``launch.train --mesh`` places them by
+``state_specs``) and each microbatch's grads are pinned to their
+parameters' placements before they are summed (``_constrain_like_params``);
+without one every annotation is a no-op.
 """
 
 from __future__ import annotations
@@ -31,12 +36,13 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from .. import sharding as shd
 from ..models import model as model_lib
 from . import compression as comp
-from ._tree import tree_leaves, tree_map, tree_unflatten
+from ._tree import tree_leaves, tree_map, tree_paths, tree_unflatten
 from .optim import Optimizer, clip_by_global_norm, make_optimizer, warmup_cosine
 
-__all__ = ["TrainState", "make_train_step", "init_state", "TrainHParams"]
+__all__ = ["TrainState", "abstract_state", "make_train_step", "init_state", "TrainHParams"]
 
 
 @dataclasses.dataclass
@@ -74,6 +80,19 @@ def init_state(seed: int, cfg, hp: TrainHParams = TrainHParams(),
     )
 
 
+def abstract_state(cfg, hp: TrainHParams = TrainHParams()) -> TrainState:
+    """The :class:`TrainState` of ``cfg`` on the ``meta`` device: every leaf
+    has its shape and dtype and no memory (the reference's
+    ``jax.eval_shape`` of ``init_state``)."""
+    params = model_lib.param_tree(model_lib.abstract_params(cfg), cfg)
+    return TrainState(
+        params=params,
+        opt_state=_optimizer(cfg, hp).init(params),
+        step=torch.zeros((), dtype=torch.int32, device="meta"),
+        err=comp.init_error_state(params) if hp.compress_grads else None,
+    )
+
+
 def _optimizer(cfg, hp: TrainHParams) -> Optimizer:
     sched = warmup_cosine(hp.peak_lr, hp.total_steps, hp.warmup_steps)
     return make_optimizer(cfg.optimizer, sched, weight_decay=hp.weight_decay)
@@ -91,6 +110,20 @@ class _TreeLoss(nn.Module):
 
     def forward(self, batch):
         return model_lib.loss_fn(self.model, batch, self.cfg)
+
+
+def _constrain_like_params(grads):
+    """Pin each microbatch's gradient to its parameter's placements (the
+    reference's ZeRO-2 pattern: a reduce-scatter onto the FSDP-sharded
+    accumulator rather than an all-reduce).  No-op without an active
+    policy."""
+    pol = shd.active_policy()
+    if pol is None:
+        return grads
+    return tree_unflatten(grads, [
+        pol.constrain(g, shd._leaf_logical(path, g.dim(), shd.PARAM_AXES))
+        for path, g in tree_paths(grads)
+    ])
 
 
 def _split_microbatches(batch: Dict, n: int) -> list:
@@ -132,11 +165,11 @@ def make_train_step(
     def compute_grads(params, batch):
         if nmicro == 1:
             return grad_fn(params, batch)
-        g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                               device=p.device), params)
+        g_acc = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32), params)
         m_acc = None
         for mb in _split_microbatches(batch, nmicro):
             grads, metrics = grad_fn(params, mb)
+            grads = _constrain_like_params(grads)
             g_acc = tree_map(lambda a, g: a + g.float(), g_acc, grads)
             m_acc = metrics if m_acc is None else {
                 k: m_acc[k] + v for k, v in metrics.items()}

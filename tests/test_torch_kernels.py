@@ -328,9 +328,11 @@ def test_cpu_tensors_take_the_plain_version():
     ops.multi_segment_gram(_t(l)[0], np.stack([seg, seg], 1), [6, 6])
     qkv = torch.zeros(1, 8, 2, 16)
     ops.flash_attention(qkv, qkv, qkv)
+    qkv.requires_grad_(True)
+    ops.flash_attention_fn(qkv, qkv, qkv).sum().backward()  # the backward's plain version
     assert set(ops.launch_counts()) == {
         "segment_view", "segment_view1", "segment_reduce", "moments",
-        "gram", "segment_gram", "multi_segment_gram", "flash",
+        "gram", "segment_gram", "multi_segment_gram", "flash", "flash_bwd",
     }
     assert all(v == 0 for v in ops.launch_counts().values())
     assert ops.fast_device_grouping("cuda") and not ops.fast_device_grouping("cpu")
@@ -665,7 +667,7 @@ def test_ablation_tool_edits_apply_to_the_checkout(tool, arm, kind, edits):
 
 def test_build_targets_hopper_from_repo_sources(monkeypatch, tmp_path):
     assert set(_build.SOURCES) == {
-        "segment_view", "moments", "gram", "segment_gram", "flash",
+        "segment_view", "moments", "gram", "segment_gram", "flash", "flash_bwd",
     }
     for name in _build.SOURCES:
         src = _build.CSRC / f"{name}.cu"

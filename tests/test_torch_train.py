@@ -527,25 +527,71 @@ def test_launch_train_smoke_cpu_and_resume():
 
 
 def test_launch_train_mesh_raises():
-    with pytest.raises(NotImplementedError, match="10.5"):
-        launch_train.main(["--smoke", "--device", "cpu", "--mesh", "1x1"])
+    """``--mesh 1x1`` on the CPU (over the group that is up, else a gloo
+    group of one that the run starts and ends) trains and equals the run without a mesh: losses and grad
+    norms at 1e-6, the final state at 1e-6 of each leaf's largest (one
+    rank: the same sums, DTensor around them).  A mesh the world cannot
+    hold raises."""
+    argv = ["--smoke", "--device", "cpu", "--steps", "3", "--batch", "4", "--seq", "32",
+            "--dtype", "float32", "--lr", "1e-3"]
+    up = dist.is_initialized()  # the module's group of one, if a test started it
+    plain = launch_train.run(argv, log=lambda s: None)
+    meshed = launch_train.run(argv + ["--mesh", "1x1"], log=lambda s: None)
+    assert dist.is_initialized() == up  # a group the run started, it ended
+    for key in ("loss", "grad_norm"):
+        np.testing.assert_allclose([h[key] for h in meshed.history],
+                                   [h[key] for h in plain.history], rtol=1e-6)
+    for (path, a), b in zip(tree_paths(meshed.state), tree_leaves(plain.state)):
+        a = a.full_tensor() if hasattr(a, "full_tensor") else a
+        scale = max(float(b.abs().max()), 1e-30) if b.numel() else 1.0
+        assert float((a - b).abs().max() if b.numel() else 0.0) <= 1e-6 * scale, path
+    with pytest.raises(ValueError, match="2 ranks"):
+        launch_train.main(["--smoke", "--device", "cpu", "--mesh", "1x2"])
 
 
 def test_long_sequence_under_grad_raises():
-    """Over the 2,048-token threshold attention takes the flash kernel,
-    which has no backward: with grad it raises, without it runs."""
+    """Over the 2,048-token threshold attention takes the flash Function
+    under grad: a 2,049-token forward is differentiable and its gradient
+    equals the plain path's (autograd through ``chunked_attention``; loss
+    1e-6 relative, each weight's gradient 1e-5 of its largest).  Explicit
+    positions there raise: the kernels derive them from indices."""
+    import repro_torch.models.attention as PA
+
     cfg = get_config("smollm-135m", smoke=True)
     model = PM.init_params(cfg, device=CPU)
-    batch = {"tokens": np.ones((1, 2049), np.int32)}
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (1, 2049)).astype(np.int32)
+    batch = {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
     for p in model.parameters():
         p.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        PM.forward(model, batch, cfg)
+
+    def grads():
+        loss, _ = PM.loss_fn(model, batch, cfg)
+        return loss.detach(), torch.autograd.grad(loss, list(model.parameters()))
+
+    loss, got = grads()
+
+    def plain(q, k, v, *, causal, window, kv_len):
+        pos = torch.arange(q.shape[1])[None].expand(q.shape[0], -1)
+        kpos = torch.arange(k.shape[1])[None].expand(k.shape[0], -1)
+        return PA.chunked_attention(q, k, v, pos, kpos, causal=causal, window=window,
+                                    out_dtype=q.dtype)
+
+    orig = PA.ops.flash_attention_fn
+    PA.ops.flash_attention_fn = plain
+    try:
+        want_loss, want = grads()
+    finally:
+        PA.ops.flash_attention_fn = orig
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-6)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
     with torch.no_grad():
         logits, _ = PM.forward(model, batch, cfg)
-    assert logits.shape[1] == 2049
-    short, _ = PM.forward(model, {"tokens": np.ones((1, 64), np.int32)}, cfg)
-    assert short.requires_grad  # dense attention is differentiable
+    assert logits.shape[1] == 2049 and not logits.requires_grad
+    q = torch.zeros(1, 2049, 4, 16, requires_grad=True)
+    with pytest.raises(ValueError, match="positions"):
+        PA._long_attention(q, q, q, torch.zeros(1, 2049), None, causal=True, window=None,
+                           out_dtype=q.dtype)
 
 
 def test_serving_runs_without_grad():

@@ -6,7 +6,9 @@ basename, as ``torch_serve_twin``).
 ``FileStore`` (no TCP rendezvous), builds the meshes of ``MESHES`` that fit
 ``world`` ranks, and runs every case on every mesh in every rank.  Each
 rank pickles ``{(case, mesh): result}`` to a file; ``spawn`` returns the
-results by rank.  The cases build their inputs from numpy seeds
+results by rank.  ``spawn_train(world, runs)`` runs ``launch.train`` with
+``--mesh`` on each rank of such a group and returns rank 0's losses, grad
+norms and final state.  The cases build their inputs from numpy seeds
 (``case_inputs``), so a test computes its oracle from the same numbers.
 Nothing here imports JAX or the JAX package.
 """
@@ -114,6 +116,68 @@ def _worker(rank: int, world: int, store_path: str, out_dir: str, cases: list) -
             pickle.dump(results, f)
     finally:
         dist.destroy_process_group()
+
+
+def checkpoint_leaves(directory: str, step: int) -> dict:
+    """{leaf path: array} of the checkpoint of ``step`` under ``directory``."""
+    import json
+
+    path = os.path.join(directory, f"step_{step:06d}")
+    with open(os.path.join(path, "manifest.json")) as f:
+        manifest = json.load(f)
+    return {e["path"]: np.load(os.path.join(path, e["file"])) for e in manifest["leaves"]}
+
+
+def train_result(argv: list, read: bool = True) -> dict:
+    """``launch.train.run(argv + a checkpoint every step)``: ``(loss,
+    grad_norm)`` by step, the final state's full tensors by path and (where
+    ``read``: the rank that writes checkpoints) the step-1 checkpoint's
+    leaves."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train._tree import tree_paths
+
+    with tempfile.TemporaryDirectory() as d:
+        res = launch_train.run(argv + ["--checkpoint-dir", d, "--checkpoint-every", "1"],
+                               log=lambda line: None)
+        state = {}
+        for path, x in tree_paths(res.state):
+            state[path] = (x.full_tensor() if hasattr(x, "full_tensor") else x).numpy()
+        first = checkpoint_leaves(d, 1) if read else None
+    return dict(history=[(h["loss"], h["grad_norm"]) for h in res.history],
+                state=state, step1=first)
+
+
+def _train_worker(rank: int, world: int, store_path: str, out_dir: str, runs: list) -> None:
+    """:func:`train_result` of each ``(name, argv)`` of ``runs`` on this rank
+    (the argv names ``--mesh``); rank 0 pickles them (checkpoints are rank
+    0's too)."""
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)  # the ranks share the machine's cores
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        results = {}
+        for name, argv in runs:
+            results[name] = train_result(argv, read=rank == 0)
+        if rank == 0:
+            with open(os.path.join(out_dir, "train.pkl"), "wb") as f:
+                pickle.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_train(world: int, runs: list) -> dict:
+    """Run ``runs`` (``[(name, argv)]``) with ``launch.train`` on ``world``
+    gloo processes; rank 0's ``{name: {"history", "state"}}``."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_train_worker, args=(world, os.path.join(d, "store"), d, list(runs)),
+                 nprocs=world, join=True)
+        with open(os.path.join(d, "train.pkl"), "rb") as f:
+            return pickle.load(f)
 
 
 def spawn(world: int, cases: list) -> list:

@@ -6,9 +6,11 @@
 Each SPEC names one build of ``src/repro_torch/csrc/flash.cu``:
 
     name                     the checkout's source as it is
-    name:path                another source with the same C interface (an
+    name:path                another source with the same C interface,
+                             the ``lse`` pointer after ``out`` included (an
                              older commit's: ``git show REV:src/repro_torch/
-                             csrc/flash.cu > path``)
+                             csrc/flash.cu > path``; sources written before
+                             the forward took ``lse`` lack it)
     name=OLD=>NEW[@@OLD=>NEW...]   the checkout's source with each OLD text
                              replaced by NEW (a tile size, a stage count,
                              a switch)
@@ -108,7 +110,8 @@ def events_ms(fn, reps=20) -> tuple:
 
 def bound_call(fn, q, k, v, out, dims, stream):
     """``fn`` on these tensors and dims, as a call without arguments."""
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *dims, stream)
+    # no row log-sum-exp (a null lse pointer), as serving calls the forward
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 0, *dims, stream)
     return lambda: fn(*args)
 
 
@@ -125,7 +128,7 @@ def main() -> None:
                   f"{ptxas_report(log)}", flush=True)
             if rc == 0:
                 fn = ctypes.CDLL(str(OUT / f"{name}.so")).flash_attention_bf16
-                fn.argtypes, fn.restype = [_P] * 4 + [_I] * 9 + [_P], _I
+                fn.argtypes, fn.restype = [_P] * 5 + [_I] * 9 + [_P], _I
                 libs[name] = fn
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = []
