@@ -184,8 +184,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    coefficient against 1e-3 is reported: float32 leaves the coefficients
    the data barely determine free, as in the reference,
    ``tools/service_theta_witness.py``).  Window 1 runs again with
-   ``coalesce=False`` on another fresh store (the private arm; equal
-   within 1e-4), and once more, coalesced, on the merged catalog, cold and profiled
+   ``coalesce=False`` on another fresh store for the first read of each
+   kind (the private arm; each coalesced ticket of those reads equal to
+   its private answer within 1e-4), and once more, coalesced, on the merged catalog, cold and profiled
    (device busy against wall, peak memory).  Leg 2, on the oracle cell:
    the same schedule on the float64 numpy service and on the card (held to
    each other and to the numpy, whose θ is held to ``linear_regression``'s
@@ -248,7 +249,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    then the config's bf16 at 4 × 4,096 tokens in 4 microbatches for 6
    steps through ``launch.train`` (flash and flash_bwd 720 times each):
    the mean loss of the last 3 steps below that of the first 3, step ms,
-   tokens/s, peak memory.  Last, ``--mesh 1x1`` (a NCCL group of one that
+   tokens/s, peak memory; then one more step under the profiler (the
+   device alone): device busy against the run's median step, and the
+   device ms of flash_bwd's kernels and of flash's by kernel name.  Step
+   2's line also prints the host's ``torch.backends.cpu`` capability.
+   Last, ``--mesh 1x1`` (a NCCL group of one that
    the run starts and ends; the state and batches DTensors under the train
    policy) for 3 steps at 8 × 128 against the same run without a mesh:
    losses, grad norms and every leaf of the final state within 1e-5.
@@ -270,9 +275,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    (a differing selection must be a near-tie, within 1e-6); and, dropless,
    the engine's greedy tokens against the full-forward oracle, as in
    phase 7.  Leg 2: xlstm-1.3b at full width and depth (6 sLSTM and 42
-   mLSTM layers, bf16) serves 2 prompts of 2,048–4,096 tokens (multiples
-   of ``xlstm_chunk``) through the exact-length prefill, 32 new tokens
-   each: sLSTM and mLSTM prefill seconds, decode-step ms; in float32, a
+   mLSTM layers, bf16) serves 1 prompt of 2,048–4,096 tokens (a multiple
+   of ``xlstm_chunk``) through the exact-length prefill, 32 new tokens:
+   sLSTM and mLSTM prefill seconds, decode-step ms; in float32, a
    2,048-token prefill and 256 teacher-forced decode steps against the
    full forward at 2,304 tokens (1e-4 of max |logit|).  Leg 3: one Mamba
    mixer at jamba-1.5-large's width (d_inner 16,384) over 4,095 tokens
@@ -327,6 +332,7 @@ import functools
 import gc
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1084,7 +1090,15 @@ def flash_bwd_rows(ref, kflash, gen) -> dict:
     """The flash backward (``flash_bwd``) against ``ref.flash_backward_ref``
     at every shape of FLASH_SHAPES, from the forward kernel's own output and
     row log-sum-exp; the JSON row of the first shape, the others in
-    ``also``."""
+    ``also``.  First the bf16 backward's instantiation the library reports
+    for every head dim must be the one ``kernels/flash.py`` mirrors
+    (``bwd_geometry``, which the CPU tests check)."""
+    for d in range(8, 257, 8):
+        got, want = kflash.kernel_bwd_geometry(d), kflash.bwd_geometry(d)
+        if got != want:
+            raise AssertionError(f"flash_bwd geometry at head dim {d}: {got} != {want}")
+    log(f"{'flash_bwd':15s} bf16 geometry of head dims 8-256 as mirrored: "
+        f"{sorted({tuple(kflash.bwd_geometry(d).values()) for d in (16, 32, 64, 128, 256)})}")
     out = [flash_bwd_case(ref, kflash, gen, shape) for shape in FLASH_SHAPES]
     return dict(
         name="flash_bwd", route="cuda", source="src/repro_torch/csrc/flash_bwd.cu",
@@ -2717,6 +2731,13 @@ def service_reads(rt, bundle, theta, seed: int) -> tuple:
     return reads[:-1], reads
 
 
+def read_key(read) -> tuple:
+    """What a read asks, whoever the tenant: its kind, features and extra
+    argument (the same θ or queries object for a repeated read)."""
+    _, kind, feats, extra = read
+    return kind, tuple(feats), id(extra)
+
+
 def submit(svc, vorder, read):
     tenant, kind, feats, extra = read
     if kind == "train":
@@ -3094,19 +3115,29 @@ def service_leg1(rt, bundle, theta) -> dict:
         f"coefficients over THETA_RTOL: {[e['over'] for e in theta_err]}; scaled θ "
         f"errors {[round(e['scaled_err'], 9) for e in theta_err]}")
 
-    # the private arm: window 1 again, one engine a read, synchronously
+    # the private arm: the first read of each kind in window 1 again (4 of
+    # the 12: a train, a score, a cofactors and an aggregates read; all 12
+    # until PR 26, cut for the smoke's time), one engine a read,
+    # synchronously; every coalesced ticket of those reads (the same read
+    # from another tenant too) against its private answer
     private = rt.FactorizedService(rt.Store(bundle.store.relations()), coalesce=False)
-    tickets = [submit(private, bundle.vorder, r) for r in windows[0]]
+    keys = [read_key(r) for r in windows[0]]
+    first_of_kind = {}
+    for key, r in zip(keys, windows[0]):
+        first_of_kind.setdefault(r[1], (key, r))
+    tickets = {key: submit(private, bundle.vorder, r) for key, r in first_of_kind.values()}
     t = time.perf_counter()
     private.run()
     torch.cuda.synchronize()
     private_s = time.perf_counter() - t
-    errs = [same_result(f"coalesced vs private read {i}", r, a.result(), b.result(),
+    errs = [same_result(f"coalesced vs private read {i}", r, a.result(), tickets[key].result(),
                         ORACLE_RTOL, pre)
-            for i, (r, a, b) in enumerate(zip(windows[0], run["windows"][0]["tickets"],
-                                              tickets))]
-    log(f"private arm: {private_s:.3f}s, passes={private.store.passes}; coalesced vs "
-        f"private: largest error {max(errs):.3e} of its scale")
+            for i, (r, a, key) in enumerate(zip(windows[0], run["windows"][0]["tickets"],
+                                                keys)) if key in tickets]
+    log(f"private arm: {len(tickets)} reads (one of each kind) of {len(keys)}, "
+        f"{len(errs)} coalesced tickets compared, {private_s:.3f}s, "
+        f"passes={private.store.passes}; coalesced vs private: largest error "
+        f"{max(errs):.3e} of its scale")
     del private, tickets, pre
 
     # window 1's reads once more, coalesced, cold and profiled, on the
@@ -3772,10 +3803,12 @@ def compare_step(tr, n, card, cm, host, hm, hp) -> dict:
     moment_err = max(e / s for e, s in leaf_errors(tr, card.opt_state, host.opt_state) if s)
     row = dict(step=n, loss=loss, cpu_loss=hloss, loss_rel_err=loss_err, grad_norm=norm,
                cpu_grad_norm=hnorm, grad_norm_rel_err=norm_err, param_max_abs_err=param_err,
-               param_atol=TRAIN_PARAM_ATOL_LR * hp.peak_lr, moment_max_rel_err=moment_err)
+               param_atol=TRAIN_PARAM_ATOL_LR * hp.peak_lr, moment_max_rel_err=moment_err,
+               cpu_capability=torch.backends.cpu.get_cpu_capability())
     log(f"step {n} card vs CPU: loss {loss:.6f} / {hloss:.6f} (rel {loss_err:.2e}), grad_norm "
         f"{norm:.6f} / {hnorm:.6f} (rel {norm_err:.2e}), params max |Δ| {param_err:.3e} "
-        f"(atol {row['param_atol']:.1e}), moments {moment_err:.2e} of the largest")
+        f"(atol {row['param_atol']:.1e}), moments {moment_err:.2e} of the largest; CPU "
+        f"capability {row['cpu_capability']}")
     if not (loss_err <= TRAIN_LOSS_RTOL and norm_err <= TRAIN_NORM_RTOL
             and param_err <= row["param_atol"] and moment_err <= TRAIN_MOMENT_RTOL):
         raise AssertionError(f"training step {n}: the card and the CPU disagree: {row}")
@@ -3911,7 +3944,9 @@ LONG_TRAIN_ARGV = ["--arch", LM_ARCH, "--batch", "1", "--seq", "4096", "--microb
 LONG_LOSS_RTOL = 1e-6
 LONG_NORM_RTOL = 1e-5
 LONG_LEAF_RTOL = 1e-4  # of each leaf's largest gradient
-BF16_TRAIN_STEPS = 6  # 10 until the flash backward's checks needed the smoke's time
+# 6 steps (10 until PR 25): ten steps of the wgmma backward's step (0.906 s,
+# host-bound) would cost more than PR 25's six of 1.370 s did
+BF16_TRAIN_STEPS = 6
 BF16_TRAIN_ARGV = ["--arch", LM_ARCH, "--batch", "4", "--seq", "4096", "--microbatches", "4",
                    "--device", "cuda", "--seed", str(SEED), "--steps", str(BF16_TRAIN_STEPS)]
 MESH_TRAIN_STEPS = 3
@@ -4026,9 +4061,50 @@ def bf16_train_leg(tr) -> dict:
         raise AssertionError(f"bf16 4 x 4,096: launches {launches}, expected {want} each")
     if len(losses) != BF16_TRAIN_STEPS or not np.all(np.isfinite(losses)) or not last < first:
         raise AssertionError(f"bf16 4 x 4,096: losses {losses}")
+    profiled = profiled_train_step(tr, res.state, stats["step_ms_median"])
     return dict(dtype=str(cfg.dtype), batch=4, seq=4096, microbatches=4, losses=losses,
                 loss_first3=first, loss_last3=last, wall_s=wall, max_memory_allocated=peak,
-                launches=launches, **stats)
+                launches=launches, profiled_step=profiled, **stats)
+
+
+# the backward's kernels by name in a profiler trace (demangled or not):
+# the wgmma kernel, its pre-pass and finish pass (bf16), or the scalar ones;
+# the forward's apart
+_BWD_KERNELS = re.compile(r"(?:::|\d)(?:bwd_bf16_kernel|rows_kernel|finish_kernel|dkdv_kernel|"
+                          r"dq_kernel|delta_kernel)(?:<|\(|I|E)")
+_FWD_KERNELS = re.compile(r"(?:::|\d)(?:flash_bf16_kernel|flash_f32_kernel)(?:<|\(|I|E)")
+
+
+def profiled_train_step(tr, state, step_ms: float) -> dict:
+    """One more step of the bf16 4 x 4,096 run from its final state, on the
+    device alone under the profiler: device busy ms against the run's
+    median (unprofiled) step ms, and the device ms of flash_bwd's kernels
+    and of flash's inside it."""
+    _, cfg, hp, pipe = tr.setup(BF16_TRAIN_ARGV)
+    step = tr.make_train_step(cfg, hp)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        state, _ = step(state, pipe.batch_at(BF16_TRAIN_STEPS))
+        torch.cuda.synchronize()
+        profiled_wall_ms = (time.perf_counter() - t) * 1e3
+    ops = device_ops(prof)
+    busy = sum(us for _, us in ops) / 1e3
+    bwd = sum(us for name, us in ops if _BWD_KERNELS.search(name)) / 1e3
+    fwd = sum(us for name, us in ops if _FWD_KERNELS.search(name)) / 1e3
+    row = dict(wall_ms=step_ms, profiled_wall_ms=profiled_wall_ms, device_busy_ms=busy,
+               idle_share=1 - busy / step_ms, flash_bwd_device_ms=bwd,
+               flash_device_ms=fwd, device_ops=device_op_count(prof),
+               top_device_ops=[(name[:80], us / 1e3) for name, us in ops[:6]])
+    log(f"bf16 4 x 4,096 step, profiled: wall {step_ms:.1f} ms (the run's median; profiled "
+        f"{profiled_wall_ms:.1f}), device busy {busy:.1f} ms (idle share "
+        f"{row['idle_share']:.4f}), flash_bwd {bwd:.1f} ms, flash {fwd:.1f} ms on the device, "
+        f"{row['device_ops']} device kernels, copies and fills")
+    for name, us in ops[:6]:
+        log(f"  device {us / 1e3:10.3f} ms  {name[:90]}")
+    if not bwd > 0:
+        raise AssertionError("bf16 step: no flash_bwd kernel in the profiled step")
+    return row
 
 
 def mesh_leg(tr) -> dict:
@@ -4076,7 +4152,8 @@ MOE_TIE = 1e-6  # k-th and (k+1)-th router probabilities this close: a near-tie
 MOE_FLASH_SHAPE = ("qwen2-moe-a2.7b prefill", 1, 4096, 4096, 16, 16, 128, True, None, None,
                    BF16, True)
 XLSTM_ARCH = "xlstm-1.3b"
-XLSTM_REQUESTS, XLSTM_NEW = 2, 32  # 4 requests until phase 11's legs needed the time
+# 1 request (4 until PR 25, 2 until PR 26): cut for the smoke's time
+XLSTM_REQUESTS, XLSTM_NEW = 1, 32
 XLSTM_PROMPT = (2_048, 4_096)  # lengths multiples of xlstm_chunk (256): the reference's domain
 XLSTM_CHECK = (2_048, 256)  # float32: prefill, then teacher-forced decode steps
 XLSTM_RTOL = 1e-4  # decode logits vs the full forward, of max |logit|

@@ -36,7 +36,9 @@
 // skipping is exact.  Query tiles are issued latest first, so the longest
 // causal rows start first (bf16: across all heads and batches).
 //
-// bf16 (warp-specialised, 384 threads, 128 queries per block):
+// bf16 (warp-specialised, 384 threads, 128 queries per block; the Hopper
+// helpers, mbarriers, TMA, descriptors and wgmma, are hopper.cuh's, shared
+// with flash_bwd.cu):
 //  * Warpgroup 2 is the producer: one thread loads the block's Q tile once
 //    and then keeps a ring of K/V stages in flight with TMA
 //    (cp.async.bulk.tensor, 4-d tensor maps over [B, S, heads, D] built on
@@ -76,11 +78,9 @@
 // owns half of the row's output columns; p goes through shared memory
 // between the two products.
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -149,206 +149,6 @@ struct Bf16Geometry {
   static_assert(kSmem <= 232448, "over the block's shared memory");
   static_assert((kBK == 64 || kBK == 128) && DP % kPanel == 0, "tile shape");
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// until the phase of parity `parity` has completed (a fresh barrier counts
-// its phase before 0, of parity 1, as completed)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done, tries = 0;
-  do {
-    if (++tries == (1u << 22)) __trap();  // a lost phase: fail, never hang
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// rows [c2, c2 + box rows) and columns [c0, c0 + panel) of head c1, batch
-// c3, into a swizzled panel at dst; completion counted on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a swizzled panel (rows of `swizzle`
-// bytes, 8-row groups 8·swizzle bytes apart): start address, leading and
-// stride byte offsets in 16-byte units, layout 1 / 2 / 3 = 128 / 64 / 32-byte
-// swizzle.  The panel base is 1 KiB aligned, so the base offset is 0.
-template <int kSwizzle>
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo) {
-  constexpr uint64_t kLayout = kSwizzle == 128 ? 1 : kSwizzle == 64 ? 2 : 3;
-  constexpr uint64_t kSbo = 8 * kSwizzle / 16;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo & 0x3FFF) << 16) |
-         (kSbo << 32) | (kLayout << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keeps the compiler from moving reads or writes of wgmma accumulators
-// across the asynchronous product
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int M, int N>
-__device__ __forceinline__ void fence_regs(float (&r)[M][N]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) asm volatile("" : "+f"(r[i][j])::"memory");
-}
-template <int M, int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[M][N]) {
-#pragma unroll
-  for (int i = 0; i < M; ++i)
-#pragma unroll
-    for (int j = 0; j < N; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-#define FLASH_ACC8(d, i)                                                   \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d[64 x N] (+)= A[64 x 16] · B[16 x N], A and B K-major in shared memory
-template <int N>
-struct WgmmaSS;
-
-template <>
-struct WgmmaSS<64> {
-  __device__ __forceinline__ static void run(float (&d)[32], uint64_t a,
-                                             uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-        "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-        : FLASH_ACC8(d, 0), FLASH_ACC8(d, 8), FLASH_ACC8(d, 16),
-          FLASH_ACC8(d, 24)
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-};
-
-template <>
-struct WgmmaSS<128> {
-  __device__ __forceinline__ static void run(float (&d)[64], uint64_t a,
-                                             uint64_t b, int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-        "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-        "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-        "%57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-        : FLASH_ACC8(d, 0), FLASH_ACC8(d, 8), FLASH_ACC8(d, 16),
-          FLASH_ACC8(d, 24), FLASH_ACC8(d, 32), FLASH_ACC8(d, 40),
-          FLASH_ACC8(d, 48), FLASH_ACC8(d, 56)
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-};
-
-// d[64 x N] += A[64 x 16] · B[16 x N]: A bf16 fragments in registers, B
-// MN-major in shared memory (transpose bit set)
-template <int N>
-struct WgmmaRS;
-
-template <>
-struct WgmmaRS<16> {
-  __device__ __forceinline__ static void run(float (&d)[8],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, "
-        "p, 1, 1, 1;\n}\n"
-        : FLASH_ACC8(d, 0)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-  }
-};
-
-template <>
-struct WgmmaRS<32> {
-  __device__ __forceinline__ static void run(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-        : FLASH_ACC8(d, 0), FLASH_ACC8(d, 8)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-  }
-};
-
-template <>
-struct WgmmaRS<64> {
-  __device__ __forceinline__ static void run(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-        "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : FLASH_ACC8(d, 0), FLASH_ACC8(d, 8), FLASH_ACC8(d, 16),
-          FLASH_ACC8(d, 24)
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b));
-  }
-};
-
-#undef FLASH_ACC8
-
-// 2^x, subnormal results flushed to 0 (one MUFU op; exp2f adds range
-// handling for subnormals, which a p below 2^-126 of the row's largest does
-// not need); 2^-inf = 0 exactly
-__device__ __forceinline__ float exp2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // every key of [k0, k0 + bk) visible to every query of [r0, r0 + rows): the
 // tile needs no mask
@@ -753,56 +553,6 @@ __global__ void __launch_bounds__(kThreads) flash_f32_kernel(Args a) {
 // launch
 // ---------------------------------------------------------------------------
 
-// cuTensorMapEncodeTiled, taken from the driver at run time so that the
-// library needs no -lcuda
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
-      return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a bf16 [batch, seq, heads, d] tensor as 4-d (d, heads, seq, batch), boxes
-// of `panel` columns x 1 head x `rows` rows x 1 batch into one swizzled
-// panel; elements past d or seq read as 0
-bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
-                int batch, int seq, int heads, int d, int panel, int rows,
-                int swizzle) {
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
-                              (cuuint64_t)seq, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
-                                 (cuuint64_t)seq * heads * d * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)panel, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUtensorMapSwizzle mode = swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                  : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, mode,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DP>
 cudaError_t launch_bf16(const Args& a, int b, cudaStream_t stream) {
   using G = Bf16Geometry<DP>;
@@ -856,14 +606,6 @@ cudaError_t launch_f32(const Args& a, int b, cudaStream_t stream) {
   const dim3 grid((a.sq + kBQ - 1) / kBQ, a.h, b);
   flash_f32_kernel<DP><<<grid, kThreads, kSmem, stream>>>(a);
   return cudaGetLastError();
-}
-
-// the instantiation width for head dim d: the least of 16, 32, 64, 128, 256
-// that holds it (0 if none does)
-int padded_dim(int d) {
-  for (int dp = 16; dp <= 256; dp *= 2)
-    if (d <= dp) return dp;
-  return 0;
 }
 
 Args make_args(const void* q, const void* k, const void* v, void* out,

@@ -13,26 +13,70 @@
 // (flash.cu writes it) and the same visibility predicate (key j < kv_len,
 // j <= i when causal, j > i - window when a window is set):
 //   P  = exp(S·scale - L) on visible keys, 0 elsewhere (S = Q Kᵀ);
-//   Δ  = rowsum(dO ∘ O)                      (a pre-pass, float32 [B, H, Sq]);
+//   Δ  = rowsum(dO ∘ O)                      (a pre-pass, float32);
 //   dV = Pᵀ dO;   dS = P ∘ (dO Vᵀ - Δ);
 //   dK = dSᵀ Q · scale;   dQ = dS K · scale,
-// every product in float32 whatever the input type (bf16 inputs are
-// widened on load), the results rounded once to the input type.  A row
+// with float32 sums, the results rounded once to the input type.  A row
 // that sees no key has L = -inf and P = 0, so its dQ is 0 (never NaN); a
 // key that no query sees gets dK = dV = 0.
 //
 // What bounds it on an H100.  Five matrix products of 2·D flops per
 // visible (query, key) pair against reading q, k, v, o, dO, L and writing
-// dq, dk, dv once: operations, as the forward.  This first design runs
-// them as scalar float32 FMAs from shared memory (67 TFLOP/s off the tensor
-// cores), and recomputes S and dO Vᵀ in both passes below (seven products
-// in all); wgmma and TMA are later work.
+// dq, dk, dv once: hundreds of flops per byte at thousands of keys, so the
+// tensor cores bound it (989 TFLOP/s bf16).  Scalar float32 FMAs reach 67
+// TFLOP/s at best: a bf16 backward has to run its products on wgmma, and
+// run each once.
 //
-// Design.  Blocks of 256 threads walk 32 x 32 (query, key) tiles staged in
-// shared memory as float32 (rows padded by 4 floats, so the float4 reads of
-// eight neighbouring rows fall in distinct banks).  Each tile first forms S
-// and dO Vᵀ (a thread 4 scores of one row), then P and dS into shared
-// memory, then the thread's own accumulators:
+// bf16 at DP <= 128 (two warpgroups, 256 threads; the Hopper helpers are
+// hopper.cuh's, shared with flash.cu):
+//  * One block per (batch, query head, 128 keys).  Blocks start in index
+//    order, x fastest: every (batch, head) of the first key tile, then of
+//    the next, so under causal masking the key tiles that the most query
+//    tiles see start first.  Per-head blocks give the card B·H·Sk/128 of
+//    them (288 at smollm's 9 heads and 4,096 tokens on 132 SMs).
+//  * Thread 0 loads the block's K and V tiles once, then keeps a ring of
+//    query stages in flight, each a 64-query Q tile and dO tile (TMA, 4-d
+//    maps over [B, S, heads, D], rows past Sq and columns past D
+//    zero-filled) and their rows of L·log2 e and Δ (1-d bulk copies from
+//    the pre-pass's padded rows); a stage is loaded again once every
+//    thread has released it (an mbarrier of 256 arrivals).  No producer
+//    warpgroup: a third warpgroup would cap each thread at 168 registers
+//    (three warps on an SM sub-partition), under what a warpgroup holds.
+//  * Each warpgroup owns 64 keys (wgmma's M).  For each stage it forms
+//    Sᵀ = K Qᵀ and dPᵀ = V dOᵀ with wgmma from shared memory (all K-major
+//    along D); Pᵀ = exp2(Sᵀ·scale·log2 e - L·log2 e) and
+//    dSᵀ = Pᵀ ∘ (dPᵀ - Δ) on the accumulator fragments (the mask only on
+//    tiles that straddle the diagonal, the window edge or kv_len; the
+//    pre-pass gives a row with L = -inf, and a row past Sq, +inf, so its P
+//    is 0); then dV += Pᵀ dO and dK += dSᵀ Q with Pᵀ and dSᵀ packed to bf16
+//    as the register A operand and dO, Q read MN-major from the stage, dK
+//    and dV staying in float32 registers across the block's query tiles
+//    (128 of them a thread at DP = 128, with 64 for Sᵀ and dPᵀ).
+//  * dQ in one pass: both warpgroups store dSᵀ in shared memory (bf16,
+//    128-byte swizzle, two buffers), and one warpgroup a tile, taking
+//    turns, forms dQ_part = dS K over the block's 128 keys with a wgmma
+//    whose operands are both MN-major, one panel of D at a time, and adds
+//    it into a float32 dQ accumulator with vector atomics (once a tile and
+//    block: half the atomics of a product per warpgroup).  Five products,
+//    no recomputation.
+//  * GQA: a group's query heads are separate blocks, so dK and dV are
+//    added with atomics into float32 accumulators [B, Sk, KH, D]; with one
+//    query head per KV head they are stored directly.
+//  * Three launches: the pre-pass (Δ, L·log2 e, one warp a row over rows
+//    padded to the stage), the main kernel, and a finish pass that scales
+//    dQ (and rounds the GQA accumulators) into the input type.  Every
+//    buffer is the caller's: one zeroed float32 workspace (rows, dQ and,
+//    under GQA, dK / dV accumulators) of flash_bwd_workspace floats.
+//  * BwdGeometry is mirrored in kernels/flash.py (bwd_geometry) for the
+//    CPU tests; flash_bwd_geometry reports it.  Design choices measured
+//    with tools/flash_bwd_variants.py are in PERF.md (Findings, PR 26).
+//
+// float32 (every width), and bf16 at DP = 256: scalar kernels, blocks of
+// 256 threads on 32 x 32 (query, key) tiles
+// staged in shared memory as float32 (rows padded by 4 floats, so the
+// float4 reads of eight neighbouring rows fall in distinct banks); each
+// tile forms S and dO Vᵀ (a thread 4 scores of one row), then P and dS
+// into shared memory, then the thread's own accumulators:
 //  * dkdv_kernel: one block per (batch, KV head, key tile) keeps dK and dV
 //    of its 32 keys in registers and walks every query tile that can see a
 //    key of the tile, for each of the G query heads of the group, so the
@@ -41,11 +85,15 @@
 //    registers and walks the key tiles the forward walks (key_tiles), the
 //    latest query tiles first (the longest causal rows).
 //  * delta_kernel: one warp per (batch, query, head) row.
+// float32 stays off the tensor cores (TF32 would not hold float32
+// accuracy).  At DP = 256, dK and dV of 64 keys would be 256 float32
+// registers a thread, over the 255 a thread can have; splitting them
+// across warpgroups is later work (ROADMAP queue 2), so that width keeps
+// the scalar kernels, chosen at compile time by width.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -62,7 +110,9 @@ struct Args {
   const void* o;     // [B, Sq, H, D], the forward's output
   const void* dout;  // [B, Sq, H, D]
   const float* lse;  // [B, H, Sq]
-  float* delta;      // [B, H, Sq], written by delta_kernel
+  // the caller's zeroed float32 workspace: Δ [B, H, Sq] for the scalar
+  // kernels; the padded rows and the accumulators for the wgmma path
+  float* work;
   void* dq;          // [B, Sq, H, D]
   void* dk;          // [B, Sk, KH, D]
   void* dv;          // [B, Sk, KH, D]
@@ -132,7 +182,7 @@ __device__ __forceinline__ void stage_rows(const Args& a, float* ls, float* dls,
   for (int i = threadIdx.x; i < kBQ; i += kThreads) {
     const bool in = q0 + i < a.sq;
     ls[i] = in ? a.lse[row_base + q0 + i] : -INFINITY;
-    dls[i] = in ? a.delta[row_base + q0 + i] : 0.f;
+    dls[i] = in ? a.work[row_base + q0 + i] : 0.f;
   }
 }
 
@@ -189,7 +239,7 @@ __global__ void __launch_bounds__(kThreads) delta_kernel(Args a) {
     const int head = row % a.h;
     const int64_t bq = row / a.h;
     const int qi = bq % a.sq, batch = bq / a.sq;
-    a.delta[((int64_t)batch * a.h + head) * a.sq + qi] = s;
+    a.work[((int64_t)batch * a.h + head) * a.sq + qi] = s;
   }
 }
 
@@ -339,6 +389,460 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 at DP <= 128: wgmma on TMA-fed stages, two warpgroups
+// ---------------------------------------------------------------------------
+
+constexpr int kKeysWG = 64;        // keys per warpgroup (wgmma's M)
+// two warpgroups and no producer warpgroup: a third warpgroup would put
+// three warps on an SM sub-partition (16,384 registers each) and cap every
+// thread at 168 registers, under dK and dV of 64 keys x 128 columns (128)
+// with Sᵀ and dPᵀ (64); with 256 threads a thread may take 255
+constexpr int kThreads16 = 256;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// the instantiation for padded width DP; flash_bwd_geometry reports it
+template <int DP>
+struct BwdGeometry {
+  static constexpr int kPanel = DP < 64 ? DP : 64;  // columns per panel
+  static constexpr int kSwizzle = kPanel * 2;       // bytes per panel row
+  static constexpr int kPanels = DP / kPanel;
+  static constexpr int kBK = 2 * kKeysWG;           // keys per block
+  static constexpr int kBQ = 64;                    // queries per stage
+  static constexpr int kStages = 3;  // 2 and 4 measured no faster
+  static constexpr int kKVBytes = kBK * DP * 2;     // one K or one V tile
+  static constexpr int kQBytes = kBQ * DP * 2;      // one Q or one dO tile
+  static constexpr int kDsBytes = kKeysWG * kBQ * 2;  // one dSᵀ buffer
+  static constexpr int kRowBytes = kBQ * 4;         // one L or Δ row
+  static constexpr int kBarBytes = (2 * kStages + 1) * 8;
+  // + 1024: the base is rounded up to the 128-byte swizzle's 1 KiB repeat;
+  // K, V, the stages' Q and dO, four dSᵀ buffers (two a warpgroup), the
+  // stages' rows, the barriers
+  static constexpr int kSmem = 1024 + 2 * kKVBytes + 2 * kStages * kQBytes +
+                               4 * kDsBytes + 2 * kStages * kRowBytes +
+                               kBarBytes;
+  static_assert(kSmem <= 232448, "over the block's shared memory");
+  static_assert(DP % kPanel == 0 && kBQ * 2 == 128, "tile shape");
+};
+
+// rows of the stages padded to whole stages: the pre-pass writes them all
+__host__ __device__ __forceinline__ int padded_rows(int sq) {
+  return (sq + 63) / 64 * 64;
+}
+
+// query tiles [*first, *last) of bq queries that can see a key of
+// [k0, k0 + bk)
+__device__ __forceinline__ void query_tiles(const Args& a, int k0, int bk,
+                                            int bq, int* first, int* last) {
+  const int k_end = min(k0 + bk, a.kv_len);
+  if (k_end <= k0) {
+    *first = *last = 0;
+    return;
+  }
+  const int begin = a.causal ? k0 : 0;
+  const int end = a.window > 0 ? min(a.sq, k_end - 1 + a.window) : a.sq;
+  *first = begin / bq;
+  *last = end > begin ? (end + bq - 1) / bq : *first;
+}
+
+// every key of [k0, k0 + bk) visible to every query of [r0, r0 + rows): the
+// tile needs no mask (flash.cu's predicate)
+__device__ __forceinline__ bool tile_interior(const Args& a, int r0, int rows,
+                                              int k0, int bk) {
+  return k0 + bk <= a.kv_len && (!a.causal || k0 + bk - 1 <= r0) &&
+         (a.window <= 0 || k0 > r0 + rows - 1 - a.window);
+}
+
+// Δ = rowsum(dO ∘ O) and L·log2 e (+inf for a row that sees no key, and
+// for the padding rows past Sq, so that their P is 0) into the workspace's
+// [B, H, padded_rows(Sq)] rows; one warp a (batch, query, head) row
+__global__ void __launch_bounds__(kThreads) rows_kernel(Args a) {
+  const int sq_pad = padded_rows(a.sq);
+  const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= (int64_t)a.b * sq_pad * a.h) return;
+  const int head = row % a.h;
+  const int64_t bq = row / a.h;
+  const int qi = bq % sq_pad, batch = bq / sq_pad;
+  float s = 0.f;
+  if (qi < a.sq) {
+    const int64_t off = (((int64_t)batch * a.sq + qi) * a.h + head) * a.d;
+    const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(a.o) + off;
+    const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(a.dout) + off;
+    for (int c = lane * 4; c < a.d; c += 128)
+      s = dot4(load4(o + c), load4(g + c), s);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(kFull, s, off);
+  if (lane == 0) {
+    const int64_t at = ((int64_t)batch * a.h + head) * sq_pad + qi;
+    const float l = qi < a.sq ? a.lse[((int64_t)batch * a.h + head) * a.sq + qi]
+                              : -INFINITY;
+    a.work[at] = l == -INFINITY ? INFINITY : l * kLog2e;
+    a.work[(int64_t)a.b * a.h * sq_pad + at] = s;
+  }
+}
+
+// one warpgroup's work on a stage, on register fragments: element
+// 4j + 2rr + e of a 64 x 64 accumulator is key row (warp·16 + g + 8rr) of
+// the warpgroup's 64, query 8j + 2t4 + e of the stage (wgmma's accumulator
+// layout, g = lane / 4, t4 = lane % 4)
+template <int DP>
+struct BwdTileOps {
+  using G = BwdGeometry<DP>;
+  static constexpr int kPanel = G::kPanel, kSw = G::kSwizzle, kBK = G::kBK;
+  static constexpr int kBQ = G::kBQ;
+  typedef float Tile[kBQ / 2];                      // 64 keys x 64 queries
+  typedef float Acc[G::kPanels][kPanel / 2];        // 64 keys x DP
+  typedef uint32_t Frag[kBQ / 16][4];               // bf16 A fragments
+
+  // Sᵀ = K Qᵀ (or dPᵀ = V dOᵀ): the warpgroup's 64 rows of the K (V) tile
+  // against the stage's Q (dO), both K-major (issued, not waited)
+  __device__ __forceinline__ static void issue_t(Tile& acc, uint32_t kv_wg,
+                                                 uint32_t st) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const int p = kk * 16 / kPanel, col_bytes = (kk * 16 % kPanel) * 2;
+      const uint64_t da = smem_desc<kSw>(kv_wg + p * kBK * kSw + col_bytes, 1);
+      const uint64_t db = smem_desc<kSw>(st + p * kBQ * kSw + col_bytes, 1);
+      WgmmaSS<kBQ>::run(acc, da, db, kk > 0);
+    }
+  }
+
+  // acc += A B: A the bf16 fragments (64 keys x 64 queries), B the stage's
+  // dO (Q) read MN-major, 16 queries a step, one wgmma per panel (issued,
+  // not waited); as flash.cu's P·V
+  __device__ __forceinline__ static void issue_acc(Acc& acc, const Frag& fa,
+                                                   uint32_t st) {
+#pragma unroll
+    for (int kt = 0; kt < kBQ / 16; ++kt)
+#pragma unroll
+      for (int p = 0; p < G::kPanels; ++p) {
+        const uint64_t db = smem_desc<kSw>(st + p * kBQ * kSw + kt * 16 * kSw,
+                                           8 * kSw / 16);
+        WgmmaRS<kPanel>::run(acc[p], fa[kt], db);
+      }
+  }
+
+  // dQ_part[64 queries x panel p] = dS K over the block's 128 keys: A is
+  // dSᵀ in shared memory (both warpgroups' rows, keys; queries contiguous:
+  // MN-major), B the K tile's panel p (MN-major), 16 keys a step (issued,
+  // not waited)
+  __device__ __forceinline__ static void issue_dq(float (&acc)[kPanel / 2],
+                                                  uint32_t ds, uint32_t k_s,
+                                                  int p) {
+#pragma unroll
+    for (int kt = 0; kt < kBK / 16; ++kt) {
+      const uint64_t da = smem_desc<128>(ds + kt * 16 * 128, 8 * 128 / 16);
+      const uint64_t db = smem_desc<kSw>(k_s + p * kBK * kSw + kt * 16 * kSw,
+                                         8 * kSw / 16);
+      WgmmaSS<kPanel, 1>::run(acc, da, db, kt > 0);
+    }
+  }
+
+  // Pᵀ into st and dSᵀ = Pᵀ ∘ (dPᵀ - Δ) into dp, masked where the tile
+  // straddles an edge; lrow / drow the stage's L·log2 e and Δ rows
+  __device__ __forceinline__ static void probs(Tile& st, Tile& dp,
+                                               const float* lrow,
+                                               const float* drow,
+                                               const Args& a, bool interior,
+                                               int key0, int q0, int t4,
+                                               float scale2) {
+#pragma unroll
+    for (int j = 0; j < kBQ / 8; ++j) {
+      const int c = j * 8 + t4 * 2;
+      const float2 l2 = *reinterpret_cast<const float2*>(lrow + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(drow + c);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = j * 4 + rr * 2 + e;
+          float s = st[i];
+          if (!interior && !visible(a, q0 + c + e, key0 + 8 * rr)) s = -INFINITY;
+          const float p = exp2_ftz(fmaf(s, scale2, -(e ? l2.y : l2.x)));
+          st[i] = p;
+          dp[i] = p * (dp[i] - (e ? d2.y : d2.x));
+        }
+    }
+  }
+
+  // bf16 A fragments from a tile: the fragment of 16 queries holds key
+  // rows g, g + 8 and queries 2t4, 2t4 + 8 (two 8-query blocks)
+  __device__ __forceinline__ static void pack(const Tile& t, Frag& f) {
+#pragma unroll
+    for (int kt = 0; kt < kBQ / 16; ++kt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        f[kt][r] = pack_bf16(t[kt * 8 + 2 * r], t[kt * 8 + 2 * r + 1]);
+  }
+
+  // the dSᵀ fragments into a 64 x 64 bf16 buffer, rows of 128 bytes in the
+  // 128-byte swizzle (16-byte chunk c of row r at chunk c ^ (r % 8)), as a
+  // TMA load would have put them: conflict-free, one 4-byte store each
+  __device__ __forceinline__ static void store_ds(unsigned char* ds,
+                                                  const Frag& f, int warp,
+                                                  int g, int t4) {
+#pragma unroll
+    for (int kt = 0; kt < kBQ / 16; ++kt)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = warp * 16 + g + 8 * (r & 1);
+        const int chunk = (2 * kt + (r >> 1)) ^ g;
+        *reinterpret_cast<uint32_t*>(ds + row * 128 + chunk * 16 + t4 * 4) =
+            f[kt][r];
+      }
+  }
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads16, 1)
+    bwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap do_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map, Args a) {
+  using G = BwdGeometry<DP>;
+  using T = BwdTileOps<DP>;
+  constexpr int kPanel = G::kPanel, kSw = G::kSwizzle, kBK = G::kBK;
+  constexpr int kBQ = G::kBQ, kStages = G::kStages;
+  extern __shared__ unsigned char smem[];
+  // shared-space addresses: K, V, per stage a Q and a dO tile (each its
+  // panels one after another), the dSᵀ buffers, per stage the L and Δ
+  // rows, then the barriers
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  unsigned char* const gbase = smem + (base - smem_u32(smem));
+  const uint32_t k_s = base;
+  const uint32_t v_s = k_s + G::kKVBytes;
+  const uint32_t st_s = v_s + G::kKVBytes;
+  const uint32_t ds_s = st_s + 2 * kStages * G::kQBytes;
+  const uint32_t rows_s = ds_s + 4 * G::kDsBytes;
+  const uint32_t bars = rows_s + 2 * kStages * G::kRowBytes;
+  const uint32_t kv_bar = bars + 16 * kStages;  // full: bars + 8s, empty: + 8(S + s)
+
+  const int head = blockIdx.x % a.h, batch = blockIdx.x / a.h;
+  const int k0 = blockIdx.y * kBK;
+  const int sq_pad = padded_rows(a.sq);
+  int first, last;
+  query_tiles(a, k0, kBK, kBQ, &first, &last);
+  const int n_tiles = last - first;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (kStages + s), kThreads16);
+    }
+    mbar_init(kv_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // thread 0 issues every load: K and V once, then query tile i into stage
+  // i % kStages (its Q and dO tiles by TMA, its L·log2 e and Δ rows by bulk
+  // copy), the first kStages up front and each later one as soon as every
+  // thread has released the stage
+  const float* const lrows = a.work + ((int64_t)batch * a.h + head) * sq_pad;
+  const float* const drows = lrows + (int64_t)a.b * a.h * sq_pad;
+  auto load = [&](int i) {
+    const int s = i % kStages;
+    const uint32_t full = bars + 8 * s;
+    mbar_expect_tx(full, 2 * G::kQBytes + 2 * G::kRowBytes);
+    const uint32_t q_st = st_s + 2 * s * G::kQBytes;
+    const uint32_t do_st = q_st + G::kQBytes;
+    const int q0 = (first + i) * kBQ;
+#pragma unroll
+    for (int p = 0; p < G::kPanels; ++p) {
+      tma_load(q_st + p * kBQ * kSw, &q_map, full, p * kPanel, head, q0, batch);
+      tma_load(do_st + p * kBQ * kSw, &do_map, full, p * kPanel, head, q0,
+               batch);
+    }
+    const uint32_t row_st = rows_s + 2 * s * G::kRowBytes;
+    bulk_load(row_st, lrows + q0, full, G::kRowBytes);
+    bulk_load(row_st + G::kRowBytes, drows + q0, full, G::kRowBytes);
+  };
+  if (threadIdx.x == 0 && n_tiles > 0) {
+    const int kv_head = head / (a.h / a.kh);
+    mbar_expect_tx(kv_bar, 2 * G::kKVBytes);
+#pragma unroll
+    for (int p = 0; p < G::kPanels; ++p) {
+      tma_load(k_s + p * kBK * kSw, &k_map, kv_bar, p * kPanel, kv_head, k0,
+               batch);
+      tma_load(v_s + p * kBK * kSw, &v_map, kv_bar, p * kPanel, kv_head, k0,
+               batch);
+    }
+    for (int i = 0; i < kStages && i < n_tiles; ++i) load(i);
+  }
+  __syncwarp();
+
+  // ---- two warpgroups: 64 keys each ----
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kw0 = k0 + wg * kKeysWG;    // the warpgroup's keys
+  const int key0 = kw0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+  const uint32_t k_wg = k_s + wg * kKeysWG * kSw;
+  const uint32_t v_wg = v_s + wg * kKeysWG * kSw;
+  const float scale2 = a.scale * kLog2e;  // scores in the log2 domain
+
+  typename T::Acc dk, dv;
+#pragma unroll
+  for (int p = 0; p < G::kPanels; ++p)
+#pragma unroll
+    for (int i = 0; i < kPanel / 2; ++i) dk[p][i] = dv[p][i] = 0.f;
+
+  if (n_tiles > 0) {
+    float* const dq_acc = a.work + 2 * (int64_t)a.b * a.h * sq_pad;
+    const int64_t q_stride = (int64_t)a.h * a.d;
+    mbar_wait(kv_bar, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages;
+      const int q0 = (first + i) * kBQ;
+      const uint32_t q_st = st_s + 2 * s * G::kQBytes;
+      const uint32_t do_st = q_st + G::kQBytes;
+      // dSᵀ buffer i % 2: the 128 keys' rows, this warpgroup's 64 of them
+      const uint32_t ds_all = ds_s + 2 * (i & 1) * G::kDsBytes;
+      const uint32_t ds = ds_all + wg * G::kDsBytes;
+      const float* lrow =
+          reinterpret_cast<const float*>(gbase + (rows_s - base) + 2 * s * G::kRowBytes);
+      mbar_wait(bars + 8 * s, (i / kStages) & 1);
+
+      typename T::Tile st, dp;
+      wg_fence();
+      T::issue_t(st, k_wg, q_st);   // Sᵀ = K Qᵀ
+      T::issue_t(dp, v_wg, do_st);  // dPᵀ = V dOᵀ
+      wg_commit();
+      wg_wait_all();
+      fence_regs(st);
+      fence_regs(dp);
+      T::probs(st, dp, lrow, lrow + kBQ, a,
+               tile_interior(a, q0, kBQ, kw0, kKeysWG), key0, q0, t4, scale2);
+      typename T::Frag pa, da;
+      T::pack(st, pa);
+      T::pack(dp, da);
+      T::store_ds(gbase + (ds - base), da, warp, g, t4);
+      // the generic-proxy stores before the wgmma's async-proxy reads
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_regs(pa);
+      fence_regs(da);
+      wg_fence();
+      T::issue_acc(dv, pa, do_st);  // dV += Pᵀ dO
+      T::issue_acc(dk, da, q_st);   // dK += dSᵀ Q
+      wg_commit();
+      wg_wait_all();
+      fence_regs(dk);
+      fence_regs(dv);
+      fence_regs(pa);
+      fence_regs(da);
+      mbar_arrive(bars + 8 * (kStages + s));  // done with stage s
+      if (threadIdx.x == 0 && i + kStages < n_tiles) {
+        mbar_wait(bars + 8 * (kStages + s), (i / kStages) & 1);
+        load(i + kStages);
+      }
+      __syncwarp();
+
+      // dQ by warpgroup i % 2, over the block's 128 keys, once both
+      // warpgroups have stored their dSᵀ rows (the other only arrives); a
+      // buffer is stored again two tiles later, after the warpgroup that
+      // read it has arrived at the next tile's barrier
+      const int bar_id = 1 + (i & 1);
+      if (wg != (i & 1)) {
+        asm volatile("bar.arrive %0, %1;\n" ::"r"(bar_id), "n"(kThreads16)
+                     : "memory");
+        continue;
+      }
+      asm volatile("bar.sync %0, %1;\n" ::"r"(bar_id), "n"(kThreads16)
+                   : "memory");
+#pragma unroll
+      for (int p = 0; p < G::kPanels; ++p) {
+        float acc[kPanel / 2];
+        wg_fence();
+        T::issue_dq(acc, ds_all, k_s, p);
+        wg_commit();
+        wg_wait_all();
+        fence_regs(acc);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int qi = q0 + warp * 16 + g + 8 * rr;
+          if (qi >= a.sq) continue;
+          float* row = dq_acc + ((int64_t)batch * a.sq + qi) * q_stride +
+                       (int64_t)head * a.d;
+#pragma unroll
+          for (int j = 0; j < kPanel / 8; ++j) {
+            const int col = p * kPanel + j * 8 + t4 * 2;
+            if (col < a.d)
+              atomicAdd(reinterpret_cast<float2*>(row + col),
+                        make_float2(acc[j * 4 + rr * 2], acc[j * 4 + rr * 2 + 1]));
+          }
+        }
+      }
+    }
+  }
+
+  // dK (scaled) and dV: stored as bf16 when the KV head has one query
+  // head, else added into the float32 group accumulators
+  const int group = a.h / a.kh, kv_head = head / group;
+  const int64_t kv_stride = (int64_t)a.kh * a.d;
+  const int64_t acc_floats = (int64_t)a.b * a.sk * kv_stride;
+  float* const dk_acc =
+      a.work + 2 * (int64_t)a.b * a.h * sq_pad + (int64_t)a.b * a.sq * a.h * a.d;
+  float* const dv_acc = dk_acc + acc_floats;
+  if (group != 1 && n_tiles == 0) return;  // nothing to add
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int key = key0 + 8 * rr;
+    if (key >= a.sk) continue;
+    const int64_t off = ((int64_t)batch * a.sk + key) * kv_stride +
+                        (int64_t)kv_head * a.d;
+#pragma unroll
+    for (int p = 0; p < G::kPanels; ++p)
+#pragma unroll
+      for (int j = 0; j < kPanel / 8; ++j) {
+        const int col = p * kPanel + j * 8 + t4 * 2;
+        if (col >= a.d) continue;
+        const int i = j * 4 + rr * 2;
+        const float2 k2 = make_float2(dk[p][i] * a.scale, dk[p][i + 1] * a.scale);
+        const float2 v2 = make_float2(dv[p][i], dv[p][i + 1]);
+        if (group == 1) {
+          *reinterpret_cast<__nv_bfloat162*>(
+              static_cast<__nv_bfloat16*>(a.dk) + off + col) =
+              __floats2bfloat162_rn(k2.x, k2.y);
+          *reinterpret_cast<__nv_bfloat162*>(
+              static_cast<__nv_bfloat16*>(a.dv) + off + col) =
+              __floats2bfloat162_rn(v2.x, v2.y);
+        } else {
+          atomicAdd(reinterpret_cast<float2*>(dk_acc + off + col), k2);
+          atomicAdd(reinterpret_cast<float2*>(dv_acc + off + col), v2);
+        }
+      }
+  }
+}
+
+// dq = dQ accumulator · scale, and under GQA dk / dv = their accumulators,
+// rounded to bf16; four values a step
+__global__ void __launch_bounds__(kThreads) finish_kernel(Args a) {
+  const int sq_pad = padded_rows(a.sq);
+  const float* dq_acc = a.work + 2 * (int64_t)a.b * a.h * sq_pad;
+  const int64_t nq = (int64_t)a.b * a.sq * a.h * a.d;
+  const int64_t nk = a.h == a.kh ? 0 : (int64_t)a.b * a.sk * a.kh * a.d;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x * 4;
+  for (int64_t i = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
+       i < nq + 2 * nk; i += stride) {
+    float4 x = load4(dq_acc + i);
+    __nv_bfloat16* out;
+    if (i < nq) {
+      x = make_float4(x.x * a.scale, x.y * a.scale, x.z * a.scale, x.w * a.scale);
+      out = static_cast<__nv_bfloat16*>(a.dq) + i;
+    } else if (i < nq + nk) {
+      out = static_cast<__nv_bfloat16*>(a.dk) + (i - nq);
+    } else {
+      out = static_cast<__nv_bfloat16*>(a.dv) + (i - nq - nk);
+    }
+    store4(out, x);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -347,6 +851,7 @@ constexpr int smem_bytes() {
   return ((2 * kBK + 2 * kBQ) * (DP + 4) + 2 * kBQ * kLDS + 2 * kBQ) * 4;
 }
 
+// the scalar kernels (float32; bf16 at DP = 256)
 template <typename T, int DP>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int kSmem = smem_bytes<DP>();
@@ -374,17 +879,62 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the instantiation width for head dim d: the least of 16, 32, 64, 128, 256
-// that holds it (0 if none does), as flash.cu's
-int padded_dim(int d) {
-  for (int dp = 16; dp <= 256; dp *= 2)
-    if (d <= dp) return dp;
-  return 0;
+// the wgmma path (bf16, DP <= 128): pre-pass, main kernel, finish
+template <int DP>
+cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
+  using G = BwdGeometry<DP>;
+  const int64_t rows = (int64_t)a.b * padded_rows(a.sq) * a.h;
+  const int rows_per_block = kThreads / 32;
+  rows_kernel<<<(unsigned)((rows + rows_per_block - 1) / rows_per_block),
+                kThreads, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (a.sk > 0) {
+    const EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    CUtensorMap q_map, do_map, k_map, v_map;
+    if (!encode_map(encode, &q_map, a.q, a.b, a.sq, a.h, a.d, G::kPanel,
+                    G::kBQ, G::kSwizzle) ||
+        !encode_map(encode, &do_map, a.dout, a.b, a.sq, a.h, a.d, G::kPanel,
+                    G::kBQ, G::kSwizzle) ||
+        !encode_map(encode, &k_map, a.k, a.b, a.sk, a.kh, a.d, G::kPanel,
+                    G::kBK, G::kSwizzle) ||
+        !encode_map(encode, &v_map, a.v, a.b, a.sk, a.kh, a.d, G::kPanel,
+                    G::kBK, G::kSwizzle))
+      return cudaErrorInvalidValue;
+    // the shared-memory opt-in, once per device (a bit each, up to 64)
+    static unsigned long long opted_in = 0;
+    int dev = 0;
+    err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    const unsigned long long bit = 1ull << (dev & 63);
+    if (!(opted_in & bit)) {
+      err = cudaFuncSetAttribute(bwd_bf16_kernel<DP>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 G::kSmem);
+      if (err != cudaSuccess) return err;
+      opted_in |= bit;
+    }
+    const dim3 grid(a.b * a.h, (a.sk + G::kBK - 1) / G::kBK);
+    bwd_bf16_kernel<DP><<<grid, kThreads16, G::kSmem, stream>>>(
+        q_map, do_map, k_map, v_map, a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  finish_kernel<<<264, kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
 }
 
-template <typename T>
-int run(const void* q, const void* k, const void* v, const void* o,
-        const void* dout, const void* lse, void* delta, void* dq, void* dk,
+template <int DP>
+void bwd_geometry(int* out) {
+  using G = BwdGeometry<DP>;
+  const int g[] = {DP, G::kPanel, G::kSwizzle, G::kBK, G::kBQ, G::kStages,
+                   G::kSmem, 1};
+  for (int i = 0; i < 8; ++i) out[i] = g[i];
+}
+
+int run(bool bf16, const void* q, const void* k, const void* v, const void* o,
+        const void* dout, const void* lse, void* work, void* dq, void* dk,
         void* dv, int b, int sq, int sk, int h, int kh, int d, int causal,
         int window, int kv_len, void* stream) {
   if (b < 1 || sq < 1 || sk < 0 || kh < 1 || h % kh != 0 || d % 8 != 0 ||
@@ -393,43 +943,91 @@ int run(const void* q, const void* k, const void* v, const void* o,
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout;
   a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<float*>(delta);
+  a.work = static_cast<float*>(work);
   a.dq = dq; a.dk = dk; a.dv = dv;
   a.b = b; a.sq = sq; a.sk = sk; a.h = h; a.kh = kh; a.d = d;
   a.causal = causal; a.window = window; a.kv_len = kv_len;
   a.scale = (float)pow((double)d, -0.5);  // as the forward rounds it
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    switch (padded_dim(d)) {
+      case 16: return (int)launch_bf16<16>(a, s);
+      case 32: return (int)launch_bf16<32>(a, s);
+      case 64: return (int)launch_bf16<64>(a, s);
+      case 128: return (int)launch_bf16<128>(a, s);
+      default: return (int)launch<__nv_bfloat16, 256>(a, s);
+    }
+  }
   switch (padded_dim(d)) {
-    case 16: return (int)launch<T, 16>(a, s);
-    case 32: return (int)launch<T, 32>(a, s);
-    case 64: return (int)launch<T, 64>(a, s);
-    case 128: return (int)launch<T, 128>(a, s);
-    default: return (int)launch<T, 256>(a, s);
+    case 16: return (int)launch<float, 16>(a, s);
+    case 32: return (int)launch<float, 32>(a, s);
+    case 64: return (int)launch<float, 64>(a, s);
+    case 128: return (int)launch<float, 128>(a, s);
+    default: return (int)launch<float, 256>(a, s);
   }
 }
 
 }  // namespace
 
 // q, o, dout, dq [B, Sq, H, D]; k, v, dk, dv [B, Sk, KH, D], all contiguous
-// and 16-byte aligned, of one type; lse (the forward's) and delta (scratch)
-// float32 [B, H, Sq]; window <= 0 means none.  Three launches on the stream
-// (Δ, dK/dV, dQ).  Returns a cudaError_t.
+// and 16-byte aligned, of one type; lse (the forward's) float32 [B, H, Sq];
+// work a zeroed float32 workspace of the floats flash_bwd_workspace names;
+// window <= 0 means none.
+// Three launches on the stream.  Returns a cudaError_t.
 extern "C" int flash_backward_bf16(const void* q, const void* k, const void* v,
                                    const void* o, const void* dout,
-                                   const void* lse, void* delta, void* dq,
+                                   const void* lse, void* work, void* dq,
                                    void* dk, void* dv, int b, int sq, int sk,
                                    int h, int kh, int d, int causal, int window,
                                    int kv_len, void* stream) {
-  return run<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq,
+  return run(true, q, k, v, o, dout, lse, work, dq, dk, dv, b, sq,
                             sk, h, kh, d, causal, window, kv_len, stream);
 }
 
 extern "C" int flash_backward_f32(const void* q, const void* k, const void* v,
                                   const void* o, const void* dout,
-                                  const void* lse, void* delta, void* dq,
+                                  const void* lse, void* work, void* dq,
                                   void* dk, void* dv, int b, int sq, int sk,
                                   int h, int kh, int d, int causal, int window,
                                   int kv_len, void* stream) {
-  return run<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, sk, h, kh,
+  return run(false, q, k, v, o, dout, lse, work, dq, dk, dv, b, sq, sk, h, kh,
                     d, causal, window, kv_len, stream);
+}
+
+// the floats of the workspace flash_backward_{bf16,f32} take (bf16 != 0 for
+// the bf16 entry point), into *out: the wgmma path's L·log2 e and Δ rows,
+// padded to whole stages, its float32 dQ accumulator [B, Sq, H, D] and,
+// under GQA, the dK and dV accumulators [B, Sk, KH, D]; Δ [B, H, Sq] for
+// the scalar kernels.  Returns a cudaError_t.
+extern "C" int flash_bwd_workspace(int bf16, int b, int sq, int sk, int h,
+                                   int kh, int d, long long* out) {
+  if (d < 8 || d % 8 != 0 || padded_dim(d) == 0)
+    return (int)cudaErrorInvalidValue;
+  if (!bf16 || padded_dim(d) == 256)
+    *out = (long long)b * h * sq;
+  else
+    *out = 2LL * b * h * padded_rows(sq) + (long long)b * sq * h * d +
+           (h == kh ? 0 : 2LL * b * sk * kh * d);
+  return 0;
+}
+
+// the bf16 instantiation for head dim d, as eight ints: padded width, panel
+// columns, swizzle bytes, keys per block, queries per stage, stages,
+// dynamic shared-memory bytes, and 1 for the wgmma path (DP <= 128); at
+// DP = 256 the scalar kernels: 256, 0, 0, 32, 32, 0, their shared memory,
+// 0.  Returns a cudaError_t.
+extern "C" int flash_bwd_geometry(int d, int* out) {
+  if (d < 8 || d % 8 != 0 || padded_dim(d) == 0)
+    return (int)cudaErrorInvalidValue;
+  switch (padded_dim(d)) {
+    case 16: bwd_geometry<16>(out); break;
+    case 32: bwd_geometry<32>(out); break;
+    case 64: bwd_geometry<64>(out); break;
+    case 128: bwd_geometry<128>(out); break;
+    default: {
+      const int g[] = {256, 0, 0, kBK, kBQ, 0, smem_bytes<256>(), 0};
+      for (int i = 0; i < 8; ++i) out[i] = g[i];
+    }
+  }
+  return 0;
 }

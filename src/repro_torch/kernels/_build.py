@@ -3,8 +3,10 @@
 Each source ``repro_torch/csrc/<name>.cu`` exposes a plain C interface and
 compiles with ``nvcc`` alone into a shared library (no PyTorch headers, so a
 build takes seconds), which the wrappers load with ``ctypes``.  Libraries
-go to ``repro_torch/csrc/build/``, named by a hash of the source and the
-flags, so an edited source never loads a stale build.  ``build`` starts one
+go to ``repro_torch/csrc/build/``, named by a hash of the source, of the
+``csrc/*.cuh`` headers it includes (``#include "name.cuh"``, followed
+through the headers) and of the flags, so an edited source or header never
+loads a stale build.  ``build`` starts one
 ``nvcc`` per missing library, all at once, and waits for every one.
 
 Kernels may first run on any thread (the factorized service launches them
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -60,10 +63,25 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"/]+\.cuh)"', re.M)
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, the
+    ``csrc`` headers it includes (each once, in include order) and the
+    flags."""
+    digest = hashlib.sha1()
+    todo, seen = [f"{name}.cu"], set()
+    while todo:
+        text = (CSRC / todo.pop(0)).read_bytes()
+        digest.update(text)
+        for header in _INCLUDE.findall(text):
+            header = header.decode()
+            if header not in seen and (CSRC / header).exists():
+                seen.add(header)
+                todo.append(header)
+    digest.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
 def nvcc_command(name: str, out: Path, nvcc: str = "nvcc") -> list:

@@ -16,11 +16,18 @@ instantiation per head dim), :func:`tensor_map` (the TMA maps),
 need the mask).  :func:`kernel_bf16_geometry` asks the built library for
 its own numbers; ``chip_smoke.py`` holds the two equal.
 
-:func:`flash_backward` runs ``flash_backward_{bf16,f32}`` (a Δ pre-pass,
-a dK/dV kernel and a dQ kernel, scalar float32 FMAs) from the forward's
-row log-sum-exp, which :func:`flash_attention` returns when asked
-(``with_lse``).  Replaces no TPU kernel: the reference differentiates its
-jnp recurrence instead.
+:func:`flash_backward` runs ``flash_backward_{bf16,f32}`` from the
+forward's row log-sum-exp, which :func:`flash_attention` returns when
+asked (``with_lse``): in bf16 at head dims up to 128 a pre-pass, one
+``wgmma`` kernel on TMA-fed stages a block per (batch, head, 128 keys)
+that adds dQ into a float32 accumulator with atomics, and a finish pass; in
+float32, and in bf16 at head dim 256, the scalar kernels (a Δ pre-pass, a
+dK/dV kernel and a dQ kernel).  Replaces no TPU kernel: the reference
+differentiates its jnp recurrence instead.  Its geometry and schedule are
+mirrored too: :func:`bwd_geometry`, :func:`bwd_block_order`,
+:func:`query_tiles` (which query tiles a block walks) and, for a (64 keys
+x 64 queries) tile, :func:`tile_interior`; ``kernel_bwd_geometry`` asks
+the library (``flash_bwd_geometry``).
 
 The functions take CUDA tensors only and raise on anything else; their
 plain PyTorch versions are ``repro_torch.kernels.ref.flash_attention_ref``
@@ -42,26 +49,31 @@ from . import _build
 
 __all__ = [
     "BF16_ROWS_PER_WARPGROUP",
+    "BWD_KEYS_PER_WARPGROUP",
     "bf16_geometry",
     "block_order",
+    "bwd_block_order",
+    "bwd_geometry",
     "flash_attention",
     "flash_backward",
     "kernel_bf16_geometry",
+    "kernel_bwd_geometry",
     "key_tiles",
     "launches",
     "padded_dim",
+    "query_tiles",
     "tensor_map",
     "tile_interior",
 ]
 
 #: launches since the last reset (chip_smoke.py zeroes and reads); one
-#: backward is one count of ``flash_bwd`` (its three kernels together)
+#: backward is one count of ``flash_bwd`` (its three launches together)
 launches = {"flash": 0, "flash_bwd": 0}
 
 _P, _I32 = ctypes.c_void_p, ctypes.c_int
 # (q, k, v, out, lse, b, sq, sk, h, kh, d, causal, window, kv_len, stream)
 _ARGTYPES = [_P] * 5 + [_I32] * 9 + [_P]
-# (q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, sk, h, kh, d, causal,
+# (q, k, v, o, dout, lse, work, dq, dk, dv, b, sq, sk, h, kh, d, causal,
 #  window, kv_len, stream)
 _BWD_ARGTYPES = [_P] * 10 + [_I32] * 9 + [_P]
 _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
@@ -70,6 +82,12 @@ _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 BF16_ROWS_PER_WARPGROUP = 64
 _SMEM_PER_BLOCK = 232_448  # bytes a block can take on an H100
 _GEOMETRY_KEYS = ("dp", "panel", "swizzle", "bq", "bk", "stages", "smem")
+#: keys per warpgroup of the bf16 backward (wgmma's M); a block holds two
+#: warpgroups' keys
+BWD_KEYS_PER_WARPGROUP = 64
+_BWD_GEOMETRY_KEYS = ("dp", "panel", "swizzle", "bk", "bq", "stages", "smem", "wgmma")
+# the scalar backward's tiles (float32, and bf16 at head dim 256)
+_SCALAR_BQ = _SCALAR_BK = 32
 
 
 def padded_dim(d: int) -> int:
@@ -139,6 +157,79 @@ def tile_interior(r0: int, rows: int, k0: int, bk: int, *, kv_len: int,
     rows)``: the tile skips the mask (``tile_interior`` in ``flash.cu``)."""
     return (k0 + bk <= kv_len and (not causal or k0 + bk - 1 <= r0)
             and (not window or k0 > r0 + rows - 1 - window))
+
+
+def bwd_geometry(d: int) -> dict:
+    """The bf16 backward's instantiation for head dim ``d`` (``BwdGeometry``
+    in ``flash_bwd.cu``): at ``dp`` ≤ 128 the ``wgmma`` kernel (``wgmma``
+    1), its tiles in panels of ``panel`` columns one ``swizzle`` span wide,
+    ``bk`` keys a block (two warpgroups of 64), ``bq`` queries a
+    stage in a ring of ``stages``, ``smem`` dynamic shared-memory bytes (1
+    KiB of alignment slack, K and V, the stages' Q and dO, four bf16 dSᵀ
+    buffers of 64 x 64, the stages' L and Δ rows, the mbarriers); at ``dp``
+    256 the scalar kernels (``wgmma`` 0: 32 x 32 float32 tiles; dK and dV
+    of 64 keys at that width would take 256 registers a thread)."""
+    dp = padded_dim(d)
+    if dp == 256:
+        smem = ((2 * _SCALAR_BK + 2 * _SCALAR_BQ) * (dp + 4)
+                + 2 * _SCALAR_BQ * (_SCALAR_BK + 1) + 2 * _SCALAR_BQ) * 4
+        return dict(dp=dp, panel=0, swizzle=0, bk=_SCALAR_BK, bq=_SCALAR_BQ,
+                    stages=0, smem=smem, wgmma=0)
+    panel = min(dp, 64)
+    bk, bq = 2 * BWD_KEYS_PER_WARPGROUP, 64
+    stages = 3
+    smem = (1024 + 2 * bk * dp * 2 + 2 * stages * bq * dp * 2
+            + 4 * BWD_KEYS_PER_WARPGROUP * bq * 2 + 2 * stages * bq * 4
+            + (2 * stages + 1) * 8)
+    return dict(dp=dp, panel=panel, swizzle=panel * 2, bk=bk, bq=bq,
+                stages=stages, smem=smem, wgmma=1)
+
+
+def bwd_block_order(batch: int, sk: int, heads: int, bk: int) -> list:
+    """(batch, first key, head) of the bf16 backward's blocks in the order
+    they start (block index order, x fastest: the grid is (batch·heads, key
+    tiles)): every head of the first key tile first, so under causal
+    masking the key tiles that the most query tiles see start first."""
+    n = -(-sk // bk)
+    return [(x // heads, y * bk, x % heads)
+            for y in range(n) for x in range(batch * heads)]
+
+
+def query_tiles(k0: int, bk: int, bq: int, *, sq: int, kv_len: int, causal: bool,
+                window: Optional[int]) -> Tuple[int, int]:
+    """Query tiles ``[first, last)`` of ``bq`` queries that can see a key of
+    ``[k0, k0 + bk)`` (``query_tiles`` in ``flash_bwd.cu``): the tiles a
+    backward block walks.  A (64 keys x 64 queries) tile of it skips the
+    mask where ``tile_interior(q0, 64, k0, 64)`` holds."""
+    k_end = min(k0 + bk, kv_len)
+    if k_end <= k0:
+        return 0, 0
+    begin = k0 if causal else 0
+    end = min(sq, k_end - 1 + window) if window else sq
+    first = begin // bq
+    return first, (-(-end // bq) if end > begin else first)
+
+
+def kernel_bwd_geometry(d: int) -> dict:
+    """The built library's own bf16 backward instantiation for head dim
+    ``d`` (``flash_bwd_geometry``; builds the library on first use)."""
+    fn = _build.function("flash_bwd", "flash_bwd_geometry", [_I32, _P])
+    out = (ctypes.c_int * len(_BWD_GEOMETRY_KEYS))()
+    err = fn(d, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_geometry({d}) failed: cudaError_t {err}")
+    return dict(zip(_BWD_GEOMETRY_KEYS, out))
+
+
+def _bwd_workspace(bf16: bool, b: int, sq: int, sk: int, h: int, kh: int, d: int) -> int:
+    """Floats of the zeroed float32 workspace the backward takes, as the
+    library computes them (``flash_bwd_workspace``)."""
+    fn = _build.function("flash_bwd", "flash_bwd_workspace", [_I32] * 7 + [_P])
+    out = ctypes.c_longlong()
+    err = fn(int(bf16), b, sq, sk, h, kh, d, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_workspace failed: cudaError_t {err}")
+    return out.value
 
 
 def kernel_bf16_geometry(d: int) -> dict:
@@ -227,12 +318,14 @@ def flash_backward(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    bf16 = q.dtype == torch.bfloat16
+    work = torch.zeros(_bwd_workspace(bf16, b, sq, sk, h, kh, d),
+                       dtype=torch.float32, device=q.device)
     fn = _build.function("flash_bwd", f"flash_backward_{_SUFFIX[q.dtype]}", _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(q.get_device()).cuda_stream
     err = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), work.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         b, sq, sk, h, kh, d, int(causal), window or 0, kv_len, stream,
     )
     if err != 0:

@@ -353,6 +353,72 @@ def test_bf16_schedule_covers_visible_pairs(sq, sk, kv_len, causal, window, d):
         assert interior > 0  # the long rows take the unmasked path
 
 
+@pytest.mark.parametrize("d", range(8, 257, 8))
+def test_bwd_geometry_per_width(d):
+    """The bf16 backward's instantiation for every head dim: the wgmma kernel
+    up to a padded width of 128 (two warpgroups of 64 keys, 64-query stages,
+    panels one swizzle span wide on the 1 KiB repeat), the scalar kernels at
+    256; its shared memory fits one H100 block."""
+    g = PF.bwd_geometry(d)
+    assert g["dp"] == PF.padded_dim(d)
+    assert g["smem"] <= 232_448
+    if g["dp"] == 256:
+        assert g["wgmma"] == 0 and g["bk"] == g["bq"] == 32 and g["stages"] == 0
+        return
+    assert g["wgmma"] == 1
+    assert g["panel"] == min(g["dp"], 64) and g["swizzle"] == 2 * g["panel"]
+    assert g["bk"] == 2 * PF.BWD_KEYS_PER_WARPGROUP == 128 and g["bq"] == 64
+    assert g["stages"] >= 2
+    kv_bytes, q_bytes = g["bk"] * g["dp"] * 2, g["bq"] * g["dp"] * 2
+    ds_bytes = PF.BWD_KEYS_PER_WARPGROUP * g["bq"] * 2
+    assert ds_bytes == 64 * 128  # dSᵀ rows of 64 queries: one 128-byte swizzle span
+    for nbytes in (kv_bytes, q_bytes, ds_bytes, PF.BWD_KEYS_PER_WARPGROUP * g["swizzle"]):
+        assert nbytes % (8 * g["swizzle"]) == 0  # tiles and warpgroup halves on the repeat
+    assert g["smem"] == (1024 + 2 * kv_bytes + 2 * g["stages"] * q_bytes + 4 * ds_bytes
+                         + 2 * g["stages"] * g["bq"] * 4 + (2 * g["stages"] + 1) * 8)
+
+
+@pytest.mark.parametrize("sq,sk,kv_len,causal,window,d", SCHEDULES)
+def test_bwd_schedule_covers_visible_pairs(sq, sk, kv_len, causal, window, d):
+    """The backward's blocks in launch order cover every (batch, head, key
+    tile) once, earliest keys first (causal: the key tiles the most queries
+    see start first); the query tiles a block walks hold every visible pair
+    of its keys; a (64 keys x 64 queries) tile that skips the mask has every
+    pair visible; and the pairs in walked tiles sum to the brute-force
+    count."""
+    g = PF.bwd_geometry(d)
+    bk, bq, wk = g["bk"], g["bq"], PF.BWD_KEYS_PER_WARPGROUP
+    kw = dict(kv_len=kv_len, causal=causal, window=window)
+    order = PF.bwd_block_order(2, sk, 3, bk)
+    assert sorted(order) == sorted(
+        (b, k0, h) for b in range(2) for k0 in range(0, sk, bk) for h in range(3))
+    assert len(set(order)) == len(order)
+    starts = [k0 for _, k0, _ in order]
+    assert starts == sorted(starts)
+    vis = _visible(np.arange(sq), np.arange(sk), **kw)
+    if causal and not window:
+        work = [int(vis[:, k0:k0 + bk].sum()) for k0 in starts]
+        assert work == sorted(work, reverse=True)
+    counted, interior = 0, 0
+    for k0 in sorted(set(starts)):
+        first, last = PF.query_tiles(k0, bk, bq, sq=sq, **kw)
+        assert 0 <= first <= last
+        block = vis[:, k0:k0 + bk]
+        assert not block[: first * bq].any() and not block[last * bq:].any()
+        for t in range(first, last):
+            q0 = t * bq
+            counted += int(block[q0:q0 + bq].sum())
+            for kw0 in range(k0, k0 + bk, wk if g["wgmma"] else bk):
+                if g["wgmma"] and PF.tile_interior(q0, bq, kw0, wk, **kw):
+                    interior += 1
+                    assert _visible(np.arange(q0, q0 + bq), np.arange(kw0, kw0 + wk), **kw).all()
+        if kv_len <= k0:
+            assert first == last
+    assert counted == int(vis.sum())
+    if causal and sq >= 1024 and g["wgmma"]:
+        assert interior > 0  # the long rows take the unmasked path
+
+
 @pytest.mark.parametrize(
     "bh,sq,sk,d,blk,kv_lens",
     [(2, 40, 72, 16, 8, (53, 0)), (1, 1000, 3001, 64, 512, (2777, 0))],
@@ -424,3 +490,43 @@ def test_variant_tool_reads_ptxas_registers_and_spills():
         "ptxas info    : Used 168 registers, used 16 barriers\n"
     )
     assert _variants_tool().ptxas_report(log) == [(64, 168, 24, 8)]
+
+
+def _bwd_variants_tool():
+    """``tools/flash_bwd_variants.py`` (a script, not a package) as a module."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "tools" / "flash_bwd_variants.py"
+    spec = importlib.util.spec_from_file_location("flash_bwd_variants", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arm", sorted(_bwd_variants_tool().ARMS))
+def test_bwd_variant_tool_arms_apply_to_the_checkout(arm):
+    """Each named arm of the backward's design ablation edits text that the
+    checkout's ``flash_bwd.cu`` holds exactly once (the final arm is the
+    source itself), so every arm still builds from today's source."""
+    tool = _bwd_variants_tool()
+    base = (_build.CSRC / "flash_bwd.cu").read_text()
+    got = tool.variant_sources([arm])[arm]
+    if not tool.ARMS[arm]:
+        assert got == base
+        return
+    for sub in tool.ARMS[arm].split("@@"):
+        assert base.count(sub.split("=>")[0]) == 1, (arm, sub)
+    assert got != base
+
+
+def test_bwd_variant_tool_reads_ptxas_registers_and_spills():
+    log = (
+        "ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__b7f7edad_12_flash_bwd_cu_"
+        "1a06042315bwd_bf16_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_NS_4ArgsE' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN45_GLOBAL__N__b7f7edad_12_flash_bwd_cu_"
+        "1a06042315bwd_bf16_kernelILi128EEEv14CUtensorMap_stS1_S1_S1_NS_4ArgsE\n"
+        "    344 bytes stack frame, 856 bytes spill stores, 852 bytes spill loads\n"
+        "ptxas info    : Used 168 registers, used 16 barriers\n"
+    )
+    assert _bwd_variants_tool().ptxas_report(log) == [(128, 168, 856, 852)]

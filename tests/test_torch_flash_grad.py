@@ -178,6 +178,63 @@ def test_bf16_gradients_within_flash_tolerance(case):
         assert bool((((a.float() - b).abs()) <= FLASH_TOL[torch.bfloat16] * (1 + b.abs())).all())
 
 
+FLASH_ROW_RTOL = {torch.bfloat16: 2e-2}  # chip_smoke.py's
+FLASH_NORM_RTOL = {torch.bfloat16: 1e-2}
+
+
+def _rounded_backward(q, k, v, out, dout, *, causal, window, kv_len):
+    """dq, dk, dv as the bf16 wgmma kernel rounds them: float32 products of
+    the bf16 inputs, P and dS rounded to bf16 before dV = Pᵀ dO, dK = dSᵀ Q
+    and dQ = dS K, float32 sums, the results rounded to bf16."""
+    b, sq, h, d = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g, scale = h // kh, d**-0.5
+    i, j = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
+    mask = j < kv_len
+    if causal:
+        mask = mask & (j <= i)
+    if window is not None:
+        mask = mask & (j > i - window)
+    bf = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    dq, dk, dv = (torch.empty(t.shape) for t in (q, k, v))
+    for kv in range(kh):
+        heads = slice(kv * g, (kv + 1) * g)
+        qf, of, gf = (t[:, :, heads].float().transpose(1, 2) for t in (q, out, dout))
+        kf, vf = k[:, :, kv].float()[:, None], v[:, :, kv].float()[:, None]
+        s = torch.where(mask, qf @ kf.transpose(-1, -2) * scale, -torch.inf)
+        lse = torch.logsumexp(s, dim=-1, keepdim=True)
+        p = torch.where(mask & (lse > -torch.inf), torch.exp(s - lse), 0.0)
+        ds = p * (gf @ vf.transpose(-1, -2) - (gf * of).sum(-1, keepdim=True))
+        dv[:, :, kv] = (bf(p).transpose(-1, -2) @ gf).sum(1)
+        dk[:, :, kv] = (bf(ds).transpose(-1, -2) @ qf).sum(1) * scale
+        dq[:, :, heads] = (bf(ds) @ kf * scale).transpose(1, 2)
+    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (True, 200)])
+def test_bf16_rounded_p_and_ds_within_phase2_bounds(causal, window):
+    """The bf16 kernel rounds P and dS to bf16 before their products; at a
+    causal 1,024-token, 4 / 2 x 64 case and a window case that rounding
+    stays inside phase 2's three bf16 bounds against ``flash_backward_ref``
+    (elementwise FLASH_TOL, per row FLASH_ROW_RTOL, whole FLASH_NORM_RTOL)."""
+    rng = np.random.default_rng(11)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).bfloat16()
+                  for s in ((1, 1024, 4, 64), (1, 1024, 2, 64), (1, 1024, 2, 64),
+                            (1, 1024, 4, 64)))
+    kw = dict(causal=causal, window=window, kv_len=1024)
+    out = PREF.flash_attention_ref(q, k, v, **kw)
+    want = PREF.flash_backward_ref(q, k, v, out, g, **kw)
+    got = _rounded_backward(q, k, v, out, g, **kw)
+    dt = torch.bfloat16
+    for a, b in zip(got, want):
+        a, b = a.float(), b.float()
+        diff = a - b
+        assert bool((diff.abs() <= FLASH_TOL[dt] * (1 + b.abs())).all())
+        floor = 64**0.5 * float(b.square().mean().sqrt())
+        assert float((diff.norm(dim=-1) / (b.norm(dim=-1) + floor)).max()) <= FLASH_ROW_RTOL[dt]
+        assert float(diff.norm() / b.norm()) <= FLASH_NORM_RTOL[dt]
+
+
 def test_function_refuses_what_the_kernel_does_not_take():
     q = torch.zeros(1, 8, 2, 12, requires_grad=True)
     with pytest.raises(ValueError, match="head dim"):

@@ -683,6 +683,32 @@ def test_build_targets_hopper_from_repo_sources(monkeypatch, tmp_path):
         _build._nvcc()
 
 
+def test_library_path_hashes_the_headers_a_source_includes(monkeypatch, tmp_path):
+    """A library is named by its source and the ``csrc`` headers it
+    includes, through other headers: editing any of them names a new
+    library (an edited header never loads a stale build); a header the
+    source does not include does not count."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    (tmp_path / "k.cu").write_text('#include <math.h>\n#include "a.cuh"\nint k;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #include "b.cuh"\nint a;\n')
+    (tmp_path / "b.cuh").write_text("int b;\n")
+    (tmp_path / "c.cuh").write_text("int c;\n")
+    names = [_build.library_path("k")]
+    for header, text in (("a.cuh", "int a2;\n#include \"b.cuh\"\n"), ("b.cuh", "int b2;\n"),
+                         ("k.cu", '#include "a.cuh"\nint k2;\n')):
+        (tmp_path / header).write_text(text)
+        names.append(_build.library_path("k"))
+    assert len(set(names)) == len(names)
+    assert all(p.parent == tmp_path / "build" and p.name.startswith("k-") for p in names)
+    (tmp_path / "c.cuh").write_text("int c2;\n")
+    assert _build.library_path("k") == names[-1]
+    # the checkout's flash sources include the shared header
+    monkeypatch.undo()
+    for name in ("flash", "flash_bwd"):
+        assert '#include "hopper.cuh"' in (_build.CSRC / f"{name}.cu").read_text()
+
+
 def test_enable_x64_takes_the_spelling_jax_has(monkeypatch):
     """``torch_jax_compat.enable_x64`` uses ``jax.enable_x64`` where JAX
     has it and ``jax.experimental.enable_x64`` where it does not (the 0.4

@@ -15,7 +15,8 @@ Each SPEC names one build of ``src/repro_torch/csrc/flash.cu``:
                              replaced by NEW (a tile size, a stage count,
                              a switch)
 
-All variants are built at once with the port's ``nvcc`` flags into
+All variants are built at once with the port's ``nvcc`` flags (and
+``csrc`` on the include path, for ``hopper.cuh``) into
 ``chiprun_out/flash_variants/``, their ptxas register and spill counts
 printed, then each is held to the plain version at the phase-2 shapes of
 ``chip_smoke.py`` (relative error of the whole output, which must stay
@@ -74,7 +75,7 @@ def build(item) -> tuple:
     name, text = item
     src, lib = OUT / f"{name}.cu", OUT / f"{name}.so"
     src.write_text(text)
-    cmd = [_build._nvcc(), *_build.FLAGS, "-o", str(lib), str(src)]
+    cmd = [_build._nvcc(), *_build.FLAGS, "-I", str(_build.CSRC), "-o", str(lib), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     return name, proc.returncode, proc.stdout + proc.stderr
 
