@@ -251,8 +251,15 @@ Phases, in order; any failed check raises and the script exits non-zero:
    the mean loss of the last 3 steps below that of the first 3, step ms,
    tokens/s, peak memory; then one more step under the profiler (the
    device alone): device busy against the run's median step, and the
-   device ms of flash_bwd's kernels and of flash's by kernel name.  Step
-   2's line also prints the host's ``torch.backends.cpu`` capability.
+   device ms of flash_bwd's kernels and of flash's by kernel name; then
+   the dry run's estimate of that step (``launch.dryrun --mesh host``,
+   one device on meta tensors, in a host subprocess that sees no card,
+   started before phase 1 and run beside phases 1–11; its status must be
+   ``ok``): its memory beside the measured peak and
+   their ratio, its counted FLOPs beside ``model_flops``, and the step's
+   model FLOPs over step time × the bf16 peak, with the card's name and
+   power limit.  Step 2's line also prints the host's
+   ``torch.backends.cpu`` capability.
    Last, ``--mesh 1x1`` (a NCCL group of one that
    the run starts and ends; the state and batches DTensors under the train
    policy) for 3 steps at 8 × 128 against the same run without a mesh:
@@ -325,6 +332,7 @@ object, the card's name and power limit, and ``{"ok": true, "device":
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import dataclasses
@@ -4033,11 +4041,12 @@ def long_step_leg(tr) -> dict:
     return row
 
 
-def bf16_train_leg(tr) -> dict:
+def bf16_train_leg(tr, dry) -> dict:
     """smollm-135m in the config's bf16 at 4 x 4,096 tokens in 4
     microbatches through ``launch.train``: the loss must fall; step ms,
     tokens/s and peak memory; flash and flash_bwd launch once a layer a
-    microbatch."""
+    microbatch; then the dry run ``dry`` (:func:`start_dryrun`) of the
+    same step beside them."""
     _, cfg, _, _ = tr.setup(BF16_TRAIN_ARGV)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4062,9 +4071,72 @@ def bf16_train_leg(tr) -> dict:
     if len(losses) != BF16_TRAIN_STEPS or not np.all(np.isfinite(losses)) or not last < first:
         raise AssertionError(f"bf16 4 x 4,096: losses {losses}")
     profiled = profiled_train_step(tr, res.state, stats["step_ms_median"])
+    estimate = dryrun_estimate(dry, stats["step_ms_median"], peak)
     return dict(dtype=str(cfg.dtype), batch=4, seq=4096, microbatches=4, losses=losses,
                 loss_first3=first, loss_last3=last, wall_s=wall, max_memory_allocated=peak,
-                launches=launches, profiled_step=profiled, **stats)
+                launches=launches, profiled_step=profiled, dry_run=estimate, **stats)
+
+
+def start_dryrun() -> types.SimpleNamespace:
+    """Start the dry run of the bf16 step (``python -m
+    repro_torch.launch.dryrun --mesh host``: smollm-135m, ``train_4k`` at a
+    batch of 4, the config's 4 microbatches, one device, on meta tensors)
+    in a host subprocess that sees no card, so its process state never
+    meets this one's NCCL group.  It runs beside phases 1–11 (its ~20 s of
+    host time off the smoke's path); :func:`dryrun_estimate` waits for it,
+    and an exit before that stops it."""
+    out = Path(tempfile.mkdtemp(prefix=".smoke-dryrun-", dir=ROOT))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    with open(out / "log.txt", "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", LM_ARCH,
+             "--shape", "train_4k", "--mesh", "host", "--batch", "4", "--out", str(out)],
+            stdout=f, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+    job = types.SimpleNamespace(proc=proc, out=out, t0=time.perf_counter())
+    atexit.register(stop_dryrun, job)
+    return job
+
+
+def stop_dryrun(job) -> None:
+    if job.proc.poll() is None:
+        job.proc.kill()
+        job.proc.wait()
+    shutil.rmtree(job.out, ignore_errors=True)
+
+
+def dryrun_estimate(job, step_ms: float, peak: int) -> dict:
+    """The dry run's per-device memory and FLOP count of the bf16 step
+    (:func:`start_dryrun`) beside the measured peak and the step's
+    model-FLOPs share; its status must be ``ok``."""
+    t = time.perf_counter()
+    try:
+        rc = job.proc.wait(timeout=600)
+        waited = time.perf_counter() - t
+        paths = list(job.out.glob("*.json"))
+        if rc != 0 or len(paths) != 1:
+            raise AssertionError(f"dry run: rc {rc}, records {paths}: "
+                                 f"{(job.out / 'log.txt').read_text()[-2000:]}")
+        rec = json.loads(paths[0].read_text())
+    finally:
+        stop_dryrun(job)
+    if rec["status"] != "ok":
+        raise AssertionError(f"dry run of the bf16 step: status {rec['status']}: "
+                             f"{rec.get('error')}")
+    est = rec["memory"]["peak_bytes"]
+    flops, model = rec["cost"]["flops"], rec["roofline"]["model_flops"]
+    share = model / (step_ms / 1e3 * HW.peak_flops_bf16)
+    row = dict(build_s=rec["lower_s"], count_s=rec["compile_s"], waited_s=waited,
+               memory_estimate=est, memory=rec["memory"], max_memory_allocated=peak,
+               memory_ratio=est / peak, counted_flops=flops, model_flops=model,
+               flops_ratio=flops / model, step_ms=step_ms, model_flops_share=share,
+               coll_by_kind=rec["cost"]["coll_by_kind"], card=card_line())
+    log(f"bf16 4 x 4,096 step, dry run (build {rec['lower_s']:.1f}s + count "
+        f"{rec['compile_s']:.1f}s on the host beside phases 1-11; waited {waited:.1f}s): "
+        f"memory estimate {est:.0f} B vs max_memory_allocated {peak} B (ratio "
+        f"{est / peak:.4f}); counted FLOPs {flops:.6e} vs model_flops {model:.6e} (ratio "
+        f"{flops / model:.4f}); model FLOPs / (step {step_ms:.1f} ms x "
+        f"{HW.peak_flops_bf16:.3e}) = {share:.4f}; {row['card']}")
+    return row
 
 
 # the backward's kernels by name in a profiler trace (demangled or not):
@@ -5015,6 +5087,7 @@ def main() -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
+    dry = start_dryrun()  # phase 11's dry run, on the host beside phases 1-11
     log("phase 1: build")
     seconds = _build.build()
     log(f"build seconds: {seconds:.2f}")
@@ -5120,7 +5193,7 @@ def main() -> None:
     log("phase 11: one float32 step of 1 x 4,096 tokens, kernels vs the plain path")
     training["long_step"] = long_step_leg(tr)
     log("phase 11: bf16 at 4 x 4,096 tokens, microbatches 4")
-    training["bf16_4k"] = bf16_train_leg(tr)
+    training["bf16_4k"] = bf16_train_leg(tr, dry)
     log("phase 11: --mesh 1x1 on NCCL")
     training["mesh_1x1"] = mesh_leg(tr)
     launches11 = {name: training["long_step"]["launches"][name]

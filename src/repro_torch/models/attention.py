@@ -40,7 +40,7 @@ import torch
 from torch import nn
 
 from ..kernels import ops
-from ..sharding import is_dtensor, on_head_shards
+from ..sharding import constrain, is_dtensor, on_head_shards
 from .layers import apply_rotary, dense_init, rotary_embedding
 
 __all__ = [
@@ -84,11 +84,20 @@ def attention_init(cfg, generator: Optional[torch.Generator] = None, device=None
     return Attention(cfg, generator, device)
 
 
+def _gathered(w: torch.Tensor, heads: str) -> torch.Tensor:
+    """A ``[d, heads, hd]`` projection whole along ``d`` (FSDP's gather
+    before use) and split over its heads as the policy says.  Under a
+    policy whose model axis does not divide the heads (smollm's 9 on 16),
+    DTensor would otherwise split the flattened heads of the product and
+    could not unflatten them.  No-op without a policy."""
+    return constrain(w, (None, heads, "head_dim"))
+
+
 def _project(params: Attention, x: torch.Tensor):
     """q ``[B, S, H, hd]``, k / v ``[B, S, KH, hd]``."""
-    q = torch.einsum("bsd,dhe->bshe", x, params.wq)
-    k = torch.einsum("bsd,dke->bske", x, params.wk)
-    v = torch.einsum("bsd,dke->bske", x, params.wv)
+    q = torch.einsum("bsd,dhe->bshe", x, _gathered(params.wq, "heads"))
+    k = torch.einsum("bsd,dke->bske", x, _gathered(params.wk, "kv_heads"))
+    v = torch.einsum("bsd,dke->bske", x, _gathered(params.wv, "kv_heads"))
     return q, k, v
 
 
@@ -226,9 +235,12 @@ def _long_attention(
     ``ops.flash_attention_fn`` on either device: on the card the forward
     kernel and the hand-written backward, on the CPU their plain versions
     (positions are the indices there too).  DTensors take the kernels on
-    each rank's batch and head shards (``sharding.on_head_shards``)."""
+    each rank's batch and head shards (``sharding.on_head_shards``).  A
+    DTensor or a ``meta`` tensor takes them outside autograd too (the plain
+    versions off the card: the dry run counts attention as they compute
+    it, sharded or not)."""
     grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
-    if q.is_cuda or grad:
+    if q.is_cuda or grad or is_dtensor(q) or q.is_meta:
         if qpos is not None or kpos is not None:
             raise ValueError(
                 "the flash kernel derives positions from indices: pass "
@@ -269,7 +281,7 @@ def cross_attention(params: Attention, x: torch.Tensor, ckv: dict, cfg) -> torch
     values ``ckv`` (:func:`cross_kv`): no RoPE, every key visible (the
     chunked branch keeps the whole key sequence in one chunk, as the
     reference does)."""
-    q = torch.einsum("bsd,dhe->bshe", x, params.wq)
+    q = torch.einsum("bsd,dhe->bshe", x, _gathered(params.wq, "heads"))
     k, v = ckv["k"], ckv["v"]
     sk = k.shape[1]
     if _long(x.shape[1], sk, cfg):
@@ -341,13 +353,13 @@ def attention_prefill(
     slots = max_len if window is None else min(window, max_len)
     kh, hd = cfg.n_kv_heads, cfg.head_dim
     k, v = k.to(cfg.dtype), v.to(cfg.dtype)
-    if slots >= s:  # write positions [0, s) directly
-        ck = torch.zeros((b, slots, kh, hd), dtype=cfg.dtype, device=x.device)
-        cv = torch.zeros_like(ck)
-        cpos = torch.full((b, slots), -1, dtype=torch.int32, device=x.device)
-        ck[:, :s] = k
-        cv[:, :s] = v
-        cpos[:, :s] = pos
+    if slots >= s:  # positions [0, s), then empty slots (a DTensor cannot
+        # be written into a slice of a plain tensor)
+        empty = torch.zeros((b, slots - s, kh, hd), dtype=cfg.dtype, device=x.device)
+        ck = torch.cat([k, empty], dim=1)
+        cv = torch.cat([v, empty], dim=1)
+        cpos = torch.cat([pos.to(torch.int32), torch.full(
+            (b, slots - s), -1, dtype=torch.int32, device=x.device)], dim=1)
     else:  # keep the last ``slots`` positions, ring-rolled to slot p%slots
         shift = (s - slots) % slots
         ck = torch.roll(k[:, s - slots :], shift, dims=1)
@@ -431,14 +443,14 @@ def cross_kv(params: Attention, enc_states: torch.Tensor) -> dict:
     """Encoder K / V ``[B, Sk, KH, hd]``, projected once (whisper's prefill
     caches them)."""
     return {
-        "k": torch.einsum("bsd,dke->bske", enc_states, params.wk),
-        "v": torch.einsum("bsd,dke->bske", enc_states, params.wv),
+        "k": torch.einsum("bsd,dke->bske", enc_states, _gathered(params.wk, "kv_heads")),
+        "v": torch.einsum("bsd,dke->bske", enc_states, _gathered(params.wv, "kv_heads")),
     }
 
 
 def cross_attention_decode(params: Attention, x: torch.Tensor, ckv: dict, cfg) -> torch.Tensor:
     """x [B, 1, d] attends over the cached encoder K / V ``ckv`` (no mask,
     float32 scores).  Returns [B, 1, d]."""
-    q = torch.einsum("bsd,dhe->bshe", x, params.wq)
+    q = torch.einsum("bsd,dhe->bshe", x, _gathered(params.wq, "heads"))
     probs = torch.softmax(_gqa_scores(q, ckv["k"], cfg.head_dim**-0.5), dim=-1)
     return _out(params, _gqa_out(probs, ckv["v"], x.dtype))

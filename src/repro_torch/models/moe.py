@@ -78,6 +78,13 @@ def moe_init(cfg, generator: Optional[torch.Generator] = None, device=None) -> M
     return MoE(cfg, generator, device)
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` (int64) as a comparison with ``arange(n)``:
+    the same values, and DTensor has a rule for it (none for one_hot's
+    bounds assert under inference mode)."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def route(probs: torch.Tensor, k: int, cap: int):
     """The dispatch plan of router probabilities ``probs [G, T, E]``
     (float32) for groups of ``T`` tokens and ``cap`` slots an expert:
@@ -90,7 +97,7 @@ def route(probs: torch.Tensor, k: int, cap: int):
     # slot-major order: all first picks, then all second picks, ...; each
     # pick's position is the number of earlier picks of its expert
     flat = sel.transpose(1, 2).reshape(g, k * t)
-    onehot = F.one_hot(flat, e)
+    onehot = _one_hot(flat, e)
     before = torch.cumsum(onehot, dim=1) - onehot
     pos = torch.gather(before, 2, flat[..., None])[..., 0]
     pos = pos.reshape(g, k, t).transpose(1, 2)
@@ -135,7 +142,7 @@ def _moe_groups(params: MoE, xg: torch.Tensor, cfg, cf: float):
         out = out + mlp_apply(params.shared, xg, "swiglu")
 
     # Switch-style load-balance loss over every routed token
-    frac = F.one_hot(sel[..., 0], e).float().mean(dim=(0, 1))
+    frac = _one_hot(sel[..., 0], e).float().mean(dim=(0, 1))
     imp = probs.mean(dim=(0, 1))
     aux = e * torch.sum(frac * imp)
     return out.to(xg.dtype), aux

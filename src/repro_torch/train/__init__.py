@@ -7,10 +7,11 @@ port of the JAX package's ``train/``).
 * ``checkpoint``   — atomic async checkpoints, device-agnostic restore
 * ``loop``         — watchdog / preemption / resume envelope
 
+* ``pipeline``     — GPipe-style pipeline parallelism over the ``pod`` axis
+  (imported on its own, as in the reference)
+
 Sharded training places the state on a mesh through ``repro_torch.sharding``
-(``launch.train --mesh``); the same step runs on DTensors.  The reference's
-``pipeline`` (a differentiable ring over the ``pod`` axis) is not ported
-yet (ROADMAP queue 1, item 10.5).
+(``launch.train --mesh``); the same step runs on DTensors.
 """
 
 from . import checkpoint, compression, loop, optim, train_step

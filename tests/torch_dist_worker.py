@@ -8,7 +8,9 @@ basename, as ``torch_serve_twin``).
 rank pickles ``{(case, mesh): result}`` to a file; ``spawn`` returns the
 results by rank.  ``spawn_train(world, runs)`` runs ``launch.train`` with
 ``--mesh`` on each rank of such a group and returns rank 0's losses, grad
-norms and final state.  The cases build their inputs from numpy seeds
+norms and final state; ``spawn_pipeline(world, runs)`` runs
+``train.pipeline.make_pp_loss_for_mesh`` there and returns rank 0's losses
+and full gradients.  The cases build their inputs from numpy seeds
 (``case_inputs``), so a test computes its oracle from the same numbers.
 Nothing here imports JAX or the JAX package.
 """
@@ -193,3 +195,64 @@ def spawn(world: int, cases: list) -> list:
             with open(os.path.join(d, f"rank{rank}.pkl"), "rb") as f:
                 out.append(pickle.load(f))
     return out
+
+
+def pipeline_result(arch: str, shape: tuple, tree: dict, batch: dict, microbatches: int) -> dict:
+    """``train.pipeline.make_pp_loss_for_mesh`` of the smoke config ``arch``
+    on a ``("pod", "data")`` mesh of ``shape`` over the group that is up:
+    the loss and every gradient's full tensor by path, for the weights of
+    the reference-layout numpy ``tree`` and the numpy ``batch``."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import convert
+    from repro_torch import sharding as shd
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train._tree import tree_paths, tree_unflatten
+    from repro_torch.train.pipeline import make_pp_loss_for_mesh
+
+    cfg = get_config(arch, smoke=True)
+    mesh = init_device_mesh("cpu", shape, mesh_dim_names=("pod", "data"))
+    params = M.param_tree(convert.params_from_jax(tree, cfg, "cpu"), cfg)
+    batch = {k: torch.from_numpy(np.asarray(v)) for k, v in batch.items()}
+    fn, (psh, bsh) = make_pp_loss_for_mesh(cfg, mesh, shd.ShardingPolicy(mesh, shd.TRAIN_RULES),
+                                           batch, microbatches=microbatches)
+    placed = shd.distribute_tree(params, psh)
+    leaves = [x.detach().requires_grad_(True) for _, x in tree_paths(placed)]
+    loss = fn(tree_unflatten(placed, leaves), shd.distribute_tree(batch, bsh))
+    grads = torch.autograd.grad(loss, leaves)
+    return dict(loss=float(loss.detach()),
+                grads={path: g.full_tensor().numpy() for (path, _), g in
+                       zip(tree_paths(placed), grads)})
+
+
+def _pipeline_worker(rank: int, world: int, store_path: str, out_dir: str, runs: list) -> None:
+    """:func:`pipeline_result` of each ``(name, args)`` of ``runs`` whose
+    mesh fits ``world`` ranks; rank 0 pickles them."""
+    import torch
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)  # the ranks share the machine's cores
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
+                            rank=rank, world_size=world)
+    try:
+        results = {name: pipeline_result(*args) for name, args in runs}
+        if rank == 0:
+            with open(os.path.join(out_dir, "pipeline.pkl"), "wb") as f:
+                pickle.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_pipeline(world: int, runs: list) -> dict:
+    """Run ``runs`` (``[(name, (arch, mesh shape, tree, batch,
+    microbatches))]``) on ``world`` gloo processes; rank 0's ``{name:
+    {"loss", "grads"}}``."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_pipeline_worker, args=(world, os.path.join(d, "store"), d, list(runs)),
+                 nprocs=world, join=True)
+        with open(os.path.join(d, "pipeline.pkl"), "rb") as f:
+            return pickle.load(f)
