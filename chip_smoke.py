@@ -34,11 +34,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
    dv from the forward kernel's output and row log-sum-exp) is held to
    ``flash_backward_ref`` by flash's three bounds, each of dq, dk and dv
    (elementwise FLASH_TOL, each row FLASH_ROW_RTOL, the whole tensor
-   FLASH_NORM_RTOL; exact zeros where no row sees a key), and timed at the
-   training shapes (smollm-135m's, qwen2-moe-a2.7b's 16 heads of 128 as
-   olmo-1b's, llava-next-mistral-7b's) beside its bound (2.5 times the
-   forward's operations; the bytes of q, k, v, o, dO, dq, dk, dv, L and Δ)
-   and the backward of ``scaled_dot_product_attention``.
+   FLASH_NORM_RTOL; exact zeros where no row sees a key, in bf16 and
+   float32), and timed at the training shapes (smollm-135m's, qwen2-moe-
+   a2.7b's 16 heads of 128 as olmo-1b's, llava-next-mistral-7b's) and at
+   whisper-medium's cross and self attention beside its bound (2.5 times
+   the forward's operations; the bytes of q, k, v, o, dO, dq, dk, dv, L
+   and Δ; for float32 also the tensor-core bound, 3 times the operations
+   at TF32's rate: 3xTF32) and the backward of
+   ``scaled_dot_product_attention``; first the library's instantiation per
+   head dim, in bf16 and float32, must equal ``bwd_geometry``'s, and its
+   workspace size ``bwd_workspace``'s at every shape.
 3. Main path: ``favorita_like(1684, 54, 4100, 0.05, seed=0)`` (18,641,880
    sales rows) through ``linear_regression`` v1 (BGD, V1_MAX_ITER steps)
    and closed form, both with the moments kernel, then one degree-1
@@ -245,7 +250,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
    through the kernels (flash and flash_bwd exactly 30 times each, counted
    from zero) against the same step through the plain
    ``chunked_attention`` on the card (checkpointed; no kernel launched):
-   loss 1e-6 relative, grad norm 1e-5, each leaf 1e-4 of its largest;
+   loss 1e-6 relative, grad norm 1e-5, each leaf 1e-4 of its largest, and
+   the same loss and gradients once more under the profiler (the device
+   alone): the device ms of flash_bwd's kernels and of flash's;
    then the config's bf16 at 4 × 4,096 tokens in 4 microbatches for 6
    steps through ``launch.train`` (flash and flash_bwd 720 times each):
    the mean loss of the last 3 steps below that of the first 3, step ms,
@@ -264,6 +271,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
    the run starts and ends; the state and batches DTensors under the train
    policy) for 3 steps at 8 × 128 against the same run without a mesh:
    losses, grad norms and every leaf of the final state within 1e-5.
+   Beside every phase, a second host subprocess that sees no card runs the
+   dry run on the production meshes (``MESH_CELLS``: smollm-135m at 2
+   layers, qwen2-moe-a2.7b at 1, xlstm-1.3b at 8, on fake groups of 256
+   and 512 ranks, this host's torch); after phase 13 every cell must be
+   ``ok``, each smollm cell on ``pod16x16`` within 1.1 times its data
+   shard's share of the unsharded FLOPs, and the smollm train step's peak
+   estimate within 24 GB (JSON line ``{"mesh_cells": ...}``).
 12. The MoE, Mamba and xLSTM mixers, after phase 11.  Leg 1: qwen2-moe-a2.7b
    at full width and depth (24 layers of attention + MoE, 60 experts top-4
    and the shared experts, bf16, seeded weights) behind the ``Engine``
@@ -366,6 +380,7 @@ SALES_FRACTION = 0.05  # the cut's share of (date, store, item) triples
 HBM_BYTES_PER_S = HW.hbm_bw  # H100 SXM, 3.35e12
 FP32_FLOPS = HW.peak_flops_fp32  # H100 SXM, off the tensor cores, 67e12
 BF16_FLOPS = HW.peak_flops_bf16  # H100 SXM, dense tensor cores, 989e12
+TF32_FLOPS = HW.peak_flops_tf32  # H100 SXM, dense tensor cores, 495e12
 # kernel vs plain: both sum in float32 in run-dependent orders (atomics);
 # the rounding error of a sum of n terms is ~sqrt(n)·2^-24·Σ|terms|, under
 # 1e-5 of the largest sum at the ≤ 10^4 terms per group these shapes have
@@ -938,14 +953,17 @@ BF16, F32 = torch.bfloat16, torch.float32
 # (what, B, Sq, Sk, H, KH, D, causal, window, kv_len, dtype, timed), kv_len
 # None meaning Sk; the first row is the serving path's prefill (the JSON
 # row), the others ride in "also"
-# the flash backward is timed at the training shapes alone: smollm-135m's,
-# qwen2-moe-a2.7b's (16 heads of 128, as olmo-1b's) and llava's (every shape
-# until phase 11's legs needed the smoke's time; all are checked)
-FLASH_BWD_TIMED = ("smollm-135m prefill", "olmo-1b heads", "llava-next-mistral-7b prefill")
+# the flash backward is timed at the training shapes and whisper's: smollm-
+# 135m's, qwen2-moe-a2.7b's (16 heads of 128, as olmo-1b's), llava's and
+# whisper-medium's cross and self attention (every shape until phase 11's
+# legs needed the smoke's time; all are checked)
+FLASH_BWD_TIMED = ("smollm-135m prefill", "olmo-1b heads", "llava-next-mistral-7b prefill",
+                   "whisper-medium cross attention", "whisper-medium self attention")
 FLASH_SHAPES = [
     ("smollm-135m prefill", 1, 4096, 4096, 9, 3, 64, True, None, None, BF16, True),
     ("smollm-135m prefill", 1, 4096, 4096, 9, 3, 64, True, None, None, F32, True),
     ("olmo-1b heads", 1, 4096, 4096, 16, 16, 128, True, None, None, BF16, True),
+    ("olmo-1b heads", 1, 4096, 4096, 16, 16, 128, True, None, None, F32, True),
     ("mixtral heads, window 1024", 1, 4096, 4096, 32, 8, 128, True, 1024, None, BF16, True),
     ("mixtral heads, window 1024", 1, 4096, 4096, 32, 8, 128, True, 1024, None, F32, False),
     ("non-causal ragged", 2, 1000, 3001, 8, 2, 64, False, None, None, BF16, True),
@@ -953,6 +971,7 @@ FLASH_SHAPES = [
     ("non-causal, kv_len 2,777 of 3,001", 2, 1000, 3001, 8, 2, 64, False, None, 2777, BF16, True),
     ("non-causal, kv_len 2,777 of 3,001", 2, 1000, 3001, 8, 2, 64, False, None, 2777, F32, False),
     ("non-causal, kv_len 0", 2, 1000, 3001, 8, 2, 64, False, None, 0, BF16, False),
+    ("non-causal, kv_len 0", 2, 1000, 3001, 8, 2, 64, False, None, 0, F32, False),
     ("causal 1,111 tokens, head dim 128", 1, 1111, 1111, 4, 1, 128, True, None, None, BF16, True),
     ("causal 1,111 tokens, head dim 128", 1, 1111, 1111, 4, 1, 128, True, None, None, F32, False),
     ("head dim 8", 1, 300, 300, 2, 1, 8, True, None, None, BF16, False),
@@ -1101,12 +1120,19 @@ def flash_bwd_rows(ref, kflash, gen) -> dict:
     ``also``.  First the bf16 backward's instantiation the library reports
     for every head dim must be the one ``kernels/flash.py`` mirrors
     (``bwd_geometry``, which the CPU tests check)."""
-    for d in range(8, 257, 8):
-        got, want = kflash.kernel_bwd_geometry(d), kflash.bwd_geometry(d)
+    for dt in (BF16, F32):
+        for d in range(8, 257, 8):
+            got, want = kflash.kernel_bwd_geometry(d, dt), kflash.bwd_geometry(d, dt)
+            if got != want:
+                raise AssertionError(f"flash_bwd {dt} geometry at head dim {d}: {got} != {want}")
+        log(f"{'flash_bwd':15s} {str(dt).split('.')[-1]} geometry of head dims 8-256 as "
+            f"mirrored: {sorted({tuple(kflash.bwd_geometry(d, dt).values()) for d in (16, 32, 64, 128, 256)})}")
+    for shape in FLASH_SHAPES:
+        _, b, sq, sk, h, kh, d, *_, dt, _ = shape
+        got, want = (kflash.kernel_bwd_workspace(dt, b, sq, sk, h, kh, d),
+                     kflash.bwd_workspace(dt, b, sq, sk, h, kh, d))
         if got != want:
-            raise AssertionError(f"flash_bwd geometry at head dim {d}: {got} != {want}")
-    log(f"{'flash_bwd':15s} bf16 geometry of head dims 8-256 as mirrored: "
-        f"{sorted({tuple(kflash.bwd_geometry(d).values()) for d in (16, 32, 64, 128, 256)})}")
+            raise AssertionError(f"flash_bwd workspace at {shape}: {got} != {want} floats")
     out = [flash_bwd_case(ref, kflash, gen, shape) for shape in FLASH_SHAPES]
     return dict(
         name="flash_bwd", route="cuda", source="src/repro_torch/csrc/flash_bwd.cu",
@@ -1181,8 +1207,14 @@ def flash_bwd_case(ref, kflash, gen, shape) -> dict:
                    bound_ms=bnd, bound_by=by, library_ms=time_ms(lib),
                    ms_back_to_back=time_ms_back_to_back(kern, launches=5))
         row["pct_of_bound"] = 100 * bnd / row["ms"]
+        tc = ""
+        if dt == F32:  # 3xTF32 runs each product three times on the tensor cores
+            row["tensor_core_bound_ms"], row["tensor_core_bound_by"] = bound_ms(
+                nbytes, 3 * flops, TF32_FLOPS)
+            tc = (f" tensor_core_bound_ms={row['tensor_core_bound_ms']:.4f} "
+                  f"({row['tensor_core_bound_by']}, 3x the operations at TF32)")
         log(f"{'flash_bwd':15s} {name:34s} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-            f"bound_ms={bnd:.4f} ({by}, {row['pct_of_bound']:.2f} %) "
+            f"bound_ms={bnd:.4f} ({by}, {row['pct_of_bound']:.2f} %){tc} "
             f"library_ms={row['library_ms']:.4f} (SDPA backward); back to back "
             f"{row['ms_back_to_back']:.4f}")
         del lib
@@ -4037,7 +4069,23 @@ def long_step_leg(tr) -> dict:
     if not (loss_err <= LONG_LOSS_RTOL and norm_err <= LONG_NORM_RTOL
             and leaf_err <= LONG_LEAF_RTOL):
         raise AssertionError(f"1 x 4,096 step: kernels and plain path disagree: {row}")
-    del state, grads, pgrads
+    del grads, pgrads
+    # the same loss and gradients once more, the device traced alone: the
+    # device ms of flash_bwd's kernels and of flash's in the float32 step
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        tree_grads(tr, cfg, state.params, batch)
+        torch.cuda.synchronize()
+    ops = device_ops(prof)
+    row.update(device_busy_ms=sum(us for _, us in ops) / 1e3,
+               flash_bwd_device_ms=sum(us for n, us in ops if _BWD_KERNELS.search(n)) / 1e3,
+               flash_device_ms=sum(us for n, us in ops if _FWD_KERNELS.search(n)) / 1e3)
+    log(f"1 x 4,096 float32 step, profiled: device busy {row['device_busy_ms']:.1f} ms, "
+        f"flash_bwd {row['flash_bwd_device_ms']:.1f} ms, flash {row['flash_device_ms']:.1f} ms "
+        f"on the device")
+    if not row["flash_bwd_device_ms"] > 0:
+        raise AssertionError("1 x 4,096 float32 step: no flash_bwd kernel in the profile")
+    del state
     return row
 
 
@@ -4097,6 +4145,97 @@ def start_dryrun() -> types.SimpleNamespace:
     return job
 
 
+# the sharded program on the production meshes (tests/test_torch_dryrun_cells.py's
+# cells, on this host's torch): name -> (arch, shape, multi-pod, config
+# overrides, count the unsharded program too); xlstm's train cell runs its
+# microbatch loop once (the sLSTM's 4,096 steps on meta tensors take most
+# of a minute a pass)
+MESH_CELLS = {
+    "smollm-135m train_4k pod16x16": ("smollm-135m", "train_4k", False, {"n_layers": 2}, True),
+    "smollm-135m prefill_32k pod16x16": ("smollm-135m", "prefill_32k", False,
+                                         {"n_layers": 2}, True),
+    "smollm-135m decode_32k pod16x16": ("smollm-135m", "decode_32k", False,
+                                        {"n_layers": 2}, True),
+    "smollm-135m decode_32k pod2x16x16": ("smollm-135m", "decode_32k", True,
+                                          {"n_layers": 2}, False),
+    "qwen2-moe-a2.7b train_4k pod16x16": ("qwen2-moe-a2.7b", "train_4k", False,
+                                          {"n_layers": 1}, False),
+    "xlstm-1.3b decode_32k pod16x16": ("xlstm-1.3b", "decode_32k", False, {"n_layers": 8},
+                                       False),
+    "xlstm-1.3b train_4k pod16x16": ("xlstm-1.3b", "train_4k", False,
+                                     {"n_layers": 8, "microbatches": 1}, False),
+}
+MESH_FLOPS_SLACK = 1.1  # a smollm device on pod16x16: at most 1.1 x its data shard's share
+MESH_TRAIN_PEAK = 24e9  # the smollm train step's estimate of a rank's peak, bytes
+_MESH_SCRIPT = r"""
+import json, sys
+from repro_torch.launch import dryrun
+out = {}
+for name, (arch, shape, multi_pod, cfg, cost) in json.loads(sys.argv[1]).items():
+    rec = dryrun.run_cell(arch, shape, multi_pod=multi_pod, verbose=False, cfg_overrides=cfg,
+                          cost_pass=cost, flops_scope="per_shard")
+    out[name] = {k: rec.get(k) for k in ("status", "error", "mesh", "memory", "cost",
+                                         "lower_s", "compile_s")}
+    print(name, rec["status"], flush=True)
+with open(sys.argv[2], "w") as f:
+    json.dump(out, f)
+"""
+
+
+def start_mesh_cells() -> types.SimpleNamespace:
+    """Start the dry run of ``MESH_CELLS`` (fake process groups of 256 and 512
+    ranks, meta tensors) in a host subprocess that sees no card; it runs
+    beside the phases, and :func:`mesh_cells` waits for it."""
+    out = Path(tempfile.mkdtemp(prefix=".smoke-mesh-", dir=ROOT))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    with open(out / "log.txt", "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _MESH_SCRIPT, json.dumps(MESH_CELLS), str(out / "cells.json")],
+            stdout=f, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+    job = types.SimpleNamespace(proc=proc, out=out, t0=time.perf_counter())
+    atexit.register(stop_dryrun, job)
+    return job
+
+
+def mesh_cells(job) -> dict:
+    """The records of :func:`start_mesh_cells`: every cell ``ok``, each
+    smollm-135m cell on ``pod16x16`` at most MESH_FLOPS_SLACK times its data
+    shard's share of the unsharded program, and the smollm train step's
+    peak estimate at most MESH_TRAIN_PEAK; raises otherwise."""
+    t = time.perf_counter()
+    try:
+        rc = job.proc.wait(timeout=900)
+        waited = time.perf_counter() - t
+        path = job.out / "cells.json"
+        if rc != 0 or not path.exists():
+            raise AssertionError(f"mesh cells: rc {rc}: "
+                                 f"{(job.out / 'log.txt').read_text()[-3000:]}")
+        recs = json.loads(path.read_text())
+    finally:
+        stop_dryrun(job)
+    out = dict(torch=torch.__version__, waited_s=waited, cells={})
+    for name, rec in recs.items():
+        if rec["status"] != "ok":
+            raise AssertionError(f"mesh cell {name}: {rec['status']}: {rec.get('error')}")
+        cost, mem = rec["cost"], rec["memory"]
+        row = dict(flops=cost["flops"], peak_bytes=mem["peak_bytes"],
+                   argument_bytes=mem["argument_size_in_bytes"],
+                   count_s=rec["compile_s"])
+        if name.startswith("smollm-135m") and name.endswith(" pod16x16"):
+            row["flops_unsharded"] = cost["flops_unsharded"]
+            row["share"] = cost["flops"] / (cost["flops_unsharded"] / 16)
+            if row["share"] > MESH_FLOPS_SLACK:
+                raise AssertionError(f"mesh cell {name}: {row['share']:.3f} x its share")
+        if name == "smollm-135m train_4k pod16x16" and mem["peak_bytes"] > MESH_TRAIN_PEAK:
+            raise AssertionError(f"mesh cell {name}: peak {mem['peak_bytes']:.0f} B")
+        out["cells"][name] = row
+        log(f"mesh cell {name}: ok, flops/device {cost['flops']:.4e}"
+            + (f" ({row['share']:.3f} x its data shard's share)" if "share" in row else "")
+            + f", peak {mem['peak_bytes'] / 1e9:.2f} GB, counted in {rec['compile_s']:.1f}s")
+    log(f"mesh cells on torch {torch.__version__}: all ok within bounds (waited {waited:.1f}s)")
+    return out
+
+
 def stop_dryrun(job) -> None:
     if job.proc.poll() is None:
         job.proc.kill()
@@ -4143,7 +4282,8 @@ def dryrun_estimate(job, step_ms: float, peak: int) -> dict:
 # the wgmma kernel, its pre-pass and finish pass (bf16), or the scalar ones;
 # the forward's apart
 _BWD_KERNELS = re.compile(r"(?:::|\d)(?:bwd_bf16_kernel|rows_kernel|finish_kernel|dkdv_kernel|"
-                          r"dq_kernel|delta_kernel)(?:<|\(|I|E)")
+                          r"dq_kernel|delta_kernel|dkdv_tf32_kernel|dq_tf32_kernel|"
+                          r"split_kernel)(?:<|\(|I|E)")
 _FWD_KERNELS = re.compile(r"(?:::|\d)(?:flash_bf16_kernel|flash_f32_kernel)(?:<|\(|I|E)")
 
 
@@ -5088,6 +5228,7 @@ def main() -> None:
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     dry = start_dryrun()  # phase 11's dry run, on the host beside phases 1-11
+    cells = start_mesh_cells()  # the production meshes, on the host beside every phase
     log("phase 1: build")
     seconds = _build.build()
     log(f"build seconds: {seconds:.2f}")
@@ -5215,7 +5356,11 @@ def main() -> None:
     rows["flash"]["launches_by_phase"] = dict(phase7=launches7, phase11=launches11["flash"],
                                               phase12=launches12, phase13=launches13)
 
+    log("the sharded program on the production meshes (dry run, this host's torch)")
+    meshes = mesh_cells(cells)
+
     print(json.dumps({"phase8": glm_poly}))
+    print(json.dumps({"mesh_cells": meshes}))
     print(json.dumps({"service": service}))
     print(json.dumps({"distribution": distribution}))
     print(json.dumps({"training": training}))

@@ -23,9 +23,8 @@
 // What bounds it on an H100.  Five matrix products of 2·D flops per
 // visible (query, key) pair against reading q, k, v, o, dO, L and writing
 // dq, dk, dv once: hundreds of flops per byte at thousands of keys, so the
-// tensor cores bound it (989 TFLOP/s bf16).  Scalar float32 FMAs reach 67
-// TFLOP/s at best: a bf16 backward has to run its products on wgmma, and
-// run each once.
+// tensor cores bound it (989 TFLOP/s bf16, 495 TF32).  Scalar float32 FMAs
+// reach 67 TFLOP/s at best: both types run their products on wgmma.
 //
 // bf16 at DP <= 128 (two warpgroups, 256 threads; the Hopper helpers are
 // hopper.cuh's, shared with flash.cu):
@@ -71,8 +70,48 @@
 //    CPU tests; flash_bwd_geometry reports it.  Design choices measured
 //    with tools/flash_bwd_variants.py are in PERF.md (Findings, PR 26).
 //
-// float32 (every width), and bf16 at DP = 256: scalar kernels, blocks of
-// 256 threads on 32 x 32 (query, key) tiles
+// float32 at DP <= 128: 3xTF32 on wgmma (Tf32Geometry, mirrored in
+// kernels/flash.py's bwd_geometry; flash_bwd_f32_geometry reports it).
+// Scalar float32 FMAs reach 67 TFLOP/s; plain TF32 keeps 10 mantissa bits
+// (about 1e-3), short of float32.  Each operand x is split into hi =
+// tf32(x) and lo = tf32(x - hi), and a·b is taken as hi·hi + hi·lo + lo·hi
+// in float32 accumulators: about 2^-21 relative, three tensor-core products
+// for one (bound: 3x the operations at 495 TFLOP/s).
+//  * The TF32 wgmma reads both operands K-major only: its transpose
+//    immediates exist for 16-bit types alone.  Three of the five products
+//    contract over the sequence (dV = Pᵀ dO, dK = dSᵀ Q, dQ = dS K) and
+//    read Q, dO or K along their non-contiguous dimension, so a pre-pass
+//    (split_kernel) writes, beside the natural hi / lo planes [B·heads, S,
+//    d] of Q, dO, K and V, transposed ones [B·heads, d, S8] of Q, dO and K,
+//    and TMA feeds both kinds in 128-byte-swizzled panels of 32 float32
+//    columns (64-byte at DP = 16).  Pᵀ, dSᵀ and dS are the register A
+//    operand of those products: a thread's accumulator columns (2t4,
+//    2t4 + 1) enter a TF32 A fragment as k = t4 and t4 + 4, so the
+//    transposed planes hold the sequence permuted within each 8 to match.
+//  * hi and lo double every tile: one kernel that held K, V and Kᵀ and
+//    staged Q, dO, Qᵀ and dOᵀ would need 256 KiB at DP = 64 and 480 at 128,
+//    over the 227 a block has.  So the work is split in two kernels of one
+//    warpgroup (128 threads) each, S and dP formed in both (seven products
+//    for five): dkdv_tf32_kernel, a block per (batch, KV head, 64 keys),
+//    holds K and V and walks the group's query heads' tiles (Sᵀ = K Qᵀ,
+//    dPᵀ = V dOᵀ, dV += Pᵀ dO, dK += dSᵀ Q; no atomics, GQA summed in its
+//    registers); dq_tf32_kernel, a block per (batch, head, 64 queries),
+//    holds Q and dO and walks the forward's key tiles (S = Q Kᵀ, dP = dO
+//    Vᵀ, dQ += dS K).  A stage's natural and transposed tiles ride two
+//    barriers, so the next natural tile loads during this stage's
+//    sequence products and the next transposed one during the next
+//    stage's products over D.  Stages: 64 queries (dK/dV) and 64 keys (dQ)
+//    at DP <= 64; 16 and 32 at DP = 128, where the resident tiles take 128
+//    KiB.  Every gradient is stored once, float32: no accumulator and no
+//    finish pass; the workspace (rows and planes, flash_bwd_workspace) is
+//    written in full before it is read.
+//  * The tensor cores' accumulation rounds toward zero: summed in them over
+//    every stage, dK drifted by about 1e-4 of its norm at 4,096 tokens and
+//    three heads, so each stage's sequence products go into a fresh
+//    accumulator that is added to the running sum in float32.
+//
+// float32 and bf16 at DP = 256: scalar kernels, blocks of 256 threads on
+// 32 x 32 (query, key) tiles
 // staged in shared memory as float32 (rows padded by 4 floats, so the
 // float4 reads of eight neighbouring rows fall in distinct banks); each
 // tile forms S and dO Vᵀ (a thread 4 scores of one row), then P and dS
@@ -85,11 +124,10 @@
 //    registers and walks the key tiles the forward walks (key_tiles), the
 //    latest query tiles first (the longest causal rows).
 //  * delta_kernel: one warp per (batch, query, head) row.
-// float32 stays off the tensor cores (TF32 would not hold float32
-// accuracy).  At DP = 256, dK and dV of 64 keys would be 256 float32
-// registers a thread, over the 255 a thread can have; splitting them
-// across warpgroups is later work (ROADMAP queue 2), so that width keeps
-// the scalar kernels, chosen at compile time by width.
+// At DP = 256, dK and dV of 64 keys would be 256 float32 registers a
+// thread, over the 255 a thread can have; splitting them across
+// warpgroups is later work (ROADMAP queue 2), so that width keeps the
+// scalar kernels in both types (no config of configs/ has it).
 
 #include <math.h>
 
@@ -455,6 +493,7 @@ __device__ __forceinline__ bool tile_interior(const Args& a, int r0, int rows,
 // Δ = rowsum(dO ∘ O) and L·log2 e (+inf for a row that sees no key, and
 // for the padding rows past Sq, so that their P is 0) into the workspace's
 // [B, H, padded_rows(Sq)] rows; one warp a (batch, query, head) row
+template <typename T>
 __global__ void __launch_bounds__(kThreads) rows_kernel(Args a) {
   const int sq_pad = padded_rows(a.sq);
   const int64_t row = (int64_t)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
@@ -466,8 +505,8 @@ __global__ void __launch_bounds__(kThreads) rows_kernel(Args a) {
   float s = 0.f;
   if (qi < a.sq) {
     const int64_t off = (((int64_t)batch * a.sq + qi) * a.h + head) * a.d;
-    const __nv_bfloat16* o = static_cast<const __nv_bfloat16*>(a.o) + off;
-    const __nv_bfloat16* g = static_cast<const __nv_bfloat16*>(a.dout) + off;
+    const T* o = static_cast<const T*>(a.o) + off;
+    const T* g = static_cast<const T*>(a.dout) + off;
     for (int c = lane * 4; c < a.d; c += 128)
       s = dot4(load4(o + c), load4(g + c), s);
   }
@@ -843,6 +882,546 @@ __global__ void __launch_bounds__(kThreads) finish_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// float32 at DP <= 128: 3xTF32 wgmma on TMA-fed tiles, one warpgroup a block
+// ---------------------------------------------------------------------------
+
+constexpr int kThreadsTf32 = 128;
+constexpr int kRowsTf32 = 64;  // keys of a dK/dV block, queries of a dQ block
+
+// the float32 instantiation for padded width DP; flash_bwd_f32_geometry
+// reports it
+template <int DP>
+struct Tf32Geometry {
+  static constexpr int kPanel = DP < 32 ? DP : 32;  // floats a natural panel row
+  static constexpr int kSwizzle = kPanel * 4;       // bytes a panel row
+  // queries a dK/dV stage, keys a dQ stage: at DP = 128 the resident
+  // 64-row hi and lo tiles take 128 KiB, and the stages what is left
+  static constexpr int kBQ = DP >= 128 ? 16 : 64;
+  static constexpr int kBK = DP >= 128 ? 32 : 64;
+  static constexpr int kPanelQ = kBQ < 32 ? kBQ : 32;  // a transposed Q panel
+  static constexpr int kPanelK = kBK < 32 ? kBK : 32;  // a transposed K panel
+  static constexpr int kTile = kRowsTf32 * DP * 4;  // one resident hi or lo tile
+  static constexpr int kQTile = kBQ * DP * 4;       // one dK/dV stage tile
+  static constexpr int kKTile = kBK * DP * 4;       // one dQ stage tile
+  // + 1024: the base rounded up to the 1 KiB swizzle repeat; then the
+  // resident K, V (Q, dO) hi and lo, the stage's natural and transposed
+  // hi and lo tiles, the L·log2 e and Δ rows, three mbarriers
+  static constexpr int kSmemDkdv =
+      1024 + 4 * kTile + 8 * kQTile + 2 * kBQ * 4 + 3 * 8;
+  static constexpr int kSmemDq =
+      1024 + 4 * kTile + 2 * kRowsTf32 * 4 + 6 * kKTile + 3 * 8;
+  static_assert(kSmemDkdv <= 232448 && kSmemDq <= 232448,
+                "over the block's shared memory");
+  static_assert(DP % kPanel == 0 && kBQ % kPanelQ == 0 && kBK % kPanelK == 0,
+                "tile shape");
+};
+
+// the workspace of the float32 path, in floats: L·log2 e and Δ rows
+// (rows_kernel), then the 3xTF32 planes, [0] hi and [1] lo: natural
+// [B·heads, S, d] of Q, dO, K, V and transposed [B·heads, d, S8] of Q, dO,
+// K (split_kernel)
+struct Tf32Planes {
+  float *qn[2], *qt[2], *on[2], *ot[2], *kn[2], *kt[2], *vn[2];
+};
+
+__host__ __device__ __forceinline__ int round8(int s) { return (s + 7) / 8 * 8; }
+
+__host__ __forceinline__ long long tf32_floats(int b, int sq, int sk, int h,
+                                               int kh, int d) {
+  const long long nq = (long long)b * h * sq * d, nqt = (long long)b * h * d * round8(sq);
+  const long long nk = (long long)b * kh * sk * d, nkt = (long long)b * kh * d * round8(sk);
+  return 2LL * b * h * padded_rows(sq) + 4 * (nq + nqt) + 2 * (nk + nkt) + 2 * nk;
+}
+
+__host__ __forceinline__ Tf32Planes tf32_planes(const Args& a) {
+  const long long nq = (long long)a.b * a.h * a.sq * a.d;
+  const long long nqt = (long long)a.b * a.h * a.d * round8(a.sq);
+  const long long nk = (long long)a.b * a.kh * a.sk * a.d;
+  const long long nkt = (long long)a.b * a.kh * a.d * round8(a.sk);
+  float* p = a.work + 2LL * a.b * a.h * padded_rows(a.sq);
+  Tf32Planes t;
+  for (int i = 0; i < 2; ++i) { t.qn[i] = p; p += nq; }
+  for (int i = 0; i < 2; ++i) { t.qt[i] = p; p += nqt; }
+  for (int i = 0; i < 2; ++i) { t.on[i] = p; p += nq; }
+  for (int i = 0; i < 2; ++i) { t.ot[i] = p; p += nqt; }
+  for (int i = 0; i < 2; ++i) { t.kn[i] = p; p += nk; }
+  for (int i = 0; i < 2; ++i) { t.kt[i] = p; p += nkt; }
+  for (int i = 0; i < 2; ++i) { t.vn[i] = p; p += nk; }
+  return t;
+}
+
+// x [B, S, heads, d] float32 into its 3xTF32 planes: natural hi / lo
+// [B·heads, S, d] and, where t_hi is given, transposed hi / lo [B·heads, d,
+// S8] (S8 = S rounded up to 8), zeros past S.  The transposed planes hold
+// the sequence permuted within each 8: position 8u + k holds element
+// 8u + 2k for k < 4 and 8u + 2k - 7 for k >= 4, the order in which a
+// thread's accumulator columns (2t4, 2t4 + 1) enter a TF32 A fragment as
+// k = t4 and t4 + 4 (see frags).  One block a 32 x 32 tile of one matrix.
+__global__ void __launch_bounds__(256)
+    split_kernel(const float* x, int seq, int heads, int d, float* n_hi,
+                 float* n_lo, float* t_hi, float* t_lo) {
+  __shared__ float hi_s[32][33], lo_s[32][33];
+  const int mat = blockIdx.z, batch = mat / heads, head = mat % heads;
+  const int s0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int r = ty; r < 32; r += 8) {
+    const int s = s0 + r, c = c0 + tx;
+    const bool in = s < seq && c < d;
+    const float val =
+        in ? x[(((int64_t)batch * seq + s) * heads + head) * d + c] : 0.f;
+    uint32_t hi, lo;
+    split_tf32(val, hi, lo);
+    if (in) {
+      const int64_t at = ((int64_t)mat * seq + s) * d + c;
+      n_hi[at] = __uint_as_float(hi);
+      n_lo[at] = __uint_as_float(lo);
+    }
+    hi_s[r][tx] = __uint_as_float(hi);
+    lo_s[r][tx] = __uint_as_float(lo);
+  }
+  if (t_hi == nullptr) return;
+  __syncthreads();
+  const int seq8 = round8(seq);
+  for (int r = ty; r < 32; r += 8) {
+    const int c = c0 + r, pos = s0 + tx;
+    if (c >= d || pos >= seq8) continue;
+    const int k = pos & 7;
+    const int src = (pos & ~7) + (k < 4 ? 2 * k : 2 * k - 7) - s0;
+    const int64_t at = ((int64_t)mat * d + c) * seq8 + pos;
+    t_hi[at] = hi_s[src][r];
+    t_lo[at] = lo_s[src][r];
+  }
+}
+
+// [0] hi, [1] lo of every operand a kernel reads by TMA
+struct DkdvMaps {
+  CUtensorMap k[2], v[2], q[2], o[2], qt[2], ot[2];  // o: dO
+};
+struct DqMaps {
+  CUtensorMap q[2], o[2], k[2], v[2], kt[2];
+};
+
+// The 3xTF32 products on wgmma, one warpgroup.  Accumulator element
+// 4j + 2rr + e of a 64 x N tile is row (warp·16 + g + 8rr), column
+// 8j + 2t4 + e (g = lane / 4, t4 = lane % 4).
+template <int DP>
+struct Tf32Ops {
+  using G = Tf32Geometry<DP>;
+  static constexpr int kP = G::kPanel, kSw = G::kSwizzle;
+
+  // acc (=)+= A Bᵀ over the head dim: A a resident natural 64-row tile
+  // (hi at a_s, lo at a_s + kTile), B a natural tile of N rows (hi at b_s,
+  // lo b_s + b_tile); both K-major along D, panels of kP columns (issued,
+  // not waited).  The first product of the first k-step overwrites acc.
+  template <int N>
+  __device__ __forceinline__ static void issue_d(float (&acc)[N / 2],
+                                                 uint32_t a_s, uint32_t b_s,
+                                                 int b_tile) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      const int p = kk * 8 / kP, col = (kk * 8 % kP) * 4;
+      const uint32_t a = a_s + p * kRowsTf32 * kSw + col;
+      const uint32_t b = b_s + p * N * kSw + col;
+      const uint64_t ah = smem_desc<kSw>(a, 1), al = smem_desc<kSw>(a + G::kTile, 1);
+      const uint64_t bh = smem_desc<kSw>(b, 1), bl = smem_desc<kSw>(b + b_tile, 1);
+      WgmmaTf32SS<N>::run(acc, al, bh, kk > 0);
+      WgmmaTf32SS<N>::run(acc, ah, bl, 1);
+      WgmmaTf32SS<N>::run(acc, ah, bh, 1);
+    }
+  }
+
+  // A fragments (hi, lo) of a 64 x 8J accumulator tile t: k-step j takes
+  // the thread's columns 8j + 2t4 and 8j + 2t4 + 1 of rows g and g + 8 as
+  // k = t4 and t4 + 4, the order the transposed planes hold
+  template <int J>
+  __device__ __forceinline__ static void frags(const float (&t)[4 * J],
+                                               uint32_t (&hi)[J][4],
+                                               uint32_t (&lo)[J][4]) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      split_tf32(t[4 * j], hi[j][0], lo[j][0]);
+      split_tf32(t[4 * j + 2], hi[j][1], lo[j][1]);
+      split_tf32(t[4 * j + 1], hi[j][2], lo[j][2]);
+      split_tf32(t[4 * j + 3], hi[j][3], lo[j][3]);
+    }
+  }
+
+  // acc[64 x DP] += A B, waited: A the fragments (64 rows x 8J of a
+  // sequence), B a transposed stage tile [DP rows x 8J] (hi at b_s, lo at
+  // b_s + b_tile), K-major along the sequence in panels of PT columns.  The
+  // products of a stage go into a fresh accumulator, 64 columns at a time,
+  // that is then added to acc in float32: the tensor cores' accumulation
+  // rounds toward zero, so summing every stage in them would drift with
+  // the sequence's length (about 1e-4 of dK at 4,096 tokens and 3 heads)
+  template <int J, int PT>
+  __device__ __forceinline__ static void add_s(float (&acc)[DP / 2],
+                                               uint32_t (&hi)[J][4],
+                                               uint32_t (&lo)[J][4],
+                                               uint32_t b_s, int b_tile) {
+    constexpr int kSwT = PT * 4, kN = DP < 64 ? DP : 64;
+#pragma unroll
+    for (int c = 0; c < DP / kN; ++c) {
+      float part[kN / 2];
+      fence_regs(hi);
+      fence_regs(lo);
+      wg_fence();
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const uint32_t b =
+            b_s + (j * 8 / PT) * DP * kSwT + (j * 8 % PT) * 4 + c * kN * kSwT;
+        const uint64_t bh = smem_desc<kSwT>(b, 1), bl = smem_desc<kSwT>(b + b_tile, 1);
+        WgmmaTf32RS<kN>::run(part, lo[j], bh, j > 0);
+        WgmmaTf32RS<kN>::run(part, hi[j], bl, 1);
+        WgmmaTf32RS<kN>::run(part, hi[j], bh, 1);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(part);
+      fence_regs(hi);
+      fence_regs(lo);
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) acc[c * kN / 2 + i] += part[i];
+    }
+  }
+};
+
+// dK and dV of 64 keys of one KV head: the block walks every query tile
+// that sees them, for each of the group's query heads, so the GQA sum
+// stays in its registers.  Per stage: Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, Pᵀ and
+// dSᵀ on the fragments, dV += Pᵀ dO and dK += dSᵀ Q with Pᵀ, dSᵀ as the
+// register A operand and dO, Q read from their transposed planes.
+template <int DP>
+__global__ void __launch_bounds__(kThreadsTf32, 1)
+    dkdv_tf32_kernel(const __grid_constant__ DkdvMaps maps, Args a) {
+  using G = Tf32Geometry<DP>;
+  using O = Tf32Ops<DP>;
+  constexpr int kP = G::kPanel, kSw = G::kSwizzle, kBQ = G::kBQ;
+  constexpr int kPT = G::kPanelQ;
+  extern __shared__ unsigned char smem[];
+  // K hi, lo, V hi, lo; the stage's Q hi, lo, dO hi, lo; its Qᵀ hi, lo,
+  // dOᵀ hi, lo; its L·log2 e and Δ rows; the K/V, natural and transposed
+  // barriers
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  unsigned char* const gbase = smem + (base - smem_u32(smem));
+  const uint32_t kv_s = base;
+  const uint32_t nat_s = kv_s + 4 * G::kTile;
+  const uint32_t tr_s = nat_s + 4 * G::kQTile;
+  const uint32_t rows_s = tr_s + 4 * G::kQTile;
+  const uint32_t kv_bar = rows_s + 2 * kBQ * 4, nat_bar = kv_bar + 8,
+                 tr_bar = kv_bar + 16;
+  const float* const rows = reinterpret_cast<const float*>(gbase + (rows_s - base));
+
+  const int kv_head = blockIdx.x % a.kh, batch = blockIdx.x / a.kh;
+  const int k0 = blockIdx.y * kRowsTf32;
+  const int group = a.h / a.kh;
+  const int sq_pad = padded_rows(a.sq);
+  int first, last;
+  query_tiles(a, k0, kRowsTf32, kBQ, &first, &last);
+  const int per_head = last - first, n = per_head * group;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_bar, 1);
+    mbar_init(nat_bar, 1);
+    mbar_init(tr_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // stage i: query tile first + i % per_head of the group's head i / per_head
+  auto load_nat = [&](int i) {
+    const int mat = batch * a.h + kv_head * group + i / per_head;
+    const int q0 = (first + i % per_head) * kBQ;
+    mbar_expect_tx(nat_bar, 4 * G::kQTile);
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int p = 0; p < DP / kP; ++p) {
+        const uint32_t off = t * G::kQTile + p * kBQ * kSw;
+        tma_load3(nat_s + off, &maps.q[t], nat_bar, p * kP, q0, mat);
+        tma_load3(nat_s + 2 * G::kQTile + off, &maps.o[t], nat_bar, p * kP, q0, mat);
+      }
+  };
+  auto load_tr = [&](int i) {
+    const int mat = batch * a.h + kv_head * group + i / per_head;
+    const int q0 = (first + i % per_head) * kBQ;
+    mbar_expect_tx(tr_bar, 4 * G::kQTile + 2 * kBQ * 4);
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int p = 0; p < kBQ / kPT; ++p) {
+        const uint32_t off = t * G::kQTile + p * DP * kPT * 4;
+        tma_load3(tr_s + off, &maps.qt[t], tr_bar, q0 + p * kPT, 0, mat);
+        tma_load3(tr_s + 2 * G::kQTile + off, &maps.ot[t], tr_bar, q0 + p * kPT, 0, mat);
+      }
+    const float* l = a.work + (int64_t)mat * sq_pad + q0;
+    bulk_load(rows_s, l, tr_bar, kBQ * 4);
+    bulk_load(rows_s + kBQ * 4, l + (int64_t)a.b * a.h * sq_pad, tr_bar, kBQ * 4);
+  };
+  if (threadIdx.x == 0 && n > 0) {
+    const int mat = batch * a.kh + kv_head;
+    mbar_expect_tx(kv_bar, 4 * G::kTile);
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int p = 0; p < DP / kP; ++p) {
+        const uint32_t off = t * G::kTile + p * kRowsTf32 * kSw;
+        tma_load3(kv_s + off, &maps.k[t], kv_bar, p * kP, k0, mat);
+        tma_load3(kv_s + 2 * G::kTile + off, &maps.v[t], kv_bar, p * kP, k0, mat);
+      }
+    load_nat(0);
+    load_tr(0);
+  }
+  __syncwarp();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int key0 = k0 + warp * 16 + g;  // this thread's keys: key0, key0 + 8
+  const float scale2 = a.scale * kLog2e;
+  float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  if (n > 0) mbar_wait(kv_bar, 0);
+  for (int i = 0; i < n; ++i) {
+    const int q0 = (first + i % per_head) * kBQ;
+    float st[kBQ / 2], dp[kBQ / 2];
+    mbar_wait(nat_bar, i & 1);
+    wg_fence();
+    O::template issue_d<kBQ>(st, kv_s, nat_s, G::kQTile);                    // Sᵀ
+    O::template issue_d<kBQ>(dp, kv_s + 2 * G::kTile, nat_s + 2 * G::kQTile,  // dPᵀ
+                             G::kQTile);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(st);
+    fence_regs(dp);
+    __syncthreads();  // every warp's products have read the natural stage
+    if (threadIdx.x == 0 && i + 1 < n) load_nat(i + 1);
+
+    // Pᵀ into st, dSᵀ = Pᵀ ∘ (dPᵀ - Δ) into dp, masked where the tile
+    // straddles an edge (a row past Sq, or one that sees no key, has
+    // L·log2 e = +inf, so its p is 0)
+    mbar_wait(tr_bar, i & 1);
+    const bool interior = tile_interior(a, q0, kBQ, k0, kRowsTf32);
+#pragma unroll
+    for (int j = 0; j < kBQ / 8; ++j) {
+      const int c = j * 8 + t4 * 2;
+      const float2 l2 = *reinterpret_cast<const float2*>(rows + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(rows + kBQ + c);
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = j * 4 + rr * 2 + e;
+          float s = st[x];
+          if (!interior && !visible(a, q0 + c + e, key0 + 8 * rr)) s = -INFINITY;
+          const float p = exp2_ftz(fmaf(s, scale2, -(e ? l2.y : l2.x)));
+          st[x] = p;
+          dp[x] = p * (dp[x] - (e ? d2.y : d2.x));
+        }
+    }
+
+    {  // dV += Pᵀ dO
+      uint32_t hi[kBQ / 8][4], lo[kBQ / 8][4];
+      O::template frags<kBQ / 8>(st, hi, lo);
+      O::template add_s<kBQ / 8, kPT>(dv, hi, lo, tr_s + 2 * G::kQTile, G::kQTile);
+    }
+    {  // dK += dSᵀ Q
+      uint32_t hi[kBQ / 8][4], lo[kBQ / 8][4];
+      O::template frags<kBQ / 8>(dp, hi, lo);
+      O::template add_s<kBQ / 8, kPT>(dk, hi, lo, tr_s, G::kQTile);
+    }
+    __syncthreads();  // every warp's products have read the transposed stage
+    if (threadIdx.x == 0 && i + 1 < n) load_tr(i + 1);
+  }
+
+  // dK (scaled) and dV of the thread's keys, float32 (zeros for keys that
+  // no query sees)
+  const int64_t kv_stride = (int64_t)a.kh * a.d;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int key = key0 + 8 * rr;
+    if (key >= a.sk) continue;
+    const int64_t off = ((int64_t)batch * a.sk + key) * kv_stride + (int64_t)kv_head * a.d;
+    float* const dkg = static_cast<float*>(a.dk) + off;
+    float* const dvg = static_cast<float*>(a.dv) + off;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = j * 8 + t4 * 2, x = j * 4 + rr * 2;
+      if (col >= a.d) continue;
+      *reinterpret_cast<float2*>(dkg + col) =
+          make_float2(dk[x] * a.scale, dk[x + 1] * a.scale);
+      *reinterpret_cast<float2*>(dvg + col) = make_float2(dv[x], dv[x + 1]);
+    }
+  }
+}
+
+// dQ of 64 queries of one head: the block walks the key tiles the forward
+// walks.  Per stage: S = Q Kᵀ and dP = dO Vᵀ (S and dP again: a second
+// pass over the pairs, so that dQ needs no atomics and no stored dS), P and
+// dS on the fragments, dQ += dS K with dS as the register A operand and K
+// read from its transposed plane.
+template <int DP>
+__global__ void __launch_bounds__(kThreadsTf32, 1)
+    dq_tf32_kernel(const __grid_constant__ DqMaps maps, Args a) {
+  using G = Tf32Geometry<DP>;
+  using O = Tf32Ops<DP>;
+  constexpr int kP = G::kPanel, kSw = G::kSwizzle, kBK = G::kBK;
+  constexpr int kPT = G::kPanelK;
+  extern __shared__ unsigned char smem[];
+  // Q hi, lo, dO hi, lo; the queries' L·log2 e and Δ rows; the stage's K
+  // hi, lo, V hi, lo; its Kᵀ hi, lo; the resident, natural and transposed
+  // barriers
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  unsigned char* const gbase = smem + (base - smem_u32(smem));
+  const uint32_t q_s = base;
+  const uint32_t nat_s = q_s + 4 * G::kTile;
+  const uint32_t tr_s = nat_s + 4 * G::kKTile;
+  const uint32_t rows_s = tr_s + 2 * G::kKTile;
+  const uint32_t res_bar = rows_s + 2 * kRowsTf32 * 4, nat_bar = res_bar + 8,
+                 tr_bar = res_bar + 16;
+  const float* const rows = reinterpret_cast<const float*>(gbase + (rows_s - base));
+
+  const int head = blockIdx.x % a.h, batch = blockIdx.x / a.h;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRowsTf32;  // latest tiles first
+  const int kv_head = head / (a.h / a.kh);
+  const int sq_pad = padded_rows(a.sq);
+  // key tiles [first, last) that can hold a visible key (flash.cu's
+  // key_tiles)
+  int end = a.kv_len;
+  if (a.causal) end = min(end, min(q0 + kRowsTf32, a.sq));
+  const int begin = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  const int first = begin / kBK, last = end > begin ? (end + kBK - 1) / kBK : first;
+  const int n = last - first;
+
+  if (threadIdx.x == 0) {
+    mbar_init(res_bar, 1);
+    mbar_init(nat_bar, 1);
+    mbar_init(tr_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int kv_mat = batch * a.kh + kv_head;
+  auto load_nat = [&](int j) {
+    const int k0 = (first + j) * kBK;
+    mbar_expect_tx(nat_bar, 4 * G::kKTile);
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int p = 0; p < DP / kP; ++p) {
+        const uint32_t off = t * G::kKTile + p * kBK * kSw;
+        tma_load3(nat_s + off, &maps.k[t], nat_bar, p * kP, k0, kv_mat);
+        tma_load3(nat_s + 2 * G::kKTile + off, &maps.v[t], nat_bar, p * kP, k0, kv_mat);
+      }
+  };
+  auto load_tr = [&](int j) {
+    const int k0 = (first + j) * kBK;
+    mbar_expect_tx(tr_bar, 2 * G::kKTile);
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int p = 0; p < kBK / kPT; ++p)
+        tma_load3(tr_s + t * G::kKTile + p * DP * kPT * 4, &maps.kt[t], tr_bar,
+                  k0 + p * kPT, 0, kv_mat);
+  };
+  if (threadIdx.x == 0 && n > 0) {
+    const int mat = batch * a.h + head;
+    mbar_expect_tx(res_bar, 4 * G::kTile + 2 * kRowsTf32 * 4);
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int p = 0; p < DP / kP; ++p) {
+        const uint32_t off = t * G::kTile + p * kRowsTf32 * kSw;
+        tma_load3(q_s + off, &maps.q[t], res_bar, p * kP, q0, mat);
+        tma_load3(q_s + 2 * G::kTile + off, &maps.o[t], res_bar, p * kP, q0, mat);
+      }
+    const float* l = a.work + (int64_t)mat * sq_pad + q0;
+    bulk_load(rows_s, l, res_bar, kRowsTf32 * 4);
+    bulk_load(rows_s + kRowsTf32 * 4, l + (int64_t)a.b * a.h * sq_pad, res_bar,
+              kRowsTf32 * 4);
+    load_nat(0);
+    load_tr(0);
+  }
+  __syncwarp();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = warp * 16 + g;  // this thread's queries: q0 + row0, + 8
+  const float scale2 = a.scale * kLog2e;
+  float dq[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dq[i] = 0.f;
+  float lrow[2] = {0.f, 0.f}, drow[2] = {0.f, 0.f};
+  if (n > 0) {
+    mbar_wait(res_bar, 0);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      lrow[rr] = rows[row0 + 8 * rr];
+      drow[rr] = rows[kRowsTf32 + row0 + 8 * rr];
+    }
+  }
+
+  for (int j = 0; j < n; ++j) {
+    const int k0 = (first + j) * kBK;
+    float st[kBK / 2], dp[kBK / 2];
+    mbar_wait(nat_bar, j & 1);
+    wg_fence();
+    O::template issue_d<kBK>(st, q_s, nat_s, G::kKTile);                     // S
+    O::template issue_d<kBK>(dp, q_s + 2 * G::kTile, nat_s + 2 * G::kKTile,  // dP
+                             G::kKTile);
+    wg_commit();
+    wg_wait_all();
+    fence_regs(st);
+    fence_regs(dp);
+    __syncthreads();  // every warp's products have read the natural stage
+    if (threadIdx.x == 0 && j + 1 < n) load_nat(j + 1);
+
+    // dS = P ∘ (dP - Δ) into dp, masked where the tile straddles an edge
+    const bool interior = tile_interior(a, q0, kRowsTf32, k0, kBK);
+#pragma unroll
+    for (int jj = 0; jj < kBK / 8; ++jj)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = jj * 4 + rr * 2 + e;
+          float s = st[x];
+          if (!interior && !visible(a, q0 + row0 + 8 * rr, k0 + jj * 8 + t4 * 2 + e))
+            s = -INFINITY;
+          const float p = exp2_ftz(fmaf(s, scale2, -lrow[rr]));
+          dp[x] = p * (dp[x] - drow[rr]);
+        }
+
+    mbar_wait(tr_bar, j & 1);
+    {  // dQ += dS K
+      uint32_t hi[kBK / 8][4], lo[kBK / 8][4];
+      O::template frags<kBK / 8>(dp, hi, lo);
+      O::template add_s<kBK / 8, kPT>(dq, hi, lo, tr_s, G::kKTile);
+    }
+    __syncthreads();  // every warp's products have read the transposed stage
+    if (threadIdx.x == 0 && j + 1 < n) load_tr(j + 1);
+  }
+
+  // dQ (scaled) of the thread's queries, float32 (zeros where no key is
+  // visible)
+  const int64_t q_stride = (int64_t)a.h * a.d;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int qi = q0 + row0 + 8 * rr;
+    if (qi >= a.sq) continue;
+    float* const row = static_cast<float*>(a.dq) + ((int64_t)batch * a.sq + qi) * q_stride +
+                       (int64_t)head * a.d;
+#pragma unroll
+    for (int jj = 0; jj < DP / 8; ++jj) {
+      const int col = jj * 8 + t4 * 2, x = jj * 4 + rr * 2;
+      if (col < a.d)
+        *reinterpret_cast<float2*>(row + col) =
+            make_float2(dq[x] * a.scale, dq[x + 1] * a.scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -885,8 +1464,8 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
   using G = BwdGeometry<DP>;
   const int64_t rows = (int64_t)a.b * padded_rows(a.sq) * a.h;
   const int rows_per_block = kThreads / 32;
-  rows_kernel<<<(unsigned)((rows + rows_per_block - 1) / rows_per_block),
-                kThreads, 0, stream>>>(a);
+  rows_kernel<__nv_bfloat16><<<(unsigned)((rows + rows_per_block - 1) / rows_per_block),
+                               kThreads, 0, stream>>>(a);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (a.sk > 0) {
@@ -925,6 +1504,100 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the shared-memory opt-in of kernel, once per device (a bit each, up to 64)
+template <typename K>
+cudaError_t opt_in(K kernel, int bytes, unsigned long long* opted_in) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (*opted_in & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) *opted_in |= bit;
+  return err;
+}
+
+// x [B, S, heads, d] into its planes (transposed too where tr is given)
+cudaError_t split(const void* x, int b, int seq, int heads, int d,
+                  float* const (&n)[2], float* const* tr, cudaStream_t stream) {
+  const dim3 grid((round8(seq) + 31) / 32, (d + 31) / 32, b * heads);
+  split_kernel<<<grid, 256, 0, stream>>>(static_cast<const float*>(x), seq, heads, d,
+                                         n[0], n[1], tr ? tr[0] : nullptr,
+                                         tr ? tr[1] : nullptr);
+  return cudaGetLastError();
+}
+
+// the 3xTF32 path (float32, DP <= 128): rows and planes, the dK/dV kernel,
+// the dQ kernel
+template <int DP>
+cudaError_t launch_tf32(const Args& a, cudaStream_t stream) {
+  using G = Tf32Geometry<DP>;
+  const int64_t rows = (int64_t)a.b * padded_rows(a.sq) * a.h;
+  const int rows_per_block = kThreads / 32;
+  rows_kernel<float><<<(unsigned)((rows + rows_per_block - 1) / rows_per_block),
+                       kThreads, 0, stream>>>(a);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if (a.sk == 0)  // no key: dQ is 0 (dK and dV are empty)
+    return cudaMemsetAsync(a.dq, 0, (size_t)a.b * a.sq * a.h * a.d * 4, stream);
+  const Tf32Planes t = tf32_planes(a);
+  if ((err = split(a.q, a.b, a.sq, a.h, a.d, t.qn, t.qt, stream)) != cudaSuccess ||
+      (err = split(a.dout, a.b, a.sq, a.h, a.d, t.on, t.ot, stream)) != cudaSuccess ||
+      (err = split(a.k, a.b, a.sk, a.kh, a.d, t.kn, t.kt, stream)) != cudaSuccess ||
+      (err = split(a.v, a.b, a.sk, a.kh, a.d, t.vn, nullptr, stream)) != cudaSuccess)
+    return err;
+
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  // a natural plane [mats, seq, d] in boxes of `rows` rows; a transposed
+  // plane [mats, d, seq8] in boxes of DP rows and `panel` positions
+  auto nat = [&](CUtensorMap* m, const float* p, int mats, int seq, int box) {
+    const long long dims[3] = {a.d, seq, mats};
+    const long long strides[2] = {4LL * a.d, 4LL * seq * a.d};
+    return encode_map_f32(encode, m, p, dims, strides, G::kPanel, box);
+  };
+  auto trn = [&](CUtensorMap* m, const float* p, int mats, int seq, int panel) {
+    const long long s8 = round8(seq);
+    const long long dims[3] = {s8, a.d, mats};
+    const long long strides[2] = {4 * s8, 4 * s8 * a.d};
+    return encode_map_f32(encode, m, p, dims, strides, panel, DP);
+  };
+  const int qm = a.b * a.h, km = a.b * a.kh;
+  DkdvMaps dm;
+  DqMaps qmaps;
+  for (int i = 0; i < 2; ++i)
+    if (!nat(&dm.k[i], t.kn[i], km, a.sk, kRowsTf32) ||
+        !nat(&dm.v[i], t.vn[i], km, a.sk, kRowsTf32) ||
+        !nat(&dm.q[i], t.qn[i], qm, a.sq, G::kBQ) ||
+        !nat(&dm.o[i], t.on[i], qm, a.sq, G::kBQ) ||
+        !trn(&dm.qt[i], t.qt[i], qm, a.sq, G::kPanelQ) ||
+        !trn(&dm.ot[i], t.ot[i], qm, a.sq, G::kPanelQ) ||
+        !nat(&qmaps.q[i], t.qn[i], qm, a.sq, kRowsTf32) ||
+        !nat(&qmaps.o[i], t.on[i], qm, a.sq, kRowsTf32) ||
+        !nat(&qmaps.k[i], t.kn[i], km, a.sk, G::kBK) ||
+        !nat(&qmaps.v[i], t.vn[i], km, a.sk, G::kBK) ||
+        !trn(&qmaps.kt[i], t.kt[i], km, a.sk, G::kPanelK))
+      return cudaErrorInvalidValue;
+  static unsigned long long dkdv_in = 0, dq_in = 0;
+  if ((err = opt_in(dkdv_tf32_kernel<DP>, G::kSmemDkdv, &dkdv_in)) != cudaSuccess ||
+      (err = opt_in(dq_tf32_kernel<DP>, G::kSmemDq, &dq_in)) != cudaSuccess)
+    return err;
+  dkdv_tf32_kernel<DP><<<dim3(km, (a.sk + kRowsTf32 - 1) / kRowsTf32), kThreadsTf32,
+                         G::kSmemDkdv, stream>>>(dm, a);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  dq_tf32_kernel<DP><<<dim3(qm, (a.sq + kRowsTf32 - 1) / kRowsTf32), kThreadsTf32,
+                       G::kSmemDq, stream>>>(qmaps, a);
+  return cudaGetLastError();
+}
+
+template <int DP>
+void tf32_geometry(int* out) {
+  using G = Tf32Geometry<DP>;
+  const int g[] = {DP, G::kPanel, G::kSwizzle, G::kBQ, G::kBK, G::kSmemDkdv,
+                   G::kSmemDq, 1};
+  for (int i = 0; i < 8; ++i) out[i] = g[i];
+}
+
 template <int DP>
 void bwd_geometry(int* out) {
   using G = BwdGeometry<DP>;
@@ -959,10 +1632,10 @@ int run(bool bf16, const void* q, const void* k, const void* v, const void* o,
     }
   }
   switch (padded_dim(d)) {
-    case 16: return (int)launch<float, 16>(a, s);
-    case 32: return (int)launch<float, 32>(a, s);
-    case 64: return (int)launch<float, 64>(a, s);
-    case 128: return (int)launch<float, 128>(a, s);
+    case 16: return (int)launch_tf32<16>(a, s);
+    case 32: return (int)launch_tf32<32>(a, s);
+    case 64: return (int)launch_tf32<64>(a, s);
+    case 128: return (int)launch_tf32<128>(a, s);
     default: return (int)launch<float, 256>(a, s);
   }
 }
@@ -971,9 +1644,11 @@ int run(bool bf16, const void* q, const void* k, const void* v, const void* o,
 
 // q, o, dout, dq [B, Sq, H, D]; k, v, dk, dv [B, Sk, KH, D], all contiguous
 // and 16-byte aligned, of one type; lse (the forward's) float32 [B, H, Sq];
-// work a zeroed float32 workspace of the floats flash_bwd_workspace names;
+// work a float32 workspace of the floats flash_bwd_workspace names, zeroed
+// for the bf16 entry point (the float32 one writes every float it reads);
 // window <= 0 means none.
-// Three launches on the stream.  Returns a cudaError_t.
+// Three launches on the stream (the float32 path at DP <= 128: seven, the
+// rows, four plane splits and its two kernels).  Returns a cudaError_t.
 extern "C" int flash_backward_bf16(const void* q, const void* k, const void* v,
                                    const void* o, const void* dout,
                                    const void* lse, void* work, void* dq,
@@ -995,16 +1670,19 @@ extern "C" int flash_backward_f32(const void* q, const void* k, const void* v,
 }
 
 // the floats of the workspace flash_backward_{bf16,f32} take (bf16 != 0 for
-// the bf16 entry point), into *out: the wgmma path's L·log2 e and Δ rows,
-// padded to whole stages, its float32 dQ accumulator [B, Sq, H, D] and,
-// under GQA, the dK and dV accumulators [B, Sk, KH, D]; Δ [B, H, Sq] for
-// the scalar kernels.  Returns a cudaError_t.
+// the bf16 entry point), into *out: the bf16 wgmma path's L·log2 e and Δ
+// rows, padded to whole stages, its float32 dQ accumulator [B, Sq, H, D]
+// and, under GQA, the dK and dV accumulators [B, Sk, KH, D]; the float32
+// path's rows and 3xTF32 planes (Tf32Planes); Δ [B, H, Sq] for the scalar
+// kernels (DP = 256).  Returns a cudaError_t.
 extern "C" int flash_bwd_workspace(int bf16, int b, int sq, int sk, int h,
                                    int kh, int d, long long* out) {
   if (d < 8 || d % 8 != 0 || padded_dim(d) == 0)
     return (int)cudaErrorInvalidValue;
-  if (!bf16 || padded_dim(d) == 256)
+  if (padded_dim(d) == 256)
     *out = (long long)b * h * sq;
+  else if (!bf16)
+    *out = tf32_floats(b, sq, sk, h, kh, d);
   else
     *out = 2LL * b * h * padded_rows(sq) + (long long)b * sq * h * d +
            (h == kh ? 0 : 2LL * b * sk * kh * d);
@@ -1026,6 +1704,27 @@ extern "C" int flash_bwd_geometry(int d, int* out) {
     case 128: bwd_geometry<128>(out); break;
     default: {
       const int g[] = {256, 0, 0, kBK, kBQ, 0, smem_bytes<256>(), 0};
+      for (int i = 0; i < 8; ++i) out[i] = g[i];
+    }
+  }
+  return 0;
+}
+
+// the float32 instantiation for head dim d, as eight ints: padded width,
+// natural panel columns, swizzle bytes, queries a dK/dV stage, keys a dQ
+// stage, the dK/dV and the dQ kernel's dynamic shared-memory bytes, and 1
+// for the 3xTF32 path (DP <= 128); at DP = 256 the scalar kernels: 256, 0,
+// 0, 32, 32, their shared memory twice, 0.  Returns a cudaError_t.
+extern "C" int flash_bwd_f32_geometry(int d, int* out) {
+  if (d < 8 || d % 8 != 0 || padded_dim(d) == 0)
+    return (int)cudaErrorInvalidValue;
+  switch (padded_dim(d)) {
+    case 16: tf32_geometry<16>(out); break;
+    case 32: tf32_geometry<32>(out); break;
+    case 64: tf32_geometry<64>(out); break;
+    case 128: tf32_geometry<128>(out); break;
+    default: {
+      const int g[] = {256, 0, 0, kBQ, kBK, smem_bytes<256>(), smem_bytes<256>(), 0};
       for (int i = 0; i < 8; ++i) out[i] = g[i];
     }
   }

@@ -1,12 +1,12 @@
 // Hopper (sm_90a) building blocks shared by flash.cu and flash_bwd.cu:
 // mbarriers, TMA loads (tensor tiles and 1-d bulk copies), wgmma shared-
-// memory descriptors and the wgmma products, exp2 and bf16 packing on
-// register fragments, and the host-side TMA map over a bf16 [B, S, heads,
-// D] tensor.
+// memory descriptors and the wgmma products (bf16, and TF32 with its 3xTF32
+// split), exp2 and bf16 packing on register fragments, and the host-side
+// TMA maps over a bf16 [B, S, heads, D] tensor and a float32 3-d one.
 //
-// Tiles live in shared memory in panels of min(DP, 64) columns whose rows
-// are one swizzle span (32, 64 or 128 bytes), so the TMA swizzle mode and
-// the wgmma descriptor layout agree per width.  Each source that includes
+// Tiles live in shared memory in panels whose rows are one swizzle span
+// (32, 64 or 128 bytes: min(DP, 64) bf16 or min(DP, 32) float32 columns),
+// so the TMA swizzle mode and the wgmma descriptor layout agree per width.  Each source that includes
 // this header is one translation unit: everything here has internal
 // linkage.
 
@@ -50,6 +50,17 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   } while (!done);
+}
+
+// rows [c1, c1 + box rows) and columns [c0, c0 + panel) of matrix c2 of a
+// 3-d map, into a swizzled panel at dst; completion counted on bar
+__device__ __forceinline__ void tma_load3(uint32_t dst, const CUtensorMap* map,
+                                          uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
 }
 
 // rows [c2, c2 + box rows) and columns [c0, c0 + panel) of head c1, batch
@@ -242,6 +253,138 @@ struct WgmmaRS<64> {
   }
 };
 
+// d[64 x N] (+)= A[64 x 8] · B[8 x N] in TF32 (float32 accumulators), A
+// and B in shared memory, both K-major: the TF32 wgmma has no transpose
+// immediates (they exist for 16-bit types only), so an operand that
+// contracts along its non-contiguous dimension must be laid out
+// transposed before the product reads it
+template <int N>
+struct WgmmaTf32SS;
+
+template <>
+struct WgmmaTf32SS<16> {
+  __device__ __forceinline__ static void run(float (&d)[8], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+        : FLASH_ACC8(d, 0)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaTf32SS<32> {
+  __device__ __forceinline__ static void run(float (&d)[16], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1;\n}\n"
+        : FLASH_ACC8(d, 0), FLASH_ACC8(d, 8)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaTf32SS<64> {
+  __device__ __forceinline__ static void run(float (&d)[32], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1;\n}\n"
+        : FLASH_ACC8(d, 0), FLASH_ACC8(d, 8), FLASH_ACC8(d, 16), FLASH_ACC8(d, 24)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaTf32SS<128> {
+  __device__ __forceinline__ static void run(float (&d)[64], uint64_t a,
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1;\n}\n"
+        : FLASH_ACC8(d, 0), FLASH_ACC8(d, 8), FLASH_ACC8(d, 16), FLASH_ACC8(d, 24),
+          FLASH_ACC8(d, 32), FLASH_ACC8(d, 40), FLASH_ACC8(d, 48), FLASH_ACC8(d, 56)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+// d[64 x N] (+)= A[64 x 8] · B[8 x N] in TF32: A four .b32 TF32 registers a
+// thread (row g / g + 8 of its warp's 16, column t4 / t4 + 4), B K-major
+// in shared memory
+template <int N>
+struct WgmmaTf32RS;
+
+template <>
+struct WgmmaTf32RS<16> {
+  __device__ __forceinline__ static void run(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+        : FLASH_ACC8(d, 0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaTf32RS<32> {
+  __device__ __forceinline__ static void run(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : FLASH_ACC8(d, 0), FLASH_ACC8(d, 8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaTf32RS<64> {
+  __device__ __forceinline__ static void run(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : FLASH_ACC8(d, 0), FLASH_ACC8(d, 8), FLASH_ACC8(d, 16), FLASH_ACC8(d, 24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct WgmmaTf32RS<128> {
+  __device__ __forceinline__ static void run(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+        " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+        " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+        : FLASH_ACC8(d, 0), FLASH_ACC8(d, 8), FLASH_ACC8(d, 16), FLASH_ACC8(d, 24),
+          FLASH_ACC8(d, 32), FLASH_ACC8(d, 40), FLASH_ACC8(d, 48), FLASH_ACC8(d, 56)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+  }
+};
+
 #undef FLASH_ACC8
 
 // 2^x, subnormal results flushed to 0 (one MUFU op; exp2f adds range
@@ -256,6 +399,21 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// x rounded to TF32 (nearest, ties away: cvt.rna), as a .b32 whose low 13
+// mantissa bits are 0
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// the 3xTF32 split of x: hi = tf32(x), lo = tf32(x - hi), so that
+// a·b ≈ hi_a·hi_b + hi_a·lo_b + lo_a·hi_b to about 2^-21 relative
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
 }
 
 // ---------------------------------------------------------------------------
@@ -308,6 +466,28 @@ bool encode_map(EncodeTiled encode, CUtensorMap* map, const void* ptr,
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, elem,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, mode,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a float32 tensor of up to three dims (innermost first, dims[0]
+// contiguous; strides of dims 1 and 2 in bytes, multiples of 16), boxes of
+// `panel` x `rows` x 1 into one swizzled panel whose rows are panel·4
+// bytes (the swizzle span); elements past a dim read as 0
+bool encode_map_f32(EncodeTiled encode, CUtensorMap* map, const void* ptr,
+                    const long long (&dims)[3], const long long (&strides)[2],
+                    int panel, int rows) {
+  const cuuint64_t gdims[3] = {(cuuint64_t)dims[0], (cuuint64_t)dims[1],
+                               (cuuint64_t)dims[2]};
+  const cuuint64_t gstrides[2] = {(cuuint64_t)strides[0], (cuuint64_t)strides[1]};
+  const cuuint32_t box[3] = {(cuuint32_t)panel, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const int swizzle = panel * 4;
+  const CUtensorMapSwizzle mode = swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                  : swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B;
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr),
+                gdims, gstrides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, mode,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -21,13 +21,20 @@ forward's row log-sum-exp, which :func:`flash_attention` returns when
 asked (``with_lse``): in bf16 at head dims up to 128 a pre-pass, one
 ``wgmma`` kernel on TMA-fed stages a block per (batch, head, 128 keys)
 that adds dQ into a float32 accumulator with atomics, and a finish pass; in
-float32, and in bf16 at head dim 256, the scalar kernels (a Δ pre-pass, a
-dK/dV kernel and a dQ kernel).  Replaces no TPU kernel: the reference
-differentiates its jnp recurrence instead.  Its geometry and schedule are
-mirrored too: :func:`bwd_geometry`, :func:`bwd_block_order`,
-:func:`query_tiles` (which query tiles a block walks) and, for a (64 keys
-x 64 queries) tile, :func:`tile_interior`; ``kernel_bwd_geometry`` asks
-the library (``flash_bwd_geometry``).
+float32 at head dims up to 128 the 3xTF32 path (a pre-pass that splits Q,
+dO, K, V into TF32 hi and lo planes, natural and, for the three operands
+that contract over the sequence, transposed; a dK/dV kernel a block per
+(batch, KV head, 64 keys) and a dQ kernel a block per (batch, head, 64
+queries), each a warpgroup on ``wgmma`` from TMA-fed tiles); at head dim
+256 the scalar kernels (a Δ pre-pass, a dK/dV kernel and a dQ kernel).
+Replaces no TPU kernel: the reference differentiates its jnp recurrence
+instead.  Its geometry and schedule are mirrored too: :func:`bwd_geometry`
+(per dtype), :func:`bwd_workspace` and :func:`tf32_planes` (the float32
+workspace's layout), :func:`bwd_block_order`, :func:`query_tiles` (which
+query tiles a block walks) and, for a (64 keys x 64 queries) tile,
+:func:`tile_interior`; ``kernel_bwd_geometry`` and ``kernel_bwd_workspace``
+ask the library (``flash_bwd_geometry``, ``flash_bwd_f32_geometry``,
+``flash_bwd_workspace``).
 
 The functions take CUDA tensors only and raise on anything else; their
 plain PyTorch versions are ``repro_torch.kernels.ref.flash_attention_ref``
@@ -49,20 +56,24 @@ from . import _build
 
 __all__ = [
     "BF16_ROWS_PER_WARPGROUP",
+    "BWD_F32_ROWS",
     "BWD_KEYS_PER_WARPGROUP",
     "bf16_geometry",
     "block_order",
     "bwd_block_order",
     "bwd_geometry",
+    "bwd_workspace",
     "flash_attention",
     "flash_backward",
     "kernel_bf16_geometry",
     "kernel_bwd_geometry",
+    "kernel_bwd_workspace",
     "key_tiles",
     "launches",
     "padded_dim",
     "query_tiles",
     "tensor_map",
+    "tf32_planes",
     "tile_interior",
 ]
 
@@ -86,6 +97,11 @@ _GEOMETRY_KEYS = ("dp", "panel", "swizzle", "bq", "bk", "stages", "smem")
 #: warpgroups' keys
 BWD_KEYS_PER_WARPGROUP = 64
 _BWD_GEOMETRY_KEYS = ("dp", "panel", "swizzle", "bk", "bq", "stages", "smem", "wgmma")
+_BWD_F32_GEOMETRY_KEYS = ("dp", "panel", "swizzle", "bq", "bk", "smem_dkdv", "smem_dq",
+                          "wgmma")
+#: keys of a float32 dK/dV block and queries of a float32 dQ block (one
+#: warpgroup, wgmma's M)
+BWD_F32_ROWS = 64
 # the scalar backward's tiles (float32, and bf16 at head dim 256)
 _SCALAR_BQ = _SCALAR_BK = 32
 
@@ -159,22 +175,33 @@ def tile_interior(r0: int, rows: int, k0: int, bk: int, *, kv_len: int,
             and (not window or k0 > r0 + rows - 1 - window))
 
 
-def bwd_geometry(d: int) -> dict:
-    """The bf16 backward's instantiation for head dim ``d`` (``BwdGeometry``
-    in ``flash_bwd.cu``): at ``dp`` ≤ 128 the ``wgmma`` kernel (``wgmma``
-    1), its tiles in panels of ``panel`` columns one ``swizzle`` span wide,
-    ``bk`` keys a block (two warpgroups of 64), ``bq`` queries a
-    stage in a ring of ``stages``, ``smem`` dynamic shared-memory bytes (1
-    KiB of alignment slack, K and V, the stages' Q and dO, four bf16 dSᵀ
-    buffers of 64 x 64, the stages' L and Δ rows, the mbarriers); at ``dp``
-    256 the scalar kernels (``wgmma`` 0: 32 x 32 float32 tiles; dK and dV
-    of 64 keys at that width would take 256 registers a thread)."""
+def bwd_geometry(d: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The backward's instantiation for head dim ``d`` in ``dtype``.
+
+    bf16 (``BwdGeometry`` in ``flash_bwd.cu``): at ``dp`` ≤ 128 the
+    ``wgmma`` kernel (``wgmma`` 1), its tiles in panels of ``panel`` columns
+    one ``swizzle`` span wide, ``bk`` keys a block (two warpgroups of 64),
+    ``bq`` queries a stage in a ring of ``stages``, ``smem`` dynamic
+    shared-memory bytes (1 KiB of alignment slack, K and V, the stages' Q
+    and dO, four bf16 dSᵀ buffers of 64 x 64, the stages' L and Δ rows, the
+    mbarriers); at ``dp`` 256 the scalar kernels (``wgmma`` 0: 32 x 32
+    float32 tiles; dK and dV of 64 keys at that width would take 256
+    registers a thread).
+
+    float32 (``Tf32Geometry``): at ``dp`` ≤ 128 the 3xTF32 kernels
+    (``wgmma`` 1): natural tiles in panels of ``panel`` float32 columns, one
+    ``swizzle`` span wide; the dK/dV kernel holds the hi and lo tiles of
+    its 64 keys' K and V and walks stages of ``bq`` queries (Q, dO and
+    their transposed planes, hi and lo), ``smem_dkdv`` bytes; the dQ kernel
+    holds its 64 queries' Q and dO and walks stages of ``bk`` keys (K, V,
+    Kᵀ), ``smem_dq`` bytes (each with 1 KiB of alignment slack, the L and Δ
+    rows and three mbarriers); at ``dp`` 256 the scalar kernels."""
+    if dtype == torch.float32:
+        return _bwd_f32_geometry(d)
     dp = padded_dim(d)
     if dp == 256:
-        smem = ((2 * _SCALAR_BK + 2 * _SCALAR_BQ) * (dp + 4)
-                + 2 * _SCALAR_BQ * (_SCALAR_BK + 1) + 2 * _SCALAR_BQ) * 4
         return dict(dp=dp, panel=0, swizzle=0, bk=_SCALAR_BK, bq=_SCALAR_BQ,
-                    stages=0, smem=smem, wgmma=0)
+                    stages=0, smem=_scalar_smem(dp), wgmma=0)
     panel = min(dp, 64)
     bk, bq = 2 * BWD_KEYS_PER_WARPGROUP, 64
     stages = 3
@@ -183,6 +210,71 @@ def bwd_geometry(d: int) -> dict:
             + (2 * stages + 1) * 8)
     return dict(dp=dp, panel=panel, swizzle=panel * 2, bk=bk, bq=bq,
                 stages=stages, smem=smem, wgmma=1)
+
+
+def _scalar_smem(dp: int) -> int:
+    """Dynamic shared-memory bytes of the scalar kernels at width ``dp``."""
+    return ((2 * _SCALAR_BK + 2 * _SCALAR_BQ) * (dp + 4)
+            + 2 * _SCALAR_BQ * (_SCALAR_BK + 1) + 2 * _SCALAR_BQ) * 4
+
+
+def _bwd_f32_geometry(d: int) -> dict:
+    dp = padded_dim(d)
+    if dp == 256:
+        smem = _scalar_smem(dp)
+        return dict(dp=dp, panel=0, swizzle=0, bq=_SCALAR_BQ, bk=_SCALAR_BK,
+                    smem_dkdv=smem, smem_dq=smem, wgmma=0)
+    panel = min(dp, 32)
+    # at dp 128 the resident 64-row hi and lo tiles take 128 KiB
+    bq, bk = (16, 32) if dp >= 128 else (64, 64)
+    tile = BWD_F32_ROWS * dp * 4
+    smem_dkdv = 1024 + 4 * tile + 8 * bq * dp * 4 + 2 * bq * 4 + 3 * 8
+    smem_dq = 1024 + 4 * tile + 2 * BWD_F32_ROWS * 4 + 6 * bk * dp * 4 + 3 * 8
+    return dict(dp=dp, panel=panel, swizzle=panel * 4, bq=bq, bk=bk,
+                smem_dkdv=smem_dkdv, smem_dq=smem_dq, wgmma=1)
+
+
+def _padded_rows(sq: int) -> int:
+    return -(-sq // 64) * 64
+
+
+def _round8(s: int) -> int:
+    return -(-s // 8) * 8
+
+
+def tf32_planes(b: int, sq: int, sk: int, h: int, kh: int, d: int) -> dict:
+    """The float32 path's workspace layout (``Tf32Planes`` in
+    ``flash_bwd.cu``): ``{name: (offset, floats)}`` of the L·log2 e and Δ
+    rows (``[B, H, Sq]`` padded to 64) and of each 3xTF32 plane, hi and lo:
+    natural ``[B·heads, S, d]`` (``qn``, ``on``: dO, ``kn``, ``vn``) and
+    transposed ``[B·heads, d, S8]`` (``qt``, ``ot``, ``kt``; S8 is S
+    rounded up to 8), in order."""
+    nq, nqt = b * h * sq * d, b * h * d * _round8(sq)
+    nk, nkt = b * kh * sk * d, b * kh * d * _round8(sk)
+    parts = [("rows", 2 * b * h * _padded_rows(sq))]
+    for name, n in (("qn", nq), ("qt", nqt), ("on", nq), ("ot", nqt),
+                    ("kn", nk), ("kt", nkt), ("vn", nk)):
+        parts += [(f"{name}_hi", n), (f"{name}_lo", n)]
+    out, at = {}, 0
+    for name, n in parts:
+        out[name] = (at, n)
+        at += n
+    return out
+
+
+def bwd_workspace(dtype: torch.dtype, b: int, sq: int, sk: int, h: int, kh: int,
+                  d: int) -> int:
+    """Floats of the workspace the backward takes (``flash_bwd_workspace``):
+    bf16 at ``dp`` ≤ 128 the rows, the float32 dQ accumulator and, under
+    GQA, the dK and dV accumulators; float32 at ``dp`` ≤ 128 the rows and
+    the 3xTF32 planes (:func:`tf32_planes`); Δ at ``dp`` 256."""
+    dp = padded_dim(d)
+    if dp == 256:
+        return b * h * sq
+    if dtype == torch.float32:
+        return sum(n for _, n in tf32_planes(b, sq, sk, h, kh, d).values())
+    return (2 * b * h * _padded_rows(sq) + b * sq * h * d
+            + (0 if h == kh else 2 * b * sk * kh * d))
 
 
 def bwd_block_order(batch: int, sk: int, heads: int, bk: int) -> list:
@@ -210,23 +302,28 @@ def query_tiles(k0: int, bk: int, bq: int, *, sq: int, kv_len: int, causal: bool
     return first, (-(-end // bq) if end > begin else first)
 
 
-def kernel_bwd_geometry(d: int) -> dict:
-    """The built library's own bf16 backward instantiation for head dim
-    ``d`` (``flash_bwd_geometry``; builds the library on first use)."""
-    fn = _build.function("flash_bwd", "flash_bwd_geometry", [_I32, _P])
-    out = (ctypes.c_int * len(_BWD_GEOMETRY_KEYS))()
+def kernel_bwd_geometry(d: int, dtype: torch.dtype = torch.bfloat16) -> dict:
+    """The built library's own backward instantiation for head dim ``d`` in
+    ``dtype`` (``flash_bwd_geometry``, ``flash_bwd_f32_geometry``; builds
+    the library on first use)."""
+    f32 = dtype == torch.float32
+    name = "flash_bwd_f32_geometry" if f32 else "flash_bwd_geometry"
+    keys = _BWD_F32_GEOMETRY_KEYS if f32 else _BWD_GEOMETRY_KEYS
+    fn = _build.function("flash_bwd", name, [_I32, _P])
+    out = (ctypes.c_int * len(keys))()
     err = fn(d, ctypes.addressof(out))
     if err != 0:
-        raise RuntimeError(f"flash_bwd_geometry({d}) failed: cudaError_t {err}")
-    return dict(zip(_BWD_GEOMETRY_KEYS, out))
+        raise RuntimeError(f"{name}({d}) failed: cudaError_t {err}")
+    return dict(zip(keys, out))
 
 
-def _bwd_workspace(bf16: bool, b: int, sq: int, sk: int, h: int, kh: int, d: int) -> int:
-    """Floats of the zeroed float32 workspace the backward takes, as the
-    library computes them (``flash_bwd_workspace``)."""
+def kernel_bwd_workspace(dtype: torch.dtype, b: int, sq: int, sk: int, h: int,
+                         kh: int, d: int) -> int:
+    """Floats of the float32 workspace the backward takes, as the library
+    computes them (``flash_bwd_workspace``)."""
     fn = _build.function("flash_bwd", "flash_bwd_workspace", [_I32] * 7 + [_P])
     out = ctypes.c_longlong()
-    err = fn(int(bf16), b, sq, sk, h, kh, d, ctypes.addressof(out))
+    err = fn(int(dtype == torch.bfloat16), b, sq, sk, h, kh, d, ctypes.addressof(out))
     if err != 0:
         raise RuntimeError(f"flash_bwd_workspace failed: cudaError_t {err}")
     return out.value
@@ -318,9 +415,11 @@ def flash_backward(
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dq.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
-    bf16 = q.dtype == torch.bfloat16
-    work = torch.zeros(_bwd_workspace(bf16, b, sq, sk, h, kh, d),
-                       dtype=torch.float32, device=q.device)
+    # the bf16 path accumulates into its workspace; the float32 path writes
+    # every float of its own before reading it
+    alloc = torch.zeros if q.dtype == torch.bfloat16 else torch.empty
+    work = alloc(kernel_bwd_workspace(q.dtype, b, sq, sk, h, kh, d),
+                 dtype=torch.float32, device=q.device)
     fn = _build.function("flash_bwd", f"flash_backward_{_SUFFIX[q.dtype]}", _BWD_ARGTYPES)
     stream = torch.cuda.current_stream(q.get_device()).cuda_stream
     err = fn(

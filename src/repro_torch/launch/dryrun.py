@@ -23,7 +23,8 @@ the reference:
 
 * **FLOPs**: ``torch.utils.flop_counter``'s formulas on each local
   matmul-like op (as executed: DTensor's redistributions and any
-  replicated work included).  Eager counting sees every loop iteration, so
+  replicated work included; what DTensor's sharding propagation runs on
+  global shapes, ``roofline.skip_dispatch``, never).  Eager counting sees every loop iteration, so
   the reference's two-point depth variants and inner-scan corrections —
   work-arounds for XLA counting a while body once — do not exist here.
   ``cost_pass`` adds the same program on one device with no mesh

@@ -28,6 +28,7 @@ __all__ = ["HW", "make_host_mesh", "make_production_mesh", "production_shape"]
 class _Hardware:
     name: str = "NVIDIA H100 SXM"
     peak_flops_bf16: float = 989e12  # dense tensor cores, per card
+    peak_flops_tf32: float = 495e12  # dense tensor cores, per card
     peak_flops_fp32: float = 67e12  # off the tensor cores
     peak_flops_fp64: float = 34e12  # off the tensor cores
     hbm_bw: float = 3.35e12  # bytes/s per card

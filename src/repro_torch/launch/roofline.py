@@ -27,6 +27,8 @@ compute" yardstick the roofline table compares counted FLOPs against.
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -86,18 +88,38 @@ _SUBCLASSES: list = []
 def skip_dispatch(types) -> Tuple[bool, bool]:
     """``(defer, shadow)`` for a mode that counts rank-local work: defer a
     DTensor op (return ``NotImplemented``, so the DTensor runs its local ops
-    with the mode still on), and do not count an op on fake tensors (what
-    DTensor's sharding propagation runs on the global shapes)."""
-    if not types:
-        return False, False
+    with the mode still on), and do not count what DTensor's sharding
+    propagation runs on the global shapes: an op on fake tensors, or any op
+    dispatched from inside the propagation's code (the meta tensors that
+    its fake mode makes, and torch 2.13's decomposition-based propagation,
+    for ops with no rule of their own such as ``einsum``, which traces on
+    plain meta stand-ins)."""
     if not _SUBCLASSES:
         from torch._subclasses.fake_tensor import FakeTensor
         from torch.distributed.tensor import DTensor
 
         _SUBCLASSES.extend((DTensor, FakeTensor))
     dtensor, fake = _SUBCLASSES
-    return (any(issubclass(t, dtensor) for t in types),
-            any(issubclass(t, fake) for t in types))
+    if any(issubclass(t, dtensor) for t in types):
+        return True, False
+    return False, any(issubclass(t, fake) for t in types) or _in_propagation()
+
+
+#: the modules of DTensor's sharding propagation (the second only in torch
+#: versions with decomposition-based propagation)
+_PROPAGATION = tuple(os.path.join("distributed", "tensor", name)
+                     for name in ("_sharding_prop.py", "_decompositions.py"))
+
+
+def _in_propagation() -> bool:
+    """Whether the op being dispatched was called from DTensor's sharding
+    propagation (a frame of its modules on the stack)."""
+    frame = sys._getframe(2)
+    while frame is not None:
+        if frame.f_code.co_filename.endswith(_PROPAGATION):
+            return True
+        frame = frame.f_back
+    return False
 
 
 class CollectiveBytes(TorchDispatchMode):

@@ -107,7 +107,8 @@ def _out(params: Attention, o: torch.Tensor) -> torch.Tensor:
     heads are sharded flattens them as it can (an einsum would put them
     second)."""
     b, s, h, e = o.shape
-    return o.reshape(b, s, h * e) @ params.wo.reshape(h * e, params.wo.shape[-1])
+    wo = constrain(params.wo, ("heads", "head_dim", None))  # gathered along d
+    return o.reshape(b, s, h * e) @ wo.reshape(h * e, wo.shape[-1])
 
 
 def _arange_positions(b: int, s: int, device) -> torch.Tensor:
@@ -396,7 +397,8 @@ def decode_into(
 ) -> torch.Tensor:
     """:func:`attention_decode` writing the new K/V into ``cache`` in place
     (the model's decode step copies its cache once, then calls this per
-    layer).  Returns the attention output [B, 1, d]."""
+    layer); a DTensor cache gets new tensors in the dict instead.  Returns
+    the attention output [B, 1, d]."""
     b = x.shape[0]
     q, k_new, v_new = _project(params, x)
     pos_b = torch.full((b, 1), cur_pos, dtype=torch.int32, device=x.device)
@@ -404,9 +406,18 @@ def decode_into(
 
     k, v, pos = cache["k"], cache["v"], cache["pos"]
     slot = cur_pos % k.shape[1]
-    k[:, slot] = k_new[:, 0].to(k.dtype)
-    v[:, slot] = v_new[:, 0].to(v.dtype)
-    pos[:, slot] = cur_pos
+    if is_dtensor(k):
+        # a DTensor's slot write on the sequence dim (split over model)
+        # would gather the cache: select the new entry instead, and put the
+        # new tensors in ``cache``
+        hit = torch.arange(k.shape[1], device=x.device) == slot
+        cache["k"] = k = torch.where(hit[None, :, None, None], k_new.to(k.dtype), k)
+        cache["v"] = v = torch.where(hit[None, :, None, None], v_new.to(v.dtype), v)
+        cache["pos"] = pos = torch.where(hit[None, :], cur_pos, pos)
+    else:
+        k[:, slot] = k_new[:, 0].to(k.dtype)
+        v[:, slot] = v_new[:, 0].to(v.dtype)
+        pos[:, slot] = cur_pos
 
     scores = _gqa_scores(q, k, cfg.head_dim**-0.5)  # [B,KH,G,1,slots]
     kpos = pos[:, None, None, None, :]

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..sharding import constrain
+
 __all__ = [
     "MLP",
     "Norm",
@@ -164,14 +166,24 @@ class MLP(nn.Module):
 
 
 def mlp_apply(params: MLP, x: torch.Tensor, kind: str) -> torch.Tensor:
+    """``x [..., d]`` → ``[..., d]``.  Under a sharding policy the weights
+    are placed as the rules split them: gate and up column-split over
+    ``ffn`` and down row-split, each gathered along ``d`` alone (FSDP's
+    gather), so each rank multiplies its own ``d_ff`` slice of ``x``'s rows
+    and the caller's placement of the output is the one reduction over
+    ``ffn``'s axis (no-ops without a policy)."""
+
+    def col(w):
+        return constrain(w, (None, "ffn"))
+
     if kind == "swiglu":
-        h = F.silu(x @ params.w_gate) * (x @ params.w_up)
+        h = F.silu(x @ col(params.w_gate)) * (x @ col(params.w_up))
     elif kind == "gelu":
         # jax.nn.gelu's default is the tanh approximation
-        h = F.gelu(x @ params.w_up, approximate="tanh")
+        h = F.gelu(x @ col(params.w_up), approximate="tanh")
     else:
         raise ValueError(f"unknown mlp kind {kind}")
-    return h @ params.w_down
+    return h @ constrain(params.w_down, ("ffn", None))
 
 
 # ---------------------------------------------------------------------------

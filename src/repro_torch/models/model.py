@@ -56,7 +56,7 @@ from typing import Dict, Mapping, Optional, Tuple
 import torch
 from torch import nn
 
-from ..sharding import constrain
+from ..sharding import CACHE_AXES, constrain, constrain_tree, is_dtensor, pinned, sum_over
 from . import attention as attn
 from . import mamba as mb
 from . import moe as moe_mod
@@ -241,14 +241,21 @@ def _layers(cfg):
         yield i // n, f"b{i % n}"
 
 
+def _lookup(params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens``: a lookup (not indexing, whose
+    backward DTensor cannot shard, and whose sharding rules differ by torch
+    version) on the whole table (a vocab-sharded lookup cannot take
+    batch-sharded ids), so the rows follow the ids' batch placement; for
+    plain tensors ``embed[tokens]``."""
+    return torch.nn.functional.embedding(tokens, constrain(params.embed, (None, None)))
+
+
 def _embed_inputs(params: Transformer, batch, cfg):
     """Token embedding, after llava's projected patch prefix, plus learned
     positions over the whole sequence, in ``cfg.dtype``: ``[B, S, d]``."""
-    tokens = torch.as_tensor(batch["tokens"], device=params.device).long()
-    # an embedding lookup (not indexing, whose backward DTensor cannot
-    # shard) on the whole table (a vocab-sharded lookup cannot take
-    # batch-sharded ids); both no-ops for plain tensors
-    x = torch.nn.functional.embedding(tokens, constrain(params.embed, (None, None)))
+    tokens = constrain(torch.as_tensor(batch["tokens"], device=params.device).long(),
+                       ("batch", "seq"))
+    x = _lookup(params, tokens)
     if cfg.n_patches:
         patches = torch.as_tensor(batch["patches"], device=params.device).to(cfg.dtype)
         x = torch.cat([patches @ params.mm_proj.to(cfg.dtype), x.to(cfg.dtype)], dim=1)
@@ -280,15 +287,20 @@ def _cross(blk: TransformerBlock, x: torch.Tensor, ckv: Dict, cfg) -> torch.Tens
     """The block's cross attention over the encoder's K / V ``ckv``, with
     its residual."""
     h = apply_norm(x, blk.cross_norm, cfg.norm)
-    return x + attn.cross_attention(blk.cross, h, ckv, cfg)
+    return x + _like(attn.cross_attention(blk.cross, h, ckv, cfg), x)
 
 
-def _head(params: Transformer, x: torch.Tensor, cfg) -> torch.Tensor:
+def _head(params: Transformer, x: torch.Tensor, cfg, seq="seq") -> torch.Tensor:
     """Final logits in float32 (bf16 operands upcast: exact products,
-    float32 sums, as ``preferred_element_type=float32``)."""
+    float32 sums, as ``preferred_element_type=float32``), placed as the
+    rules place them: each rank's batch rows against its vocab shard (the
+    weight gathered along ``d``, FSDP's gather before use)."""
+    x = constrain(x, ("batch", seq, "embed"))
     if cfg.tie_embeddings:
-        return x.float() @ params.embed.float().T
-    return x.float() @ params.lm_head.float()
+        w = constrain(params.embed, ("vocab", None)).T
+    else:
+        w = constrain(params.lm_head, (None, "vocab"))
+    return constrain(x.float() @ w.float(), ("batch", seq, "vocab"))
 
 
 def _ffn(blk: TransformerBlock, x: torch.Tensor, cfg, capacity_factor=None):
@@ -298,10 +310,21 @@ def _ffn(blk: TransformerBlock, x: torch.Tensor, cfg, capacity_factor=None):
         return x, None
     h = apply_norm(x, blk.ffn_norm, cfg.norm)
     if blk.ffn_kind == "mlp":
-        return x + blk.ffn(h), None
+        return x + _like(blk.ffn(h), x), None
     moe_fn = moe_mod.moe_apply_row_local if cfg.moe_row_local else moe_mod.moe_apply
     out, aux = moe_fn(blk.ffn, h, cfg, capacity_factor=capacity_factor)
-    return x + out, aux
+    return x + _like(out, x), aux
+
+
+def _like(y, x):
+    """A block's branch output ``y`` placed as the residual stream ``x``
+    (batch over the batch axes, ``d`` whole), so that the residual add
+    keeps each rank's own rows: a sum over a sharded contraction resolves
+    here, where the reference's rules place the stream.  No-op for plain
+    tensors."""
+    if not is_dtensor(y) or not is_dtensor(x):
+        return y
+    return pinned(y, x.placements)
 
 
 def _mixer_apply(blk: TransformerBlock, h: torch.Tensor, cfg) -> torch.Tensor:
@@ -321,7 +344,7 @@ def forward(params: Transformer, batch, cfg) -> Tuple[torch.Tensor, torch.Tensor
     enc = _enc_states(params, batch, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in params.blocks:
-        x = x + _mixer_apply(blk, apply_norm(x, blk.mixer_norm, cfg.norm), cfg)
+        x = x + _like(_mixer_apply(blk, apply_norm(x, blk.mixer_norm, cfg.norm), cfg), x)
         if enc is not None:
             x = _cross(blk, x, attn.cross_kv(blk.cross, enc), cfg)
         x, a = _ffn(blk, x, cfg)
@@ -330,7 +353,7 @@ def forward(params: Transformer, batch, cfg) -> Tuple[torch.Tensor, torch.Tensor
         # the block boundary (what the reference's remat'd scan saves)
         x = constrain(x, ("batch", "act_seq", "embed"))
     x = apply_norm(x, params.final_norm, cfg.norm)
-    return constrain(_head(params, x, cfg), ("batch", "seq", "vocab")), aux
+    return _head(params, x, cfg), aux
 
 
 def loss_fn(params: Transformer, batch, cfg):
@@ -340,23 +363,72 @@ def loss_fn(params: Transformer, batch, cfg):
     patch prefix carries no labels.  Returns ``(loss, metrics)``, metrics
     ``loss`` / ``ce`` / ``aux`` / ``ntok`` as float32 scalars."""
     logits, aux = forward(params, batch, cfg)
-    # DTensor's gather along a vocab-sharded dim leaves a masked partial
-    # that the next op cannot reduce: take the targets from whole rows
-    logits = constrain(logits, ("batch", "seq", None))
     if cfg.n_patches:
         logits = logits[:, cfg.n_patches :]
-    labels = torch.as_tensor(batch["labels"], device=logits.device).long()
-    mask = (labels >= 0).float()
-    safe = labels.clamp(min=0)
-    logz = torch.logsumexp(logits, dim=-1)
-    tgt = torch.gather(logits, -1, safe[..., None])[..., 0]
-    nll = (logz - tgt) * mask
-    ntok = torch.clamp(mask.sum(), min=1.0)
-    ce = nll.sum() / ntok
+    labels = constrain(torch.as_tensor(batch["labels"], device=logits.device).long(),
+                       ("batch", "seq"))
+    if is_dtensor(logits):
+        nll_sum, count = _sharded_nll(logits, labels)
+    else:
+        nll_sum, count = _token_nll(logits, labels)
+    ntok = torch.clamp(count, min=1.0)
+    ce = nll_sum / ntok
     nm = num_moe_layers(cfg)
     total = ce + cfg.router_aux * aux / nm if nm else ce
     metrics = {"loss": total, "ce": ce, "aux": aux, "ntok": ntok}
     return total, metrics
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor):
+    """(Σ nll over the labelled tokens, their count) of float32 logits
+    ``[B, S, V]`` and labels ``[B, S]`` (< 0: masked)."""
+    mask = (labels >= 0).float()
+    safe = labels.clamp(min=0)
+    logz = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, safe[..., None])[..., 0]
+    return ((logz - tgt) * mask).sum(), mask.sum()
+
+
+def _sharded_nll(logits, labels):
+    """:func:`_token_nll` of DTensor logits on each rank's own block
+    ``[B/ranks, S, V/shards]``: the row max, the sum of exponentials and
+    the target's logit, each reduced over the mesh dims that split the
+    vocabulary, so no rank holds a whole row.  Returns DTensor scalars,
+    partial sums over the mesh dims that split the tokens."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    from ..compat import local_map
+
+    mesh = logits.device_mesh
+    vocab = [i for i, p in enumerate(logits.placements) if p == Shard(2)]
+    groups = [mesh.get_group(i) for i in vocab if mesh.size(i) > 1]
+    shape, offset = compute_local_shape_and_global_offset(
+        logits.shape, mesh, logits.placements)
+    v0, vl = offset[2], shape[2]
+    tokens = tuple(Partial() if isinstance(p, Shard) and p.dim < 2 else Replicate()
+                   for p in logits.placements)
+    label_placements = tuple(
+        Replicate() if i in vocab else p for i, p in enumerate(logits.placements))
+
+    def local(x, y):
+        if not groups:  # whole rows on every rank
+            return _token_nll(x, y)
+        # the row max needs no gradient: log Σ exp(x - m) + m for any m
+        m = x.detach().amax(dim=-1)
+        for g in groups:
+            torch.distributed.all_reduce(m, op=torch.distributed.ReduceOp.MAX, group=g)
+        logz = torch.log(sum_over(torch.exp(x - m[..., None]).sum(-1), groups)) + m
+        idx = y - v0
+        mine = (idx >= 0) & (idx < vl)
+        tgt = torch.gather(x, -1, idx.clamp(0, vl - 1)[..., None])[..., 0]
+        tgt = sum_over(torch.where(mine, tgt, torch.zeros_like(tgt)), groups)
+        mask = (y >= 0).float()
+        return ((logz - tgt) * mask).sum(), mask.sum()
+
+    return local_map(local, out_placements=(tokens, tokens),
+                     in_placements=(tuple(logits.placements), label_placements),
+                     device_mesh=mesh, redistribute_inputs=True)(logits, labels)
 
 
 def tree_path(name: str, cfg) -> Tuple[Tuple[str, ...], Optional[int]]:
@@ -462,7 +534,7 @@ def prefill(params: Transformer, batch, cfg, max_len: int):
         caches = []
         for blk in params.blocks:
             h, c = _mixer_prefill(blk, apply_norm(x, blk.mixer_norm, cfg.norm), cfg, max_len)
-            x, cache = x + h, {"mixer": c}
+            x, cache = x + _like(h, x), {"mixer": constrain_tree(c, CACHE_AXES)}
             if enc is not None:
                 cache["cross"] = attn.cross_kv(blk.cross, enc)
                 x = _cross(blk, x, cache["cross"], cfg)
@@ -470,7 +542,7 @@ def prefill(params: Transformer, batch, cfg, max_len: int):
             x = constrain(x, ("batch", "seq", "embed"))
             caches.append(cache)
         x = apply_norm(x[:, -1:], params.final_norm, cfg.norm)
-        return _head(params, x, cfg)[:, 0], _stack_cache(cfg, caches)
+        return _head(params, x, cfg, None)[:, 0], _stack_cache(cfg, caches)
 
 
 def _init_block_cache(cfg, blk, batch: int, max_len: int, device) -> Dict:
@@ -512,21 +584,25 @@ _DECODE = {"mamba": mb.mamba_decode, "mlstm": xl.mlstm_decode, "slstm": xl.slstm
 def decode_step(params: Transformer, token, cache: Dict, cur_pos: int, cfg):
     """token ``[B, 1]`` ints, ``cur_pos`` an int (same for every row) ->
     (logits ``[B, pv]`` float32, new cache).  ``cache`` is left as it was:
-    attention layers write into one copy of their K/V, recurrent layers
-    return new states, and the cross K / V (which no step writes) are
-    carried over as they are.  MoE layers route at
-    ``cfg.moe_capacity_serve``."""
+    attention layers write into one copy of their K/V (a DTensor cache:
+    into new tensors, restacked), recurrent layers return new states, and
+    the cross K / V (which no step writes) are carried over as they are.
+    MoE layers route at ``cfg.moe_capacity_serve``."""
     with torch.inference_mode():
+        # the cache as the rules place it (batch, and the sequence over
+        # model), whatever placements it arrives with
+        cache = constrain_tree(cache, CACHE_AXES)
         kinds = [blk.mixer for blk in cfg.pattern]
         new = {
             "periods": {
-                b: {"mixer": {n: t.clone() for n, t in c["mixer"].items()}}
+                b: {"mixer": {n: t if is_dtensor(t) else t.clone()
+                              for n, t in c["mixer"].items()}}
                 for (b, c), kind in zip(cache["periods"].items(), kinds) if kind == "attn"
             }
         }
-        states = {f"b{bi}": [] for bi, kind in enumerate(kinds) if kind != "attn"}
-        tokens = torch.as_tensor(token, device=params.device).long()
-        x = params.embed[tokens].to(cfg.dtype)
+        states = {f"b{bi}": [] for bi in range(len(kinds))}
+        tokens = constrain(torch.as_tensor(token, device=params.device).long(), ("batch", None))
+        x = _lookup(params, tokens).to(cfg.dtype)
         if cfg.pos == "learned":
             x = x + params.pos_embed[cur_pos][None, None]
         x = constrain(x, ("batch", None, "embed"))
@@ -535,18 +611,22 @@ def decode_step(params: Transformer, token, cache: Dict, cur_pos: int, cfg):
             if blk.mixer_kind == "attn":
                 layer = {n: t[period] for n, t in new["periods"][name]["mixer"].items()}
                 y = attn.decode_into(blk.mixer, h, layer, cur_pos, cfg, window=cfg.window)
+                if is_dtensor(layer["k"]):  # not written in place: restacked below
+                    states[name].append(layer)
             else:
                 layer = {n: t[period] for n, t in cache["periods"][name]["mixer"].items()}
                 y, state = _DECODE[blk.mixer_kind](blk.mixer, h, layer, cfg)
                 states[name].append(state)
-            x = x + y
+            x = x + _like(y, x)
             if cfg.is_encoder_decoder:
                 ckv = {n: t[period] for n, t in cache["periods"][name]["cross"].items()}
                 h = apply_norm(x, blk.cross_norm, cfg.norm)
-                x = x + attn.cross_attention_decode(blk.cross, h, ckv, cfg)
+                x = x + _like(attn.cross_attention_decode(blk.cross, h, ckv, cfg), x)
             x, _ = _ffn(blk, x, cfg, cfg.moe_capacity_serve)
             x = constrain(x, ("batch", None, "embed"))
         for name, per_period in states.items():
+            if not per_period:
+                continue
             new["periods"][name] = {
                 "mixer": {n: torch.stack([st[n] for st in per_period]) for n in per_period[0]}
             }
@@ -556,4 +636,4 @@ def decode_step(params: Transformer, token, cache: Dict, cur_pos: int, cfg):
         # the blocks in init_cache's order: the engine pairs leaves by position
         new["periods"] = {f"b{bi}": new["periods"][f"b{bi}"] for bi in range(len(kinds))}
         x = apply_norm(x, params.final_norm, cfg.norm)
-        return _head(params, x, cfg)[:, 0], new
+        return _head(params, x, cfg, None)[:, 0], new

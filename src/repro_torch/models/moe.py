@@ -38,7 +38,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..sharding import constrain
+from ..sharding import constrain, is_dtensor, sum_grad
 from .layers import MLP, dense_init, mlp_apply
 
 __all__ = ["MoE", "capacity", "moe_apply", "moe_apply_row_local", "moe_init", "route"]
@@ -104,15 +104,18 @@ def route(probs: torch.Tensor, k: int, cap: int):
     return gate_w, sel, pos, pos < cap
 
 
-def _moe_groups(params: MoE, xg: torch.Tensor, cfg, cf: float):
-    """MoE over ``xg [G, T, d]``, each group routed on its own: returns
-    ``(out [G, T, d] in xg's dtype, aux)``."""
+def _moe_groups(params: MoE, xg: torch.Tensor, cfg, cf: float, rows: bool):
+    """MoE over ``xg [G, T, d]``, each group routed on its own (``rows``:
+    the groups are batch rows, placed over the batch axes; else one global
+    group): returns ``(out [G, T, d] in xg's dtype, aux)``."""
     g, t, d = xg.shape
     e, k = cfg.moe_experts, cfg.moe_topk
     cap = capacity(t, k, e, cf)
-    # DTensor has no sharding rule for the dispatch's gathers and scatters
-    # along a sharded token axis: route whole groups (no-op without a policy)
-    xg = constrain(xg, (None, None, None))
+    # each group whole where it is routed (DTensor has no rule for the
+    # dispatch's gathers and scatters along a sharded token axis): the
+    # row-local groups over the batch axes, one global group everywhere
+    group = "batch" if rows else None
+    xg = constrain(xg, (group, None, None))
 
     probs = torch.softmax(xg.float() @ params.router, dim=-1)  # [G, T, E]
     gate_w, sel, pos, keep = route(probs, k, cap)
@@ -128,15 +131,13 @@ def _moe_groups(params: MoE, xg: torch.Tensor, cfg, cf: float):
     slot_w = slot_w.scatter(1, dst, (gate_w * keep).reshape(g, t * k))[:, :-1]
     slot_valid = (slot_w > 0).to(xg.dtype)
 
-    xe = torch.gather(xg, 1, slot_tok[..., None].expand(g, e * cap, d))
-    xe = (xe * slot_valid[..., None]).reshape(g, e, cap, d)
-    ye = _experts(params, xe)  # [G, E·cap, d]
-
-    # weighted scatter-add back to the tokens, summed in float32
-    combine = (ye * slot_w[..., None].to(ye.dtype)).float()
-    out = torch.zeros((g, t, d), dtype=torch.float32, device=xg.device)
-    out = out.scatter_add(1, slot_tok[..., None].expand(g, e * cap, d), combine)
-    out = out.to(ye.dtype)
+    if is_dtensor(xg):
+        out = _sharded_dispatch(params, xg, slot_tok, slot_w, slot_valid, e, cap, group)
+    else:
+        xe = torch.gather(xg, 1, slot_tok[..., None].expand(g, e * cap, d))
+        xe = (xe * slot_valid[..., None]).reshape(g, e, cap, d)
+        ye = _experts(params, xe)  # [G, E·cap, d]
+        out = _combine(ye, slot_tok, slot_w, t)
 
     if hasattr(params, "shared"):
         out = out + mlp_apply(params.shared, xg, "swiglu")
@@ -146,6 +147,75 @@ def _moe_groups(params: MoE, xg: torch.Tensor, cfg, cf: float):
     imp = probs.mean(dim=(0, 1))
     aux = e * torch.sum(frac * imp)
     return out.to(xg.dtype), aux
+
+
+def _combine(ye, slot_tok, slot_w, t: int) -> torch.Tensor:
+    """The weighted scatter-add of expert outputs ``ye [G, slots, d]`` back
+    to ``t`` tokens, summed in float32, in ``ye``'s dtype."""
+    g, n, d = ye.shape
+    combine = (ye * slot_w[..., None].to(ye.dtype)).float()
+    out = torch.zeros((g, t, d), dtype=torch.float32, device=ye.device)
+    return out.scatter_add(1, slot_tok[..., None].expand(g, n, d), combine).to(ye.dtype)
+
+
+def _sharded_dispatch(params: MoE, xg, slot_tok, slot_w, slot_valid, e: int, cap: int,
+                      group):
+    """Gather, experts and combine for DTensor groups ``xg [G, T, d]``, in
+    the reference's expert-parallel layout: the ``[G, E, cap, d]`` buffers
+    placed by ``(group, "expert", "moe_cap", "embed")`` (experts over
+    ``model`` where it divides them, else whole; capacity over ``data``),
+    each rank gathering and scattering its own slots on local tensors
+    (``compat.local_map``), so no flattened slot axis is ever split.  The
+    result is a partial sum over the mesh dims that split the slots."""
+    from torch.distributed.tensor import Partial, Shard
+
+    from ..compat import local_map
+
+    g, t, d = xg.shape
+    slot_tok, slot_w, slot_valid = (
+        constrain(s.reshape(g, e, cap), (group, "expert", "moe_cap"))
+        for s in (slot_tok, slot_w, slot_valid))
+    slots = tuple(slot_tok.placements)
+    groups = tuple(xg.placements)
+    mesh = xg.device_mesh
+
+    # the groups are whole over the mesh dims that split the slots: their
+    # gradient is the sum of each rank's slots' parts
+    split = [mesh.get_group(i) for i, (p, q) in enumerate(zip(slots, groups))
+             if isinstance(p, Shard) and not isinstance(q, Shard)]
+
+    def gather(x, tok, valid):
+        x = sum_grad(x, split)
+        gl = tok.shape[0]
+        xe = torch.gather(x, 1, tok.reshape(gl, -1)[..., None].expand(gl, -1, d))
+        return xe.reshape(tok.shape + (d,)) * valid[..., None]
+
+    xe = local_map(gather, out_placements=list(slots), in_placements=(groups, slots, slots),
+                   device_mesh=mesh, redistribute_inputs=True)(xg, slot_tok, slot_valid)
+    ye = constrain(_experts_einsum(params, xe, group), (group, "expert", "moe_cap", "embed"))
+
+    def combine(y, tok, w):
+        gl = y.shape[0]
+        return _combine(y.reshape(gl, -1, d), tok.reshape(gl, -1), w.reshape(gl, -1), t)
+
+    summed = tuple(Partial() if isinstance(p, Shard) and p.dim > 0 else p for p in slots)
+    return local_map(combine, out_placements=list(summed),
+                     in_placements=(tuple(ye.placements), slots, slots),
+                     device_mesh=mesh, redistribute_inputs=True)(ye, slot_tok, slot_w)
+
+
+def _experts_einsum(params: MoE, xe: torch.Tensor, group) -> torch.Tensor:
+    """SwiGLU experts over ``xe [G, E, cap, d]`` as products over the
+    four-dimensional buffer (no flattening of a split axis), the weights
+    gathered along ``d`` and split over ``ffn`` as the rules say: each
+    rank's own capacity slice and ``ffn`` slice; ``[G, E, cap, d]``,
+    partial over ``ffn``'s axis."""
+    w_gate, w_up = (constrain(w, ("expert", None, "ffn")) for w in (params.we_gate, params.we_up))
+    w_down = constrain(params.we_down, ("expert", "ffn", None))
+    h = F.silu(torch.einsum("gecd,edf->gecf", xe, w_gate)) * torch.einsum(
+        "gecd,edf->gecf", xe, w_up)
+    return torch.einsum("gecf,efd->gecd", constrain(h, (group, "expert", "moe_cap", "ffn")),
+                        w_down)
 
 
 def _experts(params: MoE, xe: torch.Tensor) -> torch.Tensor:
@@ -165,7 +235,7 @@ def moe_apply(
     all ``B·S`` tokens routed as one group."""
     b, s, d = x.shape
     cf = capacity_factor if capacity_factor is not None else cfg.moe_capacity
-    out, aux = _moe_groups(params, x.reshape(1, b * s, d), cfg, cf)
+    out, aux = _moe_groups(params, x.reshape(1, b * s, d), cfg, cf, rows=False)
     return out.reshape(b, s, d), aux
 
 
@@ -175,4 +245,4 @@ def moe_apply_row_local(
     """Row-local dispatch: each batch row is its own routing group, with its
     capacity from ``S``; in the dropless regime equal to :func:`moe_apply`."""
     cf = capacity_factor if capacity_factor is not None else cfg.moe_capacity
-    return _moe_groups(params, x, cfg, cf)
+    return _moe_groups(params, x, cfg, cf, rows=True)

@@ -29,12 +29,14 @@ float32).
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..sharding import constrain, on_rows
 from .layers import dense_init, rms_norm
 from .mamba import _causal_conv
 
@@ -90,19 +92,39 @@ def mlstm_init(cfg, generator: Optional[torch.Generator] = None, device=None) ->
 
 
 def _mlstm_qkvg(params: MLSTM, xn: torch.Tensor, cfg):
-    """``(xu, z, q, k, v, i_gate, log_f)``: the up and gate projections,
-    per-head q / k / v ``[B, S, H, hd]`` and float32 gates ``[B, S, H]``."""
-    xu = xn @ params.w_up
+    """``(xu, z, q, k, v, gates)``: the up and gate projections, per-head q
+    / k / v ``[B, S, H, hd]`` and the float32 gate pre-activations ``[B, S,
+    2H]`` (input, then forget; :func:`_gate_values` takes them)."""
+    # xu whole along d_inner under a policy: the heads cannot split over an
+    # axis that does not divide them (z stays split, as its product is)
+    xu = constrain(xn @ params.w_up, ("batch", "seq", None))
     z = xn @ params.w_z
-    xc = F.silu(_causal_conv(xu, params.conv_w, params.conv_b))
-    q = torch.einsum("bse,ehd->bshd", xc, params.wq)
-    k = torch.einsum("bse,ehd->bshd", xc, params.wk) * cfg.xlstm_head_dim**-0.5
-    v = torch.einsum("bse,ehd->bshd", xu, params.wv)
+    # the causal conv on each rank's batch rows (DTensor's pad along the
+    # sequence fails to redistribute on some torch versions)
+    xc = on_rows(_conv_silu, xu, params.conv_w, params.conv_b, whole=(1, 2))
+    wq, wk, wv = (_heads(w) for w in (params.wq, params.wk, params.wv))
+    q = torch.einsum("bse,ehd->bshd", xc, wq)
+    k = torch.einsum("bse,ehd->bshd", xc, wk) * cfg.xlstm_head_dim**-0.5
+    v = torch.einsum("bse,ehd->bshd", xu, wv)
     gates = xc.float() @ params.w_gates + params.gate_bias
-    h = cfg.n_heads
-    i_gate = torch.exp(torch.clamp(gates[..., :h], max=0.0))  # (0, 1]
-    log_f = F.logsigmoid(gates[..., h:])  # log decay, < 0
-    return xu, z, q, k, v, i_gate, log_f
+    return xu, z, q, k, v, gates
+
+
+def _heads(w: torch.Tensor) -> torch.Tensor:
+    """A ``[di, H, hd]`` head projection gathered along ``di`` (FSDP's gather
+    before use), its heads split as the policy says; no-op without one."""
+    return constrain(w, (None, "heads", "head_dim"))
+
+
+def _conv_silu(x, w, b):
+    return F.silu(_causal_conv(x, w, b))
+
+
+def _gate_values(gates: torch.Tensor):
+    """``(i_gate, log_f)`` ``[B, S, H]`` of the pre-activations ``[B, S,
+    2H]``: the capped input gate, in (0, 1], and the log decay, < 0."""
+    h = gates.shape[-1] // 2
+    return torch.exp(torch.clamp(gates[..., :h], max=0.0)), F.logsigmoid(gates[..., h:])
 
 
 def _mlstm_chunk(q, k, v, ig, lf, s_state, n_state):
@@ -135,6 +157,23 @@ def _mlstm_chunk(q, k, v, ig, lf, s_state, n_state):
     return h, s_new, n_new
 
 
+def _mlstm_scan(q, k, v, gates, *, c: int):
+    """The chunkwise form over whole sequences (q / k / v ``[B, S, H, hd]``
+    float32, gate pre-activations ``[B, S, 2H]``) from a zero state, ``c``
+    tokens a chunk: ``(h [B, S, H, hd], S, n)``."""
+    b, s, hn, hd = q.shape
+    ig, lf = _gate_values(gates)
+    s_state = torch.zeros((b, hn, hd, hd), dtype=torch.float32, device=q.device)
+    n_state = torch.zeros((b, hn, hd), dtype=torch.float32, device=q.device)
+    hs = []
+    for t in range(0, s, c):
+        h, s_state, n_state = _mlstm_chunk(
+            q[:, t : t + c], k[:, t : t + c], v[:, t : t + c],
+            ig[:, t : t + c], lf[:, t : t + c], s_state, n_state)
+        hs.append(h)
+    return torch.cat(hs, dim=1), s_state, n_state
+
+
 def mlstm_apply(params: MLSTM, x: torch.Tensor, cfg, return_state: bool = False):
     """Chunkwise-parallel forward: x ``[B, S, d]`` (pre-normed) → ``[B, S,
     d]`` (and, with ``return_state``, the decode cache ``{"conv": [B, 3,
@@ -147,17 +186,14 @@ def mlstm_apply(params: MLSTM, x: torch.Tensor, cfg, return_state: bool = False)
             f"mLSTM over {s} tokens: the length must be at most xlstm_chunk "
             f"({cfg.xlstm_chunk}) or a multiple of it, as in the reference")
 
-    xu, z, q, k, v, i_gate, log_f = _mlstm_qkvg(params, x, cfg)
-    q, k, v = q.float(), k.float(), v.float()
-    s_state = torch.zeros((b, hn, hd, hd), dtype=torch.float32, device=x.device)
-    n_state = torch.zeros((b, hn, hd), dtype=torch.float32, device=x.device)
-    hs = []
-    for t in range(0, s, c):
-        h, s_state, n_state = _mlstm_chunk(
-            q[:, t : t + c], k[:, t : t + c], v[:, t : t + c],
-            i_gate[:, t : t + c], log_f[:, t : t + c], s_state, n_state)
-        hs.append(h)
-    h = rms_norm(torch.cat(hs, dim=1), params.h_scale).reshape(b, s, hn * hd)
+    xu, z, q, k, v, gates = _mlstm_qkvg(params, x, cfg)
+    # the gates and the chunk loop on each rank's batch rows
+    h, s_state, n_state = on_rows(functools.partial(_mlstm_scan, c=c), q.float(), k.float(),
+                                  v.float(), gates, outputs=3)
+    h = rms_norm(h, params.h_scale).reshape(b, s, hn * hd)
+    # whole along the heads under a policy, its gradient too: the flat
+    # heads cannot be split over an axis that does not divide them
+    h = constrain(h, ("batch", "seq", None))
     out = (h.to(x.dtype) * F.silu(z)) @ params.w_down
     if not return_state:
         return out
@@ -178,14 +214,14 @@ def mlstm_decode(params: MLSTM, x: torch.Tensor, cache: dict, cfg) -> Tuple[torc
     """One step: x ``[B, 1, d]`` → (``[B, 1, d]``, new cache)."""
     b = x.shape[0]
     hn, hd = cfg.n_heads, cfg.xlstm_head_dim
-    xu = x @ params.w_up
+    xu = constrain(x @ params.w_up, ("batch", None, None))
     z = x @ params.w_z
     window = torch.cat([cache["conv"], xu.to(cfg.dtype)], dim=1)
     conv = torch.einsum("bki,ik->bi", window.float(), params.conv_w)
     xc = F.silu(conv + params.conv_b).to(x.dtype)[:, None, :]
-    q = torch.einsum("bse,ehd->bshd", xc, params.wq)[:, 0].float()
-    k = (torch.einsum("bse,ehd->bshd", xc, params.wk)[:, 0] * hd**-0.5).float()
-    v = torch.einsum("bse,ehd->bshd", xu, params.wv)[:, 0].float()
+    q = torch.einsum("bse,ehd->bshd", xc, _heads(params.wq))[:, 0].float()
+    k = (torch.einsum("bse,ehd->bshd", xc, _heads(params.wk))[:, 0] * hd**-0.5).float()
+    v = torch.einsum("bse,ehd->bshd", xu, _heads(params.wv))[:, 0].float()
     gates = xc[:, 0].float() @ params.w_gates + params.gate_bias
     i_g = torch.exp(torch.clamp(gates[:, :hn], max=0.0))[..., None]
     f_g = torch.sigmoid(gates[:, hn:])[..., None]
@@ -231,8 +267,15 @@ def slstm_init(cfg, generator: Optional[torch.Generator] = None, device=None) ->
 def _recurrence(params: SLSTM) -> torch.Tensor:
     """The block-diagonal ``r [H, hd, 4·hd]`` as one ``[d, 4d]`` matrix, so
     that a step's recurrence lands in the reference's flat gate layout
-    (head-major ``[B, H·4·hd]``) in one product with its input."""
-    return torch.block_diag(*params.r)
+    (head-major ``[B, H·4·hd]``) in one product with its input.  Each
+    head's block is selected into its place on the diagonal, zeros
+    elsewhere: ``torch.block_diag(*r)`` bitwise, from ops that DTensor has
+    rules for (``block_diag`` has none); whole on every rank under a
+    policy, as the recurrence runs (:func:`_scan`)."""
+    r = constrain(params.r, (None, None, None))
+    hn, hd, w = r.shape
+    diag = torch.eye(hn, dtype=torch.bool, device=r.device)[:, None, :, None]
+    return torch.where(diag, r[:, :, None, :], 0.0).reshape(hn * hd, hn * w)
 
 
 def _slstm_cell(rmat: torch.Tensor, pre_t: torch.Tensor, state):
@@ -251,25 +294,36 @@ def _slstm_cell(rmat: torch.Tensor, pre_t: torch.Tensor, state):
     return h, c, n
 
 
+def _scan(pre: torch.Tensor, rmat: torch.Tensor, *state, hn: int):
+    """The recurrence over ``pre [B, S, 4d]`` (float32) from ``state`` (h,
+    c, n, each ``[B, H, hd]``; zeros when not given): ``(hs [B, S, H, hd],
+    h, c, n)``."""
+    b, s, four_d = pre.shape
+    hd = four_d // (4 * hn)
+    if not state:
+        state = tuple(torch.zeros((b, hn, hd), dtype=torch.float32, device=pre.device)
+                      for _ in range(3))
+    hs = []
+    for t in range(s):
+        state = _slstm_cell(rmat, pre[:, t], state)
+        hs.append(state[0])
+    return (torch.stack(hs, dim=1),) + tuple(state)
+
+
 def slstm_apply(params: SLSTM, x: torch.Tensor, cfg, return_state: bool = False):
     """Sequential forward: x ``[B, S, d]`` (pre-normed) → ``[B, S, d]`` (and,
     with ``return_state``, the cache ``{"h", "c", "n"}``, float32 ``[B, H,
     hd]``).  One step a token, eleven ops a step."""
     b, s, d = x.shape
     hn = cfg.n_heads
-    hd = d // hn
-    pre = (x @ params.w_in).float() + params.bias  # [B, S, 4d]
-    rmat = _recurrence(params)
-    state = tuple(torch.zeros((b, hn, hd), dtype=torch.float32, device=x.device) for _ in range(3))
-    hs = []
-    for t in range(s):
-        state = _slstm_cell(rmat, pre[:, t], state)
-        hs.append(state[0])
-    h = rms_norm(torch.stack(hs, dim=1), params.h_scale).reshape(b, s, d)
-    out = h.to(x.dtype) @ params.w_out
+    pre = (x @ constrain(params.w_in, (None, None))).float() + params.bias  # [B, S, 4d]
+    # on each rank's batch rows, the matrix whole on every rank
+    hs, h_f, c_f, n_f = on_rows(functools.partial(_scan, hn=hn), pre, _recurrence(params),
+                                outputs=4, whole=(1,))
+    h = rms_norm(hs, params.h_scale).reshape(b, s, d)
+    out = h.to(x.dtype) @ constrain(params.w_out, (None, None))
     if not return_state:
         return out
-    h_f, c_f, n_f = state
     return out, {"h": h_f, "c": c_f, "n": n_f}
 
 
@@ -285,7 +339,8 @@ def init_slstm_cache(cfg, batch: int, device=None) -> dict:
 def slstm_decode(params: SLSTM, x: torch.Tensor, cache: dict, cfg) -> Tuple[torch.Tensor, dict]:
     """One step: x ``[B, 1, d]`` → (``[B, 1, d]``, new cache)."""
     b, _, d = x.shape
-    pre = (x[:, 0] @ params.w_in).float() + params.bias
-    h, c, n = _slstm_cell(_recurrence(params), pre, (cache["h"], cache["c"], cache["n"]))
+    pre = (x @ constrain(params.w_in, (None, None))).float() + params.bias  # [B, 1, 4d]
+    _, h, c, n = on_rows(functools.partial(_scan, hn=cfg.n_heads), pre, _recurrence(params),
+                         cache["h"], cache["c"], cache["n"], outputs=4, whole=(1,))
     hh = rms_norm(h, params.h_scale).reshape(b, 1, d)
-    return hh.to(x.dtype) @ params.w_out, {"h": h, "c": c, "n": n}
+    return hh.to(x.dtype) @ constrain(params.w_out, (None, None)), {"h": h, "c": c, "n": n}

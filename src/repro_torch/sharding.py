@@ -42,6 +42,7 @@ over ``model``, KV-cache sequence sharded over ``model`` — SP decode).
 
 from __future__ import annotations
 
+import functools
 import re
 import threading
 from contextlib import contextmanager
@@ -63,14 +64,19 @@ __all__ = [
     "batch_specs",
     "cache_specs",
     "constrain",
+    "constrain_tree",
     "distribute_tree",
     "full_tensor",
     "is_dtensor",
     "logical_spec",
     "mesh_axes",
     "on_head_shards",
+    "on_rows",
     "param_specs",
+    "pinned",
     "state_specs",
+    "sum_grad",
+    "sum_over",
     "tree_logical_specs",
     "use_policy",
 ]
@@ -234,13 +240,31 @@ class ShardingPolicy:
 
     def constrain(self, x, logical: Sequence[Optional[str]]):
         """``x`` redistributed to its resolved placements if it is a
-        DTensor; a plain tensor (a local shard) as it is."""
+        DTensor (and its gradient too, on the way back); a plain tensor (a
+        local shard) as it is."""
         if not is_dtensor(x):
             return x
-        target = self.sharding(logical, x.shape).placements
-        if tuple(x.placements) == target:
-            return x
-        return x.redistribute(self.mesh, target)
+        return pinned(x, self.sharding(logical, x.shape).placements)
+
+
+def pinned(x, placements):
+    """The DTensor ``x`` at ``placements``, and its gradient at the same
+    placements on the way back: the transpose of a sharding constraint is
+    the same constraint, as ``with_sharding_constraint``'s is.  Without
+    it, DTensor leaves a cotangent as its producer left it (a sum over a
+    vocab shard stays a partial sum through the residual stream), and the
+    next product's backward gathers its weight to meet it."""
+    placements = tuple(placements)
+    if tuple(x.placements) != placements:
+        x = x.redistribute(x.device_mesh, placements)
+    if x.requires_grad:
+        x = x.view_as(x)  # the pin holds for this use alone
+        x.register_hook(functools.partial(_grad_at, placements=placements))
+    return x
+
+
+def _grad_at(g, placements):
+    return g if tuple(g.placements) == placements else g.redistribute(g.device_mesh, placements)
 
 
 _STATE = threading.local()
@@ -266,6 +290,21 @@ def constrain(x, logical: Sequence[Optional[str]]):
     if pol is None:
         return x
     return pol.constrain(x, logical)
+
+
+def constrain_tree(tree, table: Dict):
+    """Each DTensor leaf of ``tree`` (a ``_tree`` tree) redistributed to
+    the placements its path's logical axes (``table``: ``CACHE_AXES``,
+    ``BATCH_AXES``) resolve to under the active policy; other leaves as
+    they are.  No-op without an active policy."""
+    pol = active_policy()
+    if pol is None:
+        return tree
+    from .train._tree import tree_paths, tree_unflatten
+
+    return tree_unflatten(tree, [
+        pol.constrain(leaf, _leaf_logical(path, leaf.dim(), table)) if is_dtensor(leaf)
+        else leaf for path, leaf in tree_paths(tree)])
 
 
 def logical_spec(logical: Sequence[Optional[str]], shape=None) -> PartitionSpec:
@@ -324,6 +363,91 @@ def on_head_shards(fn, q, k, v, *rows):
         in_placements=(placements,) * 3 + (row_placements,) * len(rows),
         device_mesh=mesh,
     )(q, k, v, *rows)
+
+
+class _SumGrad(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over ``groups``: a
+    whole (replicated) input of a function run on each rank's own shard
+    gets a gradient from each rank's part, and its gradient is their sum
+    (Megatron's copy into the model-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        for g in ctx.groups:
+            torch.distributed.all_reduce(grad, group=g)
+        return grad, None
+
+
+class _SumOver(torch.autograd.Function):
+    """The transpose of :class:`_SumGrad`: the forward sums over ``groups``,
+    whose ranks hold partial terms of one replicated value; the gradient of
+    each rank's term is the value's gradient itself (Megatron's reduction
+    into the model-parallel region)."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        x = x.clone()
+        for g in groups:
+            torch.distributed.all_reduce(x, group=g)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def sum_over(x: torch.Tensor, groups) -> torch.Tensor:
+    """``x`` (a local tensor, each rank's partial term) summed over the
+    process groups ``groups`` into the value every rank then holds, its
+    gradient passed to each term as it is (:class:`_SumOver`)."""
+    return _SumOver.apply(x, tuple(groups)) if groups else x
+
+
+def sum_grad(x: torch.Tensor, groups) -> torch.Tensor:
+    """``x`` (a local tensor, whole on every rank of the process groups
+    ``groups``, read for each rank's own part of the work) with its
+    gradient summed over ``groups`` (:class:`_SumGrad`); as it is where
+    nothing records a gradient."""
+    if not groups or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _SumGrad.apply(x, tuple(groups))
+
+
+def on_rows(fn, *args, outputs: int = 1, whole=()):
+    """``fn(*args)`` with DTensor ``args`` on each rank's own batch rows
+    (``compat.local_map``): every argument and each of the ``outputs``
+    tensors ``fn`` returns (a tuple when more than one) split over the mesh
+    dims that split ``args[0]``'s dim 0 and whole on the others; the
+    arguments at the indices in ``whole`` whole everywhere.  For a
+    recurrence's loop, whose ops then run on local tensors rather than as
+    DTensor ops a step.  Plain arguments: ``fn(*args)``."""
+    if not is_dtensor(args[0]):
+        return fn(*args)
+    from torch.distributed.tensor import Replicate, Shard
+
+    from .compat import local_map
+
+    mesh = args[0].device_mesh
+    rows = tuple(p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                 for p in args[0].placements)
+    full = (Replicate(),) * len(rows)
+    ins = tuple(full if i in whole else rows for i in range(len(args)))
+    # a whole argument's gradient is the sum of the row shards' parts
+    split = [mesh.get_group(i) for i, p in enumerate(rows) if isinstance(p, Shard)]
+
+    def local(*xs):
+        return fn(*(sum_grad(x, split) if i in whole else x for i, x in enumerate(xs)))
+
+    # local_map takes a list for one output, a tuple of them for several
+    outs = (rows,) * outputs if outputs > 1 else list(rows)
+    return local_map(local, out_placements=outs, in_placements=ins,
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
 # ---------------------------------------------------------------------------

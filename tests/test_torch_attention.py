@@ -530,3 +530,59 @@ def test_bwd_variant_tool_reads_ptxas_registers_and_spills():
         "ptxas info    : Used 168 registers, used 16 barriers\n"
     )
     assert _bwd_variants_tool().ptxas_report(log) == [(128, 168, 856, 852)]
+
+
+@pytest.mark.parametrize("d", range(8, 257, 8))
+def test_bwd_f32_geometry_per_width(d):
+    """The float32 backward's instantiation for every head dim: the 3xTF32
+    kernels up to a padded width of 128 (64-row resident tiles, natural
+    panels of 32 float32 columns on the 128-byte swizzle, 64-byte at width
+    16), the scalar kernels at 256; both kernels' shared memory fits one
+    H100 block and every tile and panel starts on a swizzle repeat."""
+    g = PF.bwd_geometry(d, torch.float32)
+    assert g["dp"] == PF.padded_dim(d)
+    assert g["smem_dkdv"] <= 232_448 and g["smem_dq"] <= 232_448
+    if g["dp"] == 256:
+        assert g["wgmma"] == 0 and g["bq"] == g["bk"] == 32
+        assert g["smem_dkdv"] == g["smem_dq"] == PF.bwd_geometry(d)["smem"]
+        return
+    dp, rows = g["dp"], PF.BWD_F32_ROWS
+    assert g["wgmma"] == 1 and rows == 64
+    assert g["panel"] == min(dp, 32) and g["swizzle"] == 4 * g["panel"]
+    assert (g["bq"], g["bk"]) == ((16, 32) if dp == 128 else (64, 64))
+    tile, q_tile, k_tile = rows * dp * 4, g["bq"] * dp * 4, g["bk"] * dp * 4
+    for seq in (g["bq"], g["bk"]):  # a transposed tile's panels: DP rows of min(seq, 32)
+        panel_bytes = dp * min(seq, 32) * 4
+        assert panel_bytes % (8 * min(seq, 32) * 4) == 0
+    for nbytes in (tile, q_tile, k_tile, rows * g["swizzle"], g["bq"] * g["swizzle"]):
+        assert nbytes % 512 == 0  # the 64-byte swizzle's repeat; 1 KiB at 128 bytes
+    assert g["smem_dkdv"] == 1024 + 4 * tile + 8 * q_tile + 2 * g["bq"] * 4 + 3 * 8
+    assert g["smem_dq"] == 1024 + 4 * tile + 2 * rows * 4 + 6 * k_tile + 3 * 8
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kh,d", [(1, 4096, 4096, 9, 3, 64), (2, 1000, 3001, 8, 2, 40),
+                                           (1, 1111, 1111, 4, 1, 128), (1, 300, 301, 2, 2, 8)])
+def test_bwd_f32_workspace_covers_the_planes(b, sq, sk, h, kh, d):
+    """The float32 workspace holds the L·log2 e and Δ rows (padded to 64)
+    and the 3xTF32 hi and lo planes of Q, dO, K, V (natural) and Q, dO, K
+    (transposed, the sequence padded to 8), one after another: no overlap,
+    each 16-byte aligned with TMA-legal strides, and its size covers them
+    all."""
+    lay = PF.tf32_planes(b, sq, sk, h, kh, d)
+    s8 = lambda s: -(-s // 8) * 8  # noqa: E731
+    want = {"rows": 2 * b * h * -(-sq // 64) * 64}
+    for name, n in (("qn", b * h * sq * d), ("qt", b * h * d * s8(sq)), ("on", b * h * sq * d),
+                    ("ot", b * h * d * s8(sq)), ("kn", b * kh * sk * d),
+                    ("kt", b * kh * d * s8(sk)), ("vn", b * kh * sk * d)):
+        want[f"{name}_hi"] = want[f"{name}_lo"] = n
+    assert {k: n for k, (_, n) in lay.items()} == want
+    at = 0
+    for name, (off, n) in lay.items():  # in order, back to back
+        assert off == at and off * 4 % 16 == 0, name
+        at += n
+    assert PF.bwd_workspace(torch.float32, b, sq, sk, h, kh, d) == at
+    # TMA strides (bytes) of the natural rows and the transposed rows
+    assert (4 * d) % 16 == 0 and (4 * s8(sq)) % 16 == 0 and (4 * s8(sk)) % 16 == 0
+    # the bf16 workspace is as it was: rows, the float32 dQ and GQA's dK / dV
+    bf16 = PF.bwd_workspace(torch.bfloat16, b, sq, sk, h, kh, d)
+    assert bf16 == want["rows"] + b * sq * h * d + (0 if h == kh else 2 * b * sk * kh * d)

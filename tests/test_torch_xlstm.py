@@ -113,3 +113,18 @@ def test_weights_keep_reference_layouts_and_dtypes(kind):
     for name in ("gate_bias", "bias", "h_scale", "conv_b"):
         if name in jtree:
             np.testing.assert_array_equal(getattr(module, name).numpy(), np.asarray(jtree[name]))
+
+
+@pytest.mark.parametrize("heads,hd,seed", [(2, 32, 0), (4, 512, 1), (3, 8, 2)])
+def test_recurrence_equals_block_diag_bitwise(heads, hd, seed):
+    """sLSTM's ``[d, 4d]`` recurrence matrix, built by a select that DTensor
+    shards, is ``torch.block_diag(*r)`` bit for bit on plain tensors (the
+    signs of its zeros too)."""
+    rng = np.random.default_rng(seed)
+    r = torch.from_numpy(rng.standard_normal((heads, hd, 4 * hd)).astype(np.float32))
+    params = PXL.SLSTM.__new__(PXL.SLSTM)
+    torch.nn.Module.__init__(params)
+    params.r = torch.nn.Parameter(r, requires_grad=False)
+    got, want = PXL._recurrence(params), torch.block_diag(*r)
+    assert got.shape == want.shape == (heads * hd, heads * 4 * hd)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
