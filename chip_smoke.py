@@ -29,7 +29,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
    ragged lengths and the head dims 8 to 256, and phase 13's model
    shapes: whisper-medium's cross attention (4,096 queries over 1,500
    keys, non-causal, bf16 and float32) and causal self attention (16
-   heads of 64), llava-next-mistral-7b's prefill (32 / 8 heads of 128).
+   heads of 64), llava-next-mistral-7b's prefill (32 / 8 heads of 128);
+   float32 at head dims up to 128 bound by its 3xTF32 kernel (3 times the
+   operations at TF32's rate), the scalar bound (float32's rate) beside
+   it, and first the library's float32 instantiation per head dim must
+   equal ``f32_geometry``'s and its workspace ``fwd_f32_workspace``'s.
    At every one of those shapes the flash backward (``flash_bwd``: dq, dk,
    dv from the forward kernel's output and row log-sum-exp) is held to
    ``flash_backward_ref`` by flash's three bounds, each of dq, dk and dv
@@ -39,8 +43,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
    a2.7b's 16 heads of 128 as olmo-1b's, llava-next-mistral-7b's) and at
    whisper-medium's cross and self attention beside its bound (2.5 times
    the forward's operations; the bytes of q, k, v, o, dO, dq, dk, dv, L
-   and Δ; for float32 also the tensor-core bound, 3 times the operations
-   at TF32's rate: 3xTF32) and the backward of
+   and Δ; float32 at head dims up to 128 bound as the forward) and the
+   backward of
    ``scaled_dot_product_attention``; first the library's instantiation per
    head dim, in bf16 and float32, must equal ``bwd_geometry``'s, and its
    workspace size ``bwd_workspace``'s at every shape.
@@ -1016,15 +1020,22 @@ def library_attention(q, k, v, causal, window, kv_len):
 def flash_rows(ref, kops, kflash, gen) -> dict:
     """flash against its plain version at every shape of FLASH_SHAPES, timed
     where marked; returns the JSON row of the first shape, the others in
-    ``also``.  First the bf16 instantiation the library reports for every
-    head dim must be the one ``kernels/flash.py`` mirrors (and the CPU tests
-    check)."""
+    ``also``.  First the bf16 and the float32 instantiations the library
+    reports for every head dim must be the ones ``kernels/flash.py``
+    mirrors (and the CPU tests check); at each float32 shape its workspace
+    too."""
     for d in range(8, 257, 8):
         got, want = kflash.kernel_bf16_geometry(d), kflash.bf16_geometry(d)
         if got != want:
             raise AssertionError(f"flash bf16 geometry at head dim {d}: {got} != {want}")
     log(f"{'flash':15s} bf16 geometry of head dims 8-256 as mirrored: "
         f"{sorted({tuple(kflash.bf16_geometry(d).values()) for d in (16, 32, 64, 128, 256)})}")
+    for d in range(8, 257, 8):
+        got, want = kflash.kernel_f32_geometry(d), kflash.f32_geometry(d)
+        if got != want:
+            raise AssertionError(f"flash float32 geometry at head dim {d}: {got} != {want}")
+    log(f"{'flash':15s} float32 geometry of head dims 8-256 as mirrored: "
+        f"{sorted({tuple(kflash.f32_geometry(d).values()) for d in (16, 32, 64, 128, 256)})}")
     out = [flash_case(ref, kops, gen, shape) for shape in FLASH_SHAPES]
     main = out[0]
     return dict(
@@ -1034,10 +1045,47 @@ def flash_rows(ref, kops, kflash, gen) -> dict:
     )
 
 
+def flash_work(b, sq, kv_len, h, kh, d, causal, window, size: int) -> tuple:
+    """(bytes, operations) of one forward: q, k and v read and the output
+    written once (the keys up to ``kv_len``), 4·D operations a visible pair."""
+    nbytes = 2 * b * sq * h * d * size + 2 * b * kv_len * kh * d * size
+    return nbytes, 4 * d * h * b * visible_pairs(sq, kv_len, causal, window)
+
+
+def flash_bound(nbytes: float, flops: float, dt, tf32: bool) -> dict:
+    """The bound of one flash call (forward or backward) as the kernel runs
+    it: bf16 products on the tensor cores; float32 where the kernel runs
+    3xTF32 (``tf32``: its geometry's ``wgmma``) three times the operations
+    at TF32's rate, with the scalar bound (float32's rate, off the tensor
+    cores) beside it as ``scalar_bound_ms``; float32 on the scalar kernels
+    (head dim 256) the scalar bound."""
+    if dt == BF16:
+        bnd, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        return dict(bound_ms=bnd, bound_by=by)
+    scalar, scalar_by = bound_ms(nbytes, flops, FP32_FLOPS)
+    if not tf32:
+        return dict(bound_ms=scalar, bound_by=scalar_by)
+    bnd, by = bound_ms(nbytes, 3 * flops, TF32_FLOPS)
+    return dict(bound_ms=bnd, bound_by=by, scalar_bound_ms=scalar, scalar_bound_by=scalar_by)
+
+
+def scalar_bound_note(row: dict) -> str:
+    """A timed float32 row's share of its scalar bound, for the log (set in
+    ``row`` as ``pct_of_scalar_bound``); empty where it has none."""
+    if "scalar_bound_ms" not in row:
+        return ""
+    row["pct_of_scalar_bound"] = 100 * row["scalar_bound_ms"] / row["ms"]
+    return (f" scalar_bound_ms={row['scalar_bound_ms']:.4f} ({row['scalar_bound_by']}, "
+            f"{row['pct_of_scalar_bound']:.1f} %)")
+
+
 def flash_case(ref, kops, gen, shape) -> dict:
     """flash against its plain version at one ``FLASH_SHAPES`` entry, timed
     (per call, back to back, plain, bound, ``scaled_dot_product_attention``)
-    where marked; its JSON row."""
+    where marked; a float32 row at head dims up to 128 is bound by 3xTF32 on
+    the tensor cores (:func:`flash_bound`), its scalar bound beside it; its
+    JSON row."""
+    from repro_torch.kernels import flash as kflash
     what, b, sq, sk, h, kh, d, causal, window, kv_len, dt, timed = shape
     kv_len = sk if kv_len is None else kv_len
     q = torch.randn(b, sq, h, d, device="cuda", generator=gen).to(dt)
@@ -1049,6 +1097,11 @@ def flash_case(ref, kops, gen, shape) -> dict:
     got, want = kern().float(), plain().float()
     tol, row_rtol, norm_rtol = FLASH_TOL[dt], FLASH_ROW_RTOL[dt], FLASH_NORM_RTOL[dt]
     name = f"{what} {str(dt).split('.')[-1]}"
+    if dt == F32:  # the kernel's workspace, as the library sizes it, against the mirror
+        ws = (kflash.kernel_fwd_f32_workspace(b, sq, sk, h, kh, d),
+              kflash.fwd_f32_workspace(b, sq, sk, h, kh, d))
+        if ws[0] != ws[1]:
+            raise AssertionError(f"flash float32 workspace at {name}: {ws[0]} != {ws[1]} floats")
     diff = got - want
     err = float(diff.abs().max())
     if kv_len == 0:  # no row sees a key: both must be exact zeros
@@ -1076,19 +1129,18 @@ def flash_case(ref, kops, gen, shape) -> dict:
         norm_err=norm_err, norm_rtol=norm_rtol,
     )
     if timed:
-        s = q.element_size()
-        nbytes = 2 * b * sq * h * d * s + 2 * b * kv_len * kh * d * s
-        flops = 4 * d * h * b * visible_pairs(sq, kv_len, causal, window)
-        bnd, by = bound_ms(nbytes, flops, BF16_FLOPS if dt == BF16 else FP32_FLOPS)
+        nbytes, flops = flash_work(b, sq, kv_len, h, kh, d, causal, window, q.element_size())
         lib = library_attention(q, k, v, causal, window, kv_len)
         row.update(
-            ms=time_ms(kern), plain_ms=time_ms(plain), bound_ms=bnd, bound_by=by,
+            ms=time_ms(kern), plain_ms=time_ms(plain),
+            **flash_bound(nbytes, flops, dt, kflash.f32_geometry(d)["wgmma"] == 1),
             library_ms=time_ms(lib), ms_back_to_back=time_ms_back_to_back(kern),
             library_ms_back_to_back=time_ms_back_to_back(lib),
         )
-        row["pct_of_bound"] = 100 * bnd / row["ms"]
+        row["pct_of_bound"] = 100 * row["bound_ms"] / row["ms"]
         log(f"{'flash':15s} {name:34s} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-            f"bound_ms={bnd:.4f} ({by}, {row['pct_of_bound']:.1f} %) "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}, {row['pct_of_bound']:.1f} %)"
+            f"{scalar_bound_note(row)} "
             f"library_ms={row['library_ms']:.4f}; back to back "
             f"{row['ms_back_to_back']:.4f} vs library {row['library_ms_back_to_back']:.4f}")
     del q, k, v, got, want, diff
@@ -1201,20 +1253,15 @@ def flash_bwd_case(ref, kflash, gen, shape) -> dict:
         nbytes = (4 * b * sq * h * d * s + 4 * b * kv_len * kh * d * s
                   + 2 * b * h * sq * 4)
         flops = 2.5 * 4 * d * h * b * visible_pairs(sq, kv_len, causal, window)
-        bnd, by = bound_ms(nbytes, flops, BF16_FLOPS if dt == BF16 else FP32_FLOPS)
         lib = library_attention_bwd(q, k, v, dout, causal, window, kv_len)
         row.update(ms=time_ms(kern), plain_ms=time_ms(plain, reps=3, warmup=1),
-                   bound_ms=bnd, bound_by=by, library_ms=time_ms(lib),
+                   **flash_bound(nbytes, flops, dt, kflash.bwd_geometry(d, dt)["wgmma"] == 1),
+                   library_ms=time_ms(lib),
                    ms_back_to_back=time_ms_back_to_back(kern, launches=5))
-        row["pct_of_bound"] = 100 * bnd / row["ms"]
-        tc = ""
-        if dt == F32:  # 3xTF32 runs each product three times on the tensor cores
-            row["tensor_core_bound_ms"], row["tensor_core_bound_by"] = bound_ms(
-                nbytes, 3 * flops, TF32_FLOPS)
-            tc = (f" tensor_core_bound_ms={row['tensor_core_bound_ms']:.4f} "
-                  f"({row['tensor_core_bound_by']}, 3x the operations at TF32)")
+        row["pct_of_bound"] = 100 * row["bound_ms"] / row["ms"]
         log(f"{'flash_bwd':15s} {name:34s} ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-            f"bound_ms={bnd:.4f} ({by}, {row['pct_of_bound']:.2f} %){tc} "
+            f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}, {row['pct_of_bound']:.2f} %)"
+            f"{scalar_bound_note(row)} "
             f"library_ms={row['library_ms']:.4f} (SDPA backward); back to back "
             f"{row['ms_back_to_back']:.4f}")
         del lib
@@ -3454,15 +3501,17 @@ def lm_serve(lm, params, cfg, prompts) -> tuple:
 
 def count_flash(lm, what, fn, expect) -> tuple:
     """Run ``fn`` between a counter reset and a read; flash must have
-    launched ``expect`` times.  Returns (``fn``'s result, launches)."""
+    launched ``expect`` times.  Returns (``fn``'s result, {"flash": its
+    launches, "flash_f32": the float32 ones among them})."""
     lm.kops.reset_launch_counts()
     out = fn()
     torch.cuda.synchronize()
-    n = lm.kops.launch_counts()["flash"]
-    log(f"{what}: flash launches {n} (expected {expect})")
+    counts = {k: lm.kops.launch_counts()[k] for k in ("flash", "flash_f32")}
+    n = counts["flash"]
+    log(f"{what}: flash launches {n} (expected {expect}), float32 {counts['flash_f32']}")
     if n != expect:
         raise AssertionError(f"{what}: flash launched {n} times, expected {expect}")
-    return out, n
+    return out, counts
 
 
 def bf16_forward_check(lm, params, cfg, float32, batch, launches=None) -> dict:
@@ -3479,8 +3528,8 @@ def bf16_forward_check(lm, params, cfg, float32, batch, launches=None) -> dict:
         with torch.no_grad():
             return lm.forward(p, batch, c)[0][0, :, :v]
 
-    kern, _ = count_flash(lm, "bf16 forward", functools.partial(logits, params, cfg),
-                          cfg.n_layers if launches is None else launches)
+    kern, counts = count_flash(lm, "bf16 forward", functools.partial(logits, params, cfg),
+                               cfg.n_layers if launches is None else launches)
     with mock.patch.object(lm.kops, "flash_attention", plain_flash(lm.chunked_attention)):
         plain, _ = count_flash(lm, "bf16 forward, plain path",
                                functools.partial(logits, params, cfg), 0)
@@ -3513,7 +3562,8 @@ def bf16_forward_check(lm, params, cfg, float32, batch, launches=None) -> dict:
             f"{BF16_NEAR_RATIO} x the plain path's distance from float32")
     return {what: dict(median=float(r.median()), max=float(r.max()), mean=float(r.mean()))
             for what, r in (("flash_vs_plain", k_p), ("flash_vs_float32", k_32),
-                            ("plain_vs_float32", p_32))} | dict(argmax_agree=agree)
+                            ("plain_vs_float32", p_32))} | dict(argmax_agree=agree,
+                                                                  launches=counts)
 
 
 def greedy_ties(lm, params32, cfg32, prompts, res32) -> list:
@@ -3539,7 +3589,7 @@ def greedy_ties(lm, params32, cfg32, prompts, res32) -> list:
     return ties
 
 
-def lm_phase(lm) -> int:
+def lm_phase(lm) -> dict:
     cfg = lm.get_config(LM_ARCH)
     t = time.perf_counter()
     params = lm.init_params(cfg, seed=SEED, device="cuda")
@@ -4024,7 +4074,9 @@ def long_step_leg(tr) -> dict:
     """One float32 microbatch of 1 x 4,096 tokens at full width and depth:
     loss and gradients through the kernels (flash and flash_bwd exactly
     once a layer, counted from zero) against the same step through the
-    plain ``chunked_attention`` on the card (no kernel launched)."""
+    plain ``chunked_attention`` on the card (no kernel launched); then the
+    step once more under the profiler, which must show flash_bwd's kernels
+    and flash's, its 3xTF32 ``flash_tf32_kernel`` by name."""
     args, cfg, hp, pipe = tr.setup(LONG_TRAIN_ARGV)
     state = tr.init_state(args.seed, cfg, hp, device="cuda")
     batch = pipe.batch_at(0)
@@ -4037,10 +4089,11 @@ def long_step_leg(tr) -> dict:
     kernel_s = time.perf_counter() - t
     counts = tr.kops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    launches = {name: counts[name] for name in ("flash", "flash_bwd")}
+    launches = {name: counts[name] for name in ("flash", "flash_bwd", "flash_f32")}
     log(f"1 x 4,096 float32 step: launches {launches} (expected {cfg.n_layers} each), "
         f"{kernel_s:.2f}s, peak memory {peak}")
-    if launches != {"flash": cfg.n_layers, "flash_bwd": cfg.n_layers}:
+    if launches != {"flash": cfg.n_layers, "flash_bwd": cfg.n_layers,
+                    "flash_f32": cfg.n_layers}:
         raise AssertionError(f"1 x 4,096 step: launches {launches}, expected "
                              f"{cfg.n_layers} of flash and of flash_bwd")
     tr.kops.reset_launch_counts()
@@ -4083,8 +4136,14 @@ def long_step_leg(tr) -> dict:
     log(f"1 x 4,096 float32 step, profiled: device busy {row['device_busy_ms']:.1f} ms, "
         f"flash_bwd {row['flash_bwd_device_ms']:.1f} ms, flash {row['flash_device_ms']:.1f} ms "
         f"on the device")
+    row["flash_kernels"] = sorted({n[:80] for n, _ in ops if _FWD_KERNELS.search(n)})
+    log(f"1 x 4,096 float32 step, flash's kernels in the profile: {row['flash_kernels']}")
     if not row["flash_bwd_device_ms"] > 0:
         raise AssertionError("1 x 4,096 float32 step: no flash_bwd kernel in the profile")
+    if not row["flash_device_ms"] > 0:
+        raise AssertionError("1 x 4,096 float32 step: no flash kernel in the profile")
+    if not any(_TF32_FWD_KERNEL.search(n) for n, _ in ops):  # head dim 64: the 3xTF32 kernel
+        raise AssertionError("1 x 4,096 float32 step: no flash_tf32_kernel in the profile")
     del state
     return row
 
@@ -4106,7 +4165,7 @@ def bf16_train_leg(tr, dry) -> dict:
     counts = tr.kops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     want = cfg.n_layers * 4 * BF16_TRAIN_STEPS
-    launches = {name: counts[name] for name in ("flash", "flash_bwd")}
+    launches = {name: counts[name] for name in ("flash", "flash_bwd", "flash_f32")}
     losses = [h["loss"] for h in res.history]
     first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
     stats = step_stats(res.history, 4 * 4096)
@@ -4114,7 +4173,7 @@ def bf16_train_leg(tr, dry) -> dict:
         f"{stats['step_ms_median']:.1f} ms (median), {stats['tokens_per_s']:.0f} tokens/s, "
         f"loss {first:.4f} -> {last:.4f} (means of the first and last 3), peak memory "
         f"{peak}, launches {launches} (expected {want} each)")
-    if launches != {"flash": want, "flash_bwd": want}:
+    if launches != {"flash": want, "flash_bwd": want, "flash_f32": 0}:
         raise AssertionError(f"bf16 4 x 4,096: launches {launches}, expected {want} each")
     if len(losses) != BF16_TRAIN_STEPS or not np.all(np.isfinite(losses)) or not last < first:
         raise AssertionError(f"bf16 4 x 4,096: losses {losses}")
@@ -4284,7 +4343,10 @@ def dryrun_estimate(job, step_ms: float, peak: int) -> dict:
 _BWD_KERNELS = re.compile(r"(?:::|\d)(?:bwd_bf16_kernel|rows_kernel|finish_kernel|dkdv_kernel|"
                           r"dq_kernel|delta_kernel|dkdv_tf32_kernel|dq_tf32_kernel|"
                           r"split_kernel)(?:<|\(|I|E)")
-_FWD_KERNELS = re.compile(r"(?:::|\d)(?:flash_bf16_kernel|flash_f32_kernel)(?:<|\(|I|E)")
+_FWD_KERNELS = re.compile(r"(?:::|\d)(?:flash_bf16_kernel|flash_tf32_kernel|fwd_split_kernel|"
+                          r"flash_f32_kernel)(?:<|\(|I|E)")
+# the float32 forward's 3xTF32 kernel (head dims up to 128)
+_TF32_FWD_KERNEL = re.compile(r"(?:::|\d)flash_tf32_kernel(?:<|\(|I|E)")
 
 
 def profiled_train_step(tr, state, step_ms: float) -> dict:
@@ -4513,7 +4575,8 @@ def moe_dispatch_check(lm, params, cfg, batch) -> dict:
 def moe_leg(lm, gen) -> tuple:
     """qwen2-moe-a2.7b at full width and depth behind the engine (phase 7's
     traffic), flash on every prefill; then its checks.  Returns (the leg's
-    JSON, flash launches of the serving run, flash's row at this shape)."""
+    JSON, the serving run's flash launches as ``count_flash`` counts them,
+    flash's row at this shape)."""
     cfg = lm.get_config(MOE_ARCH)
     t = time.perf_counter()
     params = lm.init_params(cfg, seed=SEED, device="cuda")
@@ -4894,8 +4957,8 @@ def encdec_serve(lm, params, cfg, batch, n_new: int, launches: int, what: str) -
     profiled.  Returns (its JSON, what ``generate`` returned)."""
     generate(lm, params, cfg, {k: t[:1] for k, t in batch.items()}, 2)
     torch.cuda.reset_peak_memory_stats()
-    got, _ = count_flash(lm, what, functools.partial(generate, lm, params, cfg, batch, n_new),
-                         launches)
+    got, counts = count_flash(lm, what, functools.partial(generate, lm, params, cfg, batch,
+                                                          n_new), launches)
     peak = torch.cuda.max_memory_allocated()
     rows, n = got["tokens"].shape
     wall = got["prefill_s"] + got["decode_s"]
@@ -4907,7 +4970,7 @@ def encdec_serve(lm, params, cfg, batch, n_new: int, launches: int, what: str) -
     decode_ms = time_ms(decode, reps=5)
     out = dict(requests=rows, new_tokens=n, wall_s=wall, tokens_per_s=rows * n / wall,
                prefill_s=got["prefill_s"], decode_s=got["decode_s"], prefill_ms=prefill_ms,
-               decode_step_ms=decode_ms, max_memory_allocated=peak)
+               decode_step_ms=decode_ms, max_memory_allocated=peak, launches=counts)
     log(f"{what}: {rows} requests x {n} tokens in {wall:.3f}s ({rows * n / wall:.1f} tok/s; "
         f"prefill {got['prefill_s']:.3f}s, {n - 1} decode steps {got['decode_s']:.3f}s); "
         f"prefill {prefill_ms:.3f} ms, decode step {decode_ms:.3f} ms; "
@@ -4932,7 +4995,8 @@ def whisper_leg(lm, gen) -> tuple:
     bf16 forward at 4,096 decoder tokens, flash 48 times (24 self, 24
     cross), against the plain path and the float32 model; then the float32
     replica's greedy tokens and decode logits (the cross cache) against the
-    full forward.  Returns (the leg's JSON, flash launches of the forward)."""
+    full forward.  Returns (the leg's JSON, the forward's flash launches:
+    ``count_flash``'s counts)."""
     cfg = lm.get_config(WHISPER_ARCH)
     t = time.perf_counter()
     params = lm.init_params(cfg, seed=SEED, device="cuda")
@@ -4966,7 +5030,7 @@ def whisper_leg(lm, gen) -> tuple:
     return (dict(arch=cfg.name, params=n_params, serve=serve, bf16_forward=bf16,
                  replica=dict(prefill_s=got32["prefill_s"], decode_s=got32["decode_s"],
                               bf16_tokens_equal=same, **oracle)),
-            launches)
+            bf16["launches"])
 
 
 def unrotate(lm, k, cfg, device) -> torch.Tensor:
@@ -5055,8 +5119,8 @@ def llava_leg(lm, gen) -> tuple:
     decode_step, flash 32 times a prefill; the bf16 forward at 4,096
     positions against the plain path and the float32 model; the float32
     replica (full depth) against the full forward; then its first layers on
-    the card against the CPU.  Returns (the leg's JSON, flash launches of
-    the serving prefill)."""
+    the card against the CPU.  Returns (the leg's JSON, the serving
+    prefill's flash launches: ``count_flash``'s counts)."""
     cfg = lm.get_config(LLAVA_ARCH)
     t = time.perf_counter()
     params = lm.init_params(cfg, seed=SEED, device="cuda")
@@ -5091,7 +5155,7 @@ def llava_leg(lm, gen) -> tuple:
                  replica=dict(prefill_s=got32["prefill_s"], decode_s=got32["decode_s"],
                               bf16_tokens_equal=same, **oracle),
                  cpu_check=cpu),
-            launches)
+            serve["launches"])
 
 
 def encdec_phase(lm) -> tuple:
@@ -5293,6 +5357,8 @@ def main() -> None:
                        ("phase9", counts9),
                        ("phase9_sanitized", service["oracle"]["sanitized"]["launches"])):
         for name, n in got.items():
+            if name == "flash_f32":  # a share of flash's count, no kernel of its own
+                continue
             rows[name]["launches"] += n
             rows[name]["launches_by_phase"][phase] = n
     rows["segment_reduce"]["ingest"] = dict(
@@ -5317,7 +5383,8 @@ def main() -> None:
     fd_oracle(rt)
 
     log("phase 7: LM serving")
-    launches7 = lm_phase(lm)
+    counts7 = lm_phase(lm)
+    launches7 = counts7["flash"]
     rows["flash"]["launches"] = launches7
 
     log("phase 10: distribution at world size 1")
@@ -5346,15 +5413,25 @@ def main() -> None:
     rows["flash"]["launches"] += launches11["flash"]
 
     log("phase 12: the MoE, Mamba and xLSTM mixers")
-    mixers, launches12, flash12 = mixers_phase(lm)
+    mixers, counts12, flash12 = mixers_phase(lm)
+    launches12 = counts12["flash"]
     rows["flash"]["launches"] += launches12
     rows["flash"]["phase12"] = flash12
 
     log("phase 13: whisper-medium and llava-next-mistral-7b")
-    encdec, launches13 = encdec_phase(lm)
+    encdec, counts13 = encdec_phase(lm)
+    launches13 = {leg: c["flash"] for leg, c in counts13.items()}
     rows["flash"]["launches"] += sum(launches13.values())
     rows["flash"]["launches_by_phase"] = dict(phase7=launches7, phase11=launches11["flash"],
                                               phase12=launches12, phase13=launches13)
+    # the float32 forwards among them, read from the same counted runs
+    rows["flash"]["f32_launches_by_phase"] = dict(
+        phase7=counts7["flash_f32"],
+        phase11={leg: training[leg]["launches"]["flash_f32"] for leg in ("long_step", "bf16_4k")},
+        phase12=counts12["flash_f32"],
+        phase13={leg: c["flash_f32"] for leg, c in counts13.items()})
+    log(f"flash float32 launches of the main path by phase: "
+        f"{rows['flash']['f32_launches_by_phase']}")
 
     log("the sharded program on the production meshes (dry run, this host's torch)")
     meshes = mesh_cells(cells)

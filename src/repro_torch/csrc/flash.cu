@@ -23,8 +23,11 @@
 // (query, key) pair each, against reading q, k, v and writing the output
 // once: at D = 64 and thousands of keys that is hundreds of flops per byte,
 // above the card's ~295 bf16 flops per byte, so the tensor cores bound it
-// (989 TFLOP/s bf16).  Float32 inputs run off the tensor cores (67 TFLOP/s):
-// TF32 would not hold float32 accuracy.
+// (989 TFLOP/s bf16).  Float32 runs on them too, as 3xTF32: plain TF32
+// keeps 10 mantissa bits (about 1e-3), so each operand x is split into
+// hi = tf32(x) and lo = tf32(x - hi) and a·b is taken as hi·hi + hi·lo +
+// lo·hi in float32 accumulators, about 2^-21 relative (bound: 3x the
+// operations at 495 TFLOP/s, against 67 TFLOP/s of scalar float32 FMAs).
 //
 // Design, shared.  The TPU kernel walks a sequential (head, q-block,
 // k-block) grid and keeps the running state in VMEM scratch between grid
@@ -34,7 +37,8 @@
 // Key tiles wholly above the causal diagonal, wholly before the window, or
 // past kv_len are skipped: their p would be 0 and their correction 1, so
 // skipping is exact.  Query tiles are issued latest first, so the longest
-// causal rows start first (bf16: across all heads and batches).
+// causal rows start first (the wgmma kernels: across all heads and
+// batches).
 //
 // bf16 (warp-specialised, 384 threads, 128 queries per block; the Hopper
 // helpers, mbarriers, TMA, descriptors and wgmma, are hopper.cuh's, shared
@@ -73,10 +77,46 @@
 //    tests in kernels/flash.py.
 //  * Each consumer sums l across the four threads of a row at the end,
 //    divides and stores bf16 rows below Sq.
-// float32: 4 warps, 64 queries per block, two threads per query row,
-// 32-key tiles; each thread forms 16 scores with float4 dot products and
-// owns half of the row's output columns; p goes through shared memory
-// between the two products.
+//
+// float32 at DP <= 128 (3xTF32 on wgmma; the hi / lo planes and the
+// products on them, split_planes and Tf32Ops, are hopper.cuh's, shared
+// with flash_bwd.cu's float32 backward):
+//  * The TF32 wgmma reads both operands K-major only (its transpose
+//    immediates exist for 16-bit types alone), and O += P·V contracts over
+//    the keys, V's non-contiguous dimension.  So a pre-pass
+//    (fwd_split_kernel, three launches) writes into the caller's workspace
+//    the hi / lo planes of Q and K, natural [B·heads, S, d], and of V,
+//    transposed [B·KH, d, S8] with the keys permuted within each 8: P, the
+//    register A operand, holds a thread's accumulator columns (2t4,
+//    2t4 + 1) as k = t4 and t4 + 4.  The workspace (fwd_planes,
+//    flash_f32_workspace floats) is written in full before it is read.
+//  * The main kernel (flash_tf32_kernel) has the bf16 kernel's shape, with
+//    a producer warp in place of a warpgroup (288 threads: every thread
+//    holds 168 registers either way).  One producer thread loads both
+//    consumers' Q hi / lo once and then each key tile's K hi / lo and Vᵀ
+//    hi / lo by TMA (128-byte swizzled panels of 32 float32 columns or
+//    keys, 64-byte at DP = 16), K and Vᵀ on their own full / empty
+//    mbarriers, so the next K tile loads while this one's P·V runs; two
+//    consumer warpgroups of 64 queries.  S = Q Kᵀ is three shared-memory
+//    products a k-step of 8; the online softmax runs on the fragments as
+//    in bf16; P is split in registers, and O += P·V is three register-A
+//    products a k-step, 32 keys at a time, into a fresh accumulator that
+//    is added to O in float32 (O·corr + P·V): the tensor cores'
+//    accumulation rounds toward zero, and summed in them over thousands
+//    of keys it would drift.
+//  * A consumer skips, still waiting on and releasing each tile, the key
+//    tiles that none of its 64 rows can see (under causal masking the
+//    block's last tile for the first warpgroup; every tile for a second
+//    warpgroup whose rows lie past Sq, whose Q is then not loaded).
+//  * hi and lo double every tile: 128 queries' resident Q takes 64 KiB at
+//    DP = 64 and 128 KiB at 128, so a key tile is 64 keys, 32 at DP = 128
+//    (Tf32FwdGeometry, mirrored in kernels/flash.py's f32_geometry;
+//    flash_f32_geometry reports it).  Choices measured with
+//    tools/flash_variants.py --dtype float32 are in PERF.md (Findings).
+// float32 at DP = 256 (no config has that width): scalar FMAs, 4 warps, 64
+// queries per block, two threads per query row, 32-key tiles; each thread
+// forms 16 scores with float4 dot products and owns half of the row's
+// output columns; p goes through shared memory between the two products.
 
 #include <math.h>
 
@@ -84,8 +124,8 @@
 
 namespace {
 
-constexpr int kBQ = 64;        // queries per float32 block
-constexpr int kThreads = 128;  // 4 warps (float32)
+constexpr int kBQ = 64;        // queries per scalar float32 block
+constexpr int kThreads = 128;  // 4 warps (scalar float32)
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -120,6 +160,7 @@ __device__ __forceinline__ void key_tiles(const Args& a, int q0, int bk,
 // bf16: wgmma on TMA-fed stages, one producer and two consumer warpgroups
 // ---------------------------------------------------------------------------
 
+// (the 128-query block of two consumer warpgroups is the 3xTF32 kernel's too)
 constexpr int kBQ16 = 128;            // queries per block
 constexpr int kRowsWG = 64;           // queries per consumer warpgroup
 constexpr int kConsumers = 256;       // two consumer warpgroups
@@ -156,6 +197,54 @@ __device__ __forceinline__ bool tile_interior(const Args& a, int r0, int rows,
                                               int k0, int bk) {
   return k0 + bk <= a.kv_len && (!a.causal || k0 + bk - 1 <= r0) &&
          (a.window <= 0 || k0 > r0 + rows - 1 - a.window);
+}
+
+// the online-softmax step of one consumer warpgroup on a key tile of BK
+// keys, on the S accumulator fragments (element 4j + 2rr + e is query
+// row0 + 8rr, key k0 + 8j + 2t4 + e: wgmma's layout, g = lane / 4 and
+// t4 = lane % 4 within each warp's 16 rows): scores (masked when the tile
+// straddles an edge) become p = exp2(s·scale2 - m), m kept in the log2
+// domain; m and l move on; corr is the factor for O
+template <int BK>
+__device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], float (&m_row)[2],
+                                               float (&l_row)[2], float (&corr)[2],
+                                               const Args& a, int r0, int row0, int t4,
+                                               int k0, float scale2) {
+  if (!tile_interior(a, r0, kRowsWG, k0, BK)) {
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (!visible(a, row0 + 8 * (e >> 1), k0 + j * 8 + t4 * 2 + (e & 1)))
+          sc[j * 4 + e] = -INFINITY;
+  }
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+      mx = fmaxf(mx, fmaxf(sc[j * 4 + rr * 2], sc[j * 4 + rr * 2 + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+    const float m_new = fmaxf(m_row[rr], mx * scale2);  // scale2 > 0
+    // a row with no visible key so far keeps m = -inf; subtracting 0 then
+    // gives p = 2^-inf = 0 exactly (never exp(-inf - -inf) = 1)
+    const float m_use = m_new == -INFINITY ? 0.f : m_new;
+    corr[rr] = exp2_ftz(m_row[rr] - m_use);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = sc[j * 4 + rr * 2 + e];
+        x = exp2_ftz(fmaf(x, scale2, -m_use));
+        sum += x;
+      }
+    // l stays a per-thread partial over its columns; the four threads of
+    // a row are summed once at the end
+    l_row[rr] = l_row[rr] * corr[rr] + sum;
+    m_row[rr] = m_new;
+  }
 }
 
 // one consumer warpgroup's work on a key tile, on register fragments:
@@ -196,52 +285,6 @@ struct TileOps {
             v_s + p * kBK * kSw + kt * 16 * kSw, 8 * kSw / 16);
         WgmmaRS<kPanel>::run(o[p], pa[kt], db);
       }
-  }
-
-  // the online-softmax step: scores (masked when the tile straddles an
-  // edge) become p = exp2(s·scale2 - m), m kept in the log2 domain; m and l
-  // move on; corr is the factor for O
-  __device__ __forceinline__ static void softmax(Scores& sc, float (&m_row)[2],
-                                                 float (&l_row)[2],
-                                                 float (&corr)[2],
-                                                 const Args& a, int r0,
-                                                 int row0, int t4, int k0,
-                                                 float scale2) {
-    if (!tile_interior(a, r0, kRowsWG, k0, kBK)) {
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (!visible(a, row0 + 8 * (e >> 1), k0 + j * 8 + t4 * 2 + (e & 1)))
-            sc[j * 4 + e] = -INFINITY;
-    }
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j)
-        mx = fmaxf(mx, fmaxf(sc[j * 4 + rr * 2], sc[j * 4 + rr * 2 + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-      const float m_new = fmaxf(m_row[rr], mx * scale2);  // scale2 > 0
-      // a row with no visible key so far keeps m = -inf; subtracting 0 then
-      // gives p = 2^-inf = 0 exactly (never exp(-inf - -inf) = 1)
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      corr[rr] = exp2_ftz(m_row[rr] - m_use);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = sc[j * 4 + rr * 2 + e];
-          x = exp2_ftz(fmaf(x, scale2, -m_use));
-          sum += x;
-        }
-      // l stays a per-thread partial over its columns; the four threads of
-      // a row are summed once at the end
-      l_row[rr] = l_row[rr] * corr[rr] + sum;
-      m_row[rr] = m_new;
-    }
   }
 
   __device__ __forceinline__ static void rescale(Out& o,
@@ -362,8 +405,8 @@ __global__ void __launch_bounds__(kThreads16, 1)
       wg_commit();
       wg_wait_all();
       fence_regs(sc);
-      T::softmax(sc, m_row, l_row, corr, a, r0, row0, t4, (first + i) * kBK,
-                 scale2);
+      online_softmax<kBK>(sc, m_row, l_row, corr, a, r0, row0, t4,
+                          (first + i) * kBK, scale2);
       T::rescale(o, corr);
       T::pack(sc, pa);
       fence_regs(o);
@@ -408,7 +451,238 @@ __global__ void __launch_bounds__(kThreads16, 1)
 }
 
 // ---------------------------------------------------------------------------
-// float32: scalar FMAs (two threads per query row)
+// float32 at DP <= 128: 3xTF32 wgmma on TMA-fed K and Vᵀ tiles, a producer
+// warp and two consumer warpgroups
+// ---------------------------------------------------------------------------
+
+// the float32 instantiation for padded width DP; flash_f32_geometry reports
+// it
+template <int DP>
+struct Tf32FwdGeometry {
+  static constexpr int kPanel = Tf32Ops<DP>::kP;  // floats a natural panel row
+  static constexpr int kSwizzle = kPanel * 4;     // bytes a natural panel row
+  // keys a tile: at DP = 128 the resident Q takes 128 KiB
+  static constexpr int kBK = DP >= 128 ? 32 : 64;
+  static constexpr int kPanelV = kBK < 32 ? kBK : 32;  // keys a Vᵀ panel row
+  static constexpr int kQTile = kRowsWG * DP * 4;  // a warpgroup's hi or lo Q
+  static constexpr int kKTile = kBK * DP * 4;      // a hi or lo K (or Vᵀ) tile
+  // + 1024: the base rounded up to the 1 KiB swizzle repeat; then both
+  // warpgroups' Q hi and lo, K hi and lo, Vᵀ hi and lo, five mbarriers
+  static constexpr int kSmem = 1024 + 4 * kQTile + 4 * kKTile + 5 * 8;
+  static_assert(kSmem <= 232448, "over the block's shared memory");
+  static_assert(DP % kPanel == 0 && kBK % kPanelV == 0 && kRowsWG == Tf32Ops<DP>::kM,
+                "tile shape");
+};
+
+// [0] hi, [1] lo of each plane the kernel reads by TMA
+struct Tf32Maps {
+  CUtensorMap q[2], k[2], v[2];  // v: the transposed plane
+};
+
+// two consumer warpgroups and one producer warp.  Nine or twelve warps put
+// three on an SM sub-partition (16,384 registers), so ptxas holds every
+// thread to 168 either way, and setmaxnreg's move of registers from a
+// producer warpgroup to the consumers bought nothing (PERF.md, Findings):
+// a warp does the producer's work without it.
+constexpr int kThreadsTf32 = kConsumers + 32;
+
+template <int DP>
+__global__ void __launch_bounds__(kThreadsTf32, 1)
+    flash_tf32_kernel(const __grid_constant__ Tf32Maps maps, Args a) {
+  using G = Tf32FwdGeometry<DP>;
+  using O = Tf32Ops<DP>;
+  constexpr int kP = G::kPanel, kSw = G::kSwizzle, kBK = G::kBK;
+  constexpr int kPV = G::kPanelV;
+  // keys of P a P·V chunk (one Vᵀ panel): its hi and lo fragments, in
+  // registers until the chunk's products end, are 32 registers where a
+  // 64-key tile's would be 64, and the kernel holds 168 a thread (see
+  // kThreadsTf32)
+  constexpr int kPC = kPV;
+  extern __shared__ unsigned char smem[];
+  // shared-space addresses: warpgroup w's Q hi and lo at q_s + 2w·kQTile,
+  // K hi and lo at k_s, Vᵀ hi and lo at v_s (each tile its panels one
+  // after another); then the barriers: K full and empty, V full and empty,
+  // Q.  K and V each ride their own pair, so the next K tile loads while
+  // this one's P·V runs and the next Vᵀ tile while the next S = Q Kᵀ runs
+  // (a ring of two 64-key stages measured slower: PERF.md, Findings)
+  const uint32_t base = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t k_s = q_s + 4 * G::kQTile;
+  const uint32_t v_s = k_s + 2 * G::kKTile;
+  const uint32_t k_full = v_s + 2 * G::kKTile, k_empty = k_full + 8;
+  const uint32_t v_full = k_full + 16, v_empty = k_full + 24, q_bar = k_full + 32;
+
+  // blocks start in index order, x fastest: every (batch, head) of the
+  // last query tile, then of the one before
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ16;
+  const int head = blockIdx.x % a.h, batch = blockIdx.x / a.h;
+  int first, last;
+  key_tiles(a, q0, kBK, &first, &last, kBQ16);
+  const int n_tiles = last - first;
+  const int q_wgs = q0 + kRowsWG < a.sq ? 2 : 1;  // warpgroups with rows below Sq
+
+  if (threadIdx.x == 0) {
+    mbar_init(k_full, 1);
+    mbar_init(k_empty, kConsumers);
+    mbar_init(v_full, 1);
+    mbar_init(v_empty, kConsumers);
+    mbar_init(q_bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---- producer warp: one thread issues every load ----
+    if (threadIdx.x == kConsumers && n_tiles > 0) {
+      const int q_mat = batch * a.h + head;
+      const int kv_mat = batch * a.kh + head / (a.h / a.kh);
+      mbar_expect_tx(q_bar, 2 * q_wgs * G::kQTile);
+      for (int w = 0; w < q_wgs; ++w)
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int p = 0; p < DP / kP; ++p)
+            tma_load3(q_s + (2 * w + t) * G::kQTile + p * kRowsWG * kSw, &maps.q[t],
+                      q_bar, p * kP, q0 + w * kRowsWG, q_mat);
+      for (int i = 0; i < n_tiles; ++i) {
+        const uint32_t parity = (i & 1) ^ 1;  // tile i - 1 released
+        const int k0 = (first + i) * kBK;
+        mbar_wait(k_empty, parity);
+        mbar_expect_tx(k_full, 2 * G::kKTile);
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int p = 0; p < DP / kP; ++p)
+            tma_load3(k_s + t * G::kKTile + p * kBK * kSw, &maps.k[t], k_full, p * kP, k0,
+                      kv_mat);
+        mbar_wait(v_empty, parity);
+        mbar_expect_tx(v_full, 2 * G::kKTile);
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+#pragma unroll
+          for (int p = 0; p < kBK / kPV; ++p)
+            tma_load3(v_s + t * G::kKTile + p * DP * kPV * 4, &maps.v[t], v_full,
+                      k0 + p * kPV, 0, kv_mat);
+      }
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: 64 query rows each ----
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r0 = q0 + wg * kRowsWG;
+  const int row0 = r0 + warp * 16 + g;  // this thread's rows: row0, row0 + 8
+  const uint32_t q_wg = q_s + 2 * wg * G::kQTile;
+  const float scale2 = a.scale * kLog2e;  // scores in the log2 domain
+  // the key tiles this warpgroup's rows can see; none past Sq
+  int wfirst, wlast;
+  key_tiles(a, r0, kBK, &wfirst, &wlast, kRowsWG);
+  if (wg >= q_wgs) wlast = wfirst;
+
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float m_row[2] = {-INFINITY, -INFINITY}, l_row[2] = {0.f, 0.f};
+
+  if (n_tiles > 0) mbar_wait(q_bar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const uint32_t parity = i & 1;
+    const int tile = first + i;
+    const bool live = tile >= wfirst && tile < wlast;
+    float sc[kBK / 2];
+    mbar_wait(k_full, parity);
+    if (live) {  // S = Q Kᵀ
+      wg_fence();
+      O::template issue_d<kBK>(sc, q_wg, G::kQTile, k_s, G::kKTile);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(sc);
+    }
+    mbar_arrive(k_empty);  // done with K
+    if (live) {
+      float corr[2];
+      online_softmax<kBK>(sc, m_row, l_row, corr, a, r0, row0, t4, tile * kBK, scale2);
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[j * 4 + e] *= corr[e >> 1];
+    }
+    mbar_wait(v_full, parity);
+    if (live) {  // O = O·corr + P V, kPC keys of P's fragments at a time
+#pragma unroll
+      for (int c = 0; c < kBK / kPC; ++c) {
+        uint32_t hi[kPC / 8][4], lo[kPC / 8][4];
+        O::template frags<kPC / 8>(
+            *reinterpret_cast<const float(*)[kPC / 2]>(sc + c * kPC / 2), hi, lo);
+        O::template add_s<kPC / 8, kPV>(
+            o, hi, lo,
+            v_s + (c * kPC / kPV) * DP * kPV * 4 + (c * kPC % kPV) * 4,
+            G::kKTile);
+      }
+    }
+    mbar_arrive(v_empty);  // done with Vᵀ
+  }
+
+  float* og = static_cast<float*>(a.out) + ((int64_t)batch * a.sq * a.h + head) * a.d;
+  const int64_t q_stride = (int64_t)a.h * a.d;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float l = l_row[rr];
+    l += __shfl_xor_sync(kFull, l, 1);
+    l += __shfl_xor_sync(kFull, l, 2);
+    const float denom = fmaxf(l, 1e-30f);
+    const int qi = row0 + 8 * rr;
+    if (qi >= a.sq) continue;
+    // L = (m + log2 l)·ln 2 (m in the log2 domain); -inf for a row that
+    // saw no key
+    if (a.lse != nullptr && t4 == 0)
+      a.lse[((int64_t)batch * a.h + head) * a.sq + qi] =
+          l > 0.f ? (m_row[rr] + log2f(l)) * kLn2 : -INFINITY;
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = j * 8 + t4 * 2;
+      if (col < a.d)
+        *reinterpret_cast<float2*>(og + qi * q_stride + col) =
+            make_float2(o[j * 4 + rr * 2] / denom, o[j * 4 + rr * 2 + 1] / denom);
+    }
+  }
+}
+
+// the forward's pre-pass: x [B, S, heads, d] into its 3xTF32 planes
+// (split_planes in hopper.cuh)
+__global__ void __launch_bounds__(256)
+    fwd_split_kernel(const float* x, int seq, int heads, int d, float* n_hi,
+                     float* n_lo, float* t_hi, float* t_lo) {
+  split_planes(x, seq, heads, d, n_hi, n_lo, t_hi, t_lo);
+}
+
+// the float32 workspace at DP <= 128, [0] hi and [1] lo of each plane, one
+// after another: Q and K natural [B·heads, S, d], V transposed [B·KH, d,
+// S8] (the keys permuted within each 8)
+struct FwdPlanes {
+  float *qn[2], *kn[2], *vt[2];
+};
+
+// the workspace's floats at DP <= 128; given work, the planes' addresses
+// in it into *t
+__host__ __forceinline__ long long fwd_planes(int b, int sq, int sk, int h, int kh,
+                                              int d, float* work = nullptr,
+                                              FwdPlanes* t = nullptr) {
+  const long long n[3] = {(long long)b * h * sq * d, (long long)b * kh * sk * d,
+                          (long long)b * kh * d * round8(sk)};
+  long long off = 0;
+  for (int p = 0; p < 3; ++p)
+    for (int i = 0; i < 2; ++i) {
+      if (t != nullptr) (p == 0 ? t->qn : p == 1 ? t->kn : t->vt)[i] = work + off;
+      off += n[p];
+    }
+  return off;
+}
+
+// ---------------------------------------------------------------------------
+// float32 at DP = 256: scalar FMAs (two threads per query row)
 // ---------------------------------------------------------------------------
 
 constexpr int kBK32 = 32;        // keys per tile
@@ -569,19 +843,9 @@ cudaError_t launch_bf16(const Args& a, int b, cudaStream_t stream) {
       !encode_map(encode, &v_map, keys ? a.v : a.q, b, keys ? a.sk : a.sq,
                   keys ? a.kh : a.h, a.d, G::kPanel, G::kBK, G::kSwizzle))
     return cudaErrorInvalidValue;
-  // the shared-memory opt-in, once per device (a bit each, up to 64)
   static unsigned long long opted_in = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = opt_in(flash_bf16_kernel<DP>, G::kSmem, &opted_in);
   if (err != cudaSuccess) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (!(opted_in & bit)) {
-    err = cudaFuncSetAttribute(flash_bf16_kernel<DP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               G::kSmem);
-    if (err != cudaSuccess) return err;
-    opted_in |= bit;
-  }
   const dim3 grid(b * a.h, (a.sq + kBQ16 - 1) / kBQ16);
   flash_bf16_kernel<DP><<<grid, kThreads16, G::kSmem, stream>>>(q_map, k_map,
                                                                  v_map, a);
@@ -596,15 +860,75 @@ void bf16_geometry(int* out) {
   for (int i = 0; i < 7; ++i) out[i] = g[i];
 }
 
+// the 3xTF32 path (float32, DP <= 128): three plane splits, the main kernel
 template <int DP>
+cudaError_t launch_tf32(const Args& a, int b, float* work, cudaStream_t stream) {
+  using G = Tf32FwdGeometry<DP>;
+  FwdPlanes t;
+  fwd_planes(b, a.sq, a.sk, a.h, a.kh, a.d, work, &t);
+  // with Sk = 0 no key tile is ever loaded: K and V are not split, and
+  // their maps describe Q's planes only because a map needs a non-empty
+  // tensor
+  const bool keys = a.sk > 0;
+  cudaError_t err;
+  if ((err = launch_split(fwd_split_kernel, a.q, b, a.sq, a.h, a.d, t.qn[0], t.qn[1],
+                          nullptr, nullptr, stream)) != cudaSuccess)
+    return err;
+  if (keys &&
+      ((err = launch_split(fwd_split_kernel, a.k, b, a.sk, a.kh, a.d, t.kn[0], t.kn[1],
+                           nullptr, nullptr, stream)) != cudaSuccess ||
+       (err = launch_split(fwd_split_kernel, a.v, b, a.sk, a.kh, a.d, nullptr, nullptr,
+                           t.vt[0], t.vt[1], stream)) != cudaSuccess))
+    return err;
+
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  // a natural plane [mats, seq, d] in boxes of `panel` columns x `rows`;
+  // the transposed plane [mats, d, S8] in boxes of kPanelV keys x DP rows
+  auto nat = [&](CUtensorMap* m, const float* p, int mats, int seq, int panel, int rows) {
+    const long long dims[3] = {a.d, seq, mats};
+    const long long strides[2] = {4LL * a.d, 4LL * seq * a.d};
+    return encode_map_f32(encode, m, p, dims, strides, panel, rows);
+  };
+  auto trn = [&](CUtensorMap* m, const float* p) {
+    const long long s8 = round8(a.sk);
+    const long long dims[3] = {s8, a.d, b * a.kh};
+    const long long strides[2] = {4 * s8, 4 * s8 * a.d};
+    return encode_map_f32(encode, m, p, dims, strides, G::kPanelV, DP);
+  };
+  const int qm = b * a.h, km = b * a.kh;
+  Tf32Maps maps;
+  for (int i = 0; i < 2; ++i)
+    if (!nat(&maps.q[i], t.qn[i], qm, a.sq, G::kPanel, kRowsWG) ||
+        !(keys ? nat(&maps.k[i], t.kn[i], km, a.sk, G::kPanel, G::kBK)
+               : nat(&maps.k[i], t.qn[i], qm, a.sq, G::kPanel, G::kBK)) ||
+        !(keys ? trn(&maps.v[i], t.vt[i])
+               : nat(&maps.v[i], t.qn[i], qm, a.sq, G::kPanelV, DP)))
+      return cudaErrorInvalidValue;
+  static unsigned long long opted_in = 0;
+  if ((err = opt_in(flash_tf32_kernel<DP>, G::kSmem, &opted_in)) != cudaSuccess)
+    return err;
+  const dim3 grid(b * a.h, (a.sq + kBQ16 - 1) / kBQ16);
+  flash_tf32_kernel<DP><<<grid, kThreadsTf32, G::kSmem, stream>>>(maps, a);
+  return cudaGetLastError();
+}
+
+template <int DP>
+void tf32_geometry(int* out) {
+  using G = Tf32FwdGeometry<DP>;
+  const int g[] = {DP, G::kPanel, G::kSwizzle, kBQ16, G::kBK, G::kSmem, 1};
+  for (int i = 0; i < 7; ++i) out[i] = g[i];
+}
+
+// the scalar kernel (float32 at DP = 256)
+constexpr int kSmemF32 = ((kBQ + 2 * kBK32) * (256 + 4) + kBQ * kLDP) * 4;  // bytes
+
 cudaError_t launch_f32(const Args& a, int b, cudaStream_t stream) {
-  constexpr int kSmem =
-      ((kBQ + 2 * kBK32) * (DP + 4) + kBQ * kLDP) * 4;  // bytes
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_f32_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  static unsigned long long opted_in = 0;
+  const cudaError_t err = opt_in(flash_f32_kernel<256>, kSmemF32, &opted_in);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.sq + kBQ - 1) / kBQ, a.h, b);
-  flash_f32_kernel<DP><<<grid, kThreads, kSmem, stream>>>(a);
+  flash_f32_kernel<256><<<grid, kThreads, kSmemF32, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -624,6 +948,8 @@ bool bad_shape(int b, int sq, int sk, int h, int kh, int d, int kv_len) {
   return b < 1 || sq < 1 || sk < 0 || kh < 1 || h % kh != 0 || d % 8 != 0 ||
          padded_dim(d) == 0 || kv_len < 0 || kv_len > sk;
 }
+
+bool bad_dim(int d) { return d < 8 || d % 8 != 0 || padded_dim(d) == 0; }
 
 }  // namespace
 
@@ -651,8 +977,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
 // columns, swizzle bytes, queries per block, keys per tile, stages, dynamic
 // shared-memory bytes.  Returns a cudaError_t.
 extern "C" int flash_bf16_geometry(int d, int* out) {
-  if (d < 8 || d % 8 != 0 || padded_dim(d) == 0)
-    return (int)cudaErrorInvalidValue;
+  if (bad_dim(d)) return (int)cudaErrorInvalidValue;
   switch (padded_dim(d)) {
     case 16: bf16_geometry<16>(out); break;
     case 32: bf16_geometry<32>(out); break;
@@ -663,19 +988,54 @@ extern "C" int flash_bf16_geometry(int d, int* out) {
   return 0;
 }
 
+// as flash_attention_bf16, in float32, with work a float32 workspace of the
+// floats flash_f32_workspace names (written in full before it is read; none
+// at head dims over 128).  Four launches at head dims up to 128 (three
+// plane splits and the main kernel; two with Sk = 0), one above.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
-                                   void* out, void* lse, int b, int sq, int sk, int h,
-                                   int kh, int d, int causal, int window,
-                                   int kv_len, void* stream) {
+                                   void* out, void* lse, void* work, int b, int sq,
+                                   int sk, int h, int kh, int d, int causal,
+                                   int window, int kv_len, void* stream) {
   if (bad_shape(b, sq, sk, h, kh, d, kv_len)) return (int)cudaErrorInvalidValue;
   const Args a =
       make_args(q, k, v, out, lse, sq, sk, h, kh, d, causal, window, kv_len);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(work);
   switch (padded_dim(d)) {
-    case 16: return (int)launch_f32<16>(a, b, s);
-    case 32: return (int)launch_f32<32>(a, b, s);
-    case 64: return (int)launch_f32<64>(a, b, s);
-    case 128: return (int)launch_f32<128>(a, b, s);
-    default: return (int)launch_f32<256>(a, b, s);
+    case 16: return (int)launch_tf32<16>(a, b, w, s);
+    case 32: return (int)launch_tf32<32>(a, b, w, s);
+    case 64: return (int)launch_tf32<64>(a, b, w, s);
+    case 128: return (int)launch_tf32<128>(a, b, w, s);
+    default: return (int)launch_f32(a, b, s);
   }
+}
+
+// the float32 instantiation for head dim d, as seven ints: padded width,
+// natural panel columns, swizzle bytes, queries per block, keys per tile,
+// dynamic shared-memory bytes, and 1 for the 3xTF32 path (DP <= 128); at
+// DP = 256 the scalar kernel: 256, 0, 0, 64, 32, its shared memory, 0.
+// Returns a cudaError_t.
+extern "C" int flash_f32_geometry(int d, int* out) {
+  if (bad_dim(d)) return (int)cudaErrorInvalidValue;
+  switch (padded_dim(d)) {
+    case 16: tf32_geometry<16>(out); break;
+    case 32: tf32_geometry<32>(out); break;
+    case 64: tf32_geometry<64>(out); break;
+    case 128: tf32_geometry<128>(out); break;
+    default: {
+      const int g[] = {256, 0, 0, kBQ, kBK32, kSmemF32, 0};
+      for (int i = 0; i < 7; ++i) out[i] = g[i];
+    }
+  }
+  return 0;
+}
+
+// the floats of the workspace flash_attention_f32 takes, into *out: the hi
+// and lo planes (FwdPlanes) at head dims up to 128, none above.  Returns a
+// cudaError_t.
+extern "C" int flash_f32_workspace(int b, int sq, int sk, int h, int kh, int d,
+                                   long long* out) {
+  if (bad_dim(d)) return (int)cudaErrorInvalidValue;
+  *out = padded_dim(d) == 256 ? 0 : fwd_planes(b, sq, sk, h, kh, d);
+  return 0;
 }

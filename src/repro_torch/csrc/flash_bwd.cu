@@ -84,7 +84,9 @@
 //    (split_kernel) writes, beside the natural hi / lo planes [B·heads, S,
 //    d] of Q, dO, K and V, transposed ones [B·heads, d, S8] of Q, dO and K,
 //    and TMA feeds both kinds in 128-byte-swizzled panels of 32 float32
-//    columns (64-byte at DP = 16).  Pᵀ, dSᵀ and dS are the register A
+//    columns (64-byte at DP = 16).  The pre-pass body (split_planes) and
+//    the products (Tf32Ops) are hopper.cuh's, shared with flash.cu's
+//    float32 forward.  Pᵀ, dSᵀ and dS are the register A
 //    operand of those products: a thread's accumulator columns (2t4,
 //    2t4 + 1) enter a TF32 A fragment as k = t4 and t4 + 4, so the
 //    transposed planes hold the sequence permuted within each 8 to match.
@@ -914,6 +916,8 @@ struct Tf32Geometry {
                 "over the block's shared memory");
   static_assert(DP % kPanel == 0 && kBQ % kPanelQ == 0 && kBK % kPanelK == 0,
                 "tile shape");
+  static_assert(kPanel == Tf32Ops<DP>::kP && kRowsTf32 == Tf32Ops<DP>::kM,
+                "the panels Tf32Ops reads");
 };
 
 // the workspace of the float32 path, in floats: L·log2 e and Δ rows
@@ -923,8 +927,6 @@ struct Tf32Geometry {
 struct Tf32Planes {
   float *qn[2], *qt[2], *on[2], *ot[2], *kn[2], *kt[2], *vn[2];
 };
-
-__host__ __device__ __forceinline__ int round8(int s) { return (s + 7) / 8 * 8; }
 
 __host__ __forceinline__ long long tf32_floats(int b, int sq, int sk, int h,
                                                int kh, int d) {
@@ -950,47 +952,13 @@ __host__ __forceinline__ Tf32Planes tf32_planes(const Args& a) {
   return t;
 }
 
-// x [B, S, heads, d] float32 into its 3xTF32 planes: natural hi / lo
-// [B·heads, S, d] and, where t_hi is given, transposed hi / lo [B·heads, d,
-// S8] (S8 = S rounded up to 8), zeros past S.  The transposed planes hold
-// the sequence permuted within each 8: position 8u + k holds element
-// 8u + 2k for k < 4 and 8u + 2k - 7 for k >= 4, the order in which a
-// thread's accumulator columns (2t4, 2t4 + 1) enter a TF32 A fragment as
-// k = t4 and t4 + 4 (see frags).  One block a 32 x 32 tile of one matrix.
+// x [B, S, heads, d] float32 into its 3xTF32 planes (split_planes in
+// hopper.cuh: natural hi / lo [B·heads, S, d] and, where t_hi is given,
+// transposed hi / lo [B·heads, d, S8], the sequence permuted within each 8)
 __global__ void __launch_bounds__(256)
     split_kernel(const float* x, int seq, int heads, int d, float* n_hi,
                  float* n_lo, float* t_hi, float* t_lo) {
-  __shared__ float hi_s[32][33], lo_s[32][33];
-  const int mat = blockIdx.z, batch = mat / heads, head = mat % heads;
-  const int s0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  for (int r = ty; r < 32; r += 8) {
-    const int s = s0 + r, c = c0 + tx;
-    const bool in = s < seq && c < d;
-    const float val =
-        in ? x[(((int64_t)batch * seq + s) * heads + head) * d + c] : 0.f;
-    uint32_t hi, lo;
-    split_tf32(val, hi, lo);
-    if (in) {
-      const int64_t at = ((int64_t)mat * seq + s) * d + c;
-      n_hi[at] = __uint_as_float(hi);
-      n_lo[at] = __uint_as_float(lo);
-    }
-    hi_s[r][tx] = __uint_as_float(hi);
-    lo_s[r][tx] = __uint_as_float(lo);
-  }
-  if (t_hi == nullptr) return;
-  __syncthreads();
-  const int seq8 = round8(seq);
-  for (int r = ty; r < 32; r += 8) {
-    const int c = c0 + r, pos = s0 + tx;
-    if (c >= d || pos >= seq8) continue;
-    const int k = pos & 7;
-    const int src = (pos & ~7) + (k < 4 ? 2 * k : 2 * k - 7) - s0;
-    const int64_t at = ((int64_t)mat * d + c) * seq8 + pos;
-    t_hi[at] = hi_s[src][r];
-    t_lo[at] = lo_s[src][r];
-  }
+  split_planes(x, seq, heads, d, n_hi, n_lo, t_hi, t_lo);
 }
 
 // [0] hi, [1] lo of every operand a kernel reads by TMA
@@ -999,90 +967,6 @@ struct DkdvMaps {
 };
 struct DqMaps {
   CUtensorMap q[2], o[2], k[2], v[2], kt[2];
-};
-
-// The 3xTF32 products on wgmma, one warpgroup.  Accumulator element
-// 4j + 2rr + e of a 64 x N tile is row (warp·16 + g + 8rr), column
-// 8j + 2t4 + e (g = lane / 4, t4 = lane % 4).
-template <int DP>
-struct Tf32Ops {
-  using G = Tf32Geometry<DP>;
-  static constexpr int kP = G::kPanel, kSw = G::kSwizzle;
-
-  // acc (=)+= A Bᵀ over the head dim: A a resident natural 64-row tile
-  // (hi at a_s, lo at a_s + kTile), B a natural tile of N rows (hi at b_s,
-  // lo b_s + b_tile); both K-major along D, panels of kP columns (issued,
-  // not waited).  The first product of the first k-step overwrites acc.
-  template <int N>
-  __device__ __forceinline__ static void issue_d(float (&acc)[N / 2],
-                                                 uint32_t a_s, uint32_t b_s,
-                                                 int b_tile) {
-#pragma unroll
-    for (int kk = 0; kk < DP / 8; ++kk) {
-      const int p = kk * 8 / kP, col = (kk * 8 % kP) * 4;
-      const uint32_t a = a_s + p * kRowsTf32 * kSw + col;
-      const uint32_t b = b_s + p * N * kSw + col;
-      const uint64_t ah = smem_desc<kSw>(a, 1), al = smem_desc<kSw>(a + G::kTile, 1);
-      const uint64_t bh = smem_desc<kSw>(b, 1), bl = smem_desc<kSw>(b + b_tile, 1);
-      WgmmaTf32SS<N>::run(acc, al, bh, kk > 0);
-      WgmmaTf32SS<N>::run(acc, ah, bl, 1);
-      WgmmaTf32SS<N>::run(acc, ah, bh, 1);
-    }
-  }
-
-  // A fragments (hi, lo) of a 64 x 8J accumulator tile t: k-step j takes
-  // the thread's columns 8j + 2t4 and 8j + 2t4 + 1 of rows g and g + 8 as
-  // k = t4 and t4 + 4, the order the transposed planes hold
-  template <int J>
-  __device__ __forceinline__ static void frags(const float (&t)[4 * J],
-                                               uint32_t (&hi)[J][4],
-                                               uint32_t (&lo)[J][4]) {
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      split_tf32(t[4 * j], hi[j][0], lo[j][0]);
-      split_tf32(t[4 * j + 2], hi[j][1], lo[j][1]);
-      split_tf32(t[4 * j + 1], hi[j][2], lo[j][2]);
-      split_tf32(t[4 * j + 3], hi[j][3], lo[j][3]);
-    }
-  }
-
-  // acc[64 x DP] += A B, waited: A the fragments (64 rows x 8J of a
-  // sequence), B a transposed stage tile [DP rows x 8J] (hi at b_s, lo at
-  // b_s + b_tile), K-major along the sequence in panels of PT columns.  The
-  // products of a stage go into a fresh accumulator, 64 columns at a time,
-  // that is then added to acc in float32: the tensor cores' accumulation
-  // rounds toward zero, so summing every stage in them would drift with
-  // the sequence's length (about 1e-4 of dK at 4,096 tokens and 3 heads)
-  template <int J, int PT>
-  __device__ __forceinline__ static void add_s(float (&acc)[DP / 2],
-                                               uint32_t (&hi)[J][4],
-                                               uint32_t (&lo)[J][4],
-                                               uint32_t b_s, int b_tile) {
-    constexpr int kSwT = PT * 4, kN = DP < 64 ? DP : 64;
-#pragma unroll
-    for (int c = 0; c < DP / kN; ++c) {
-      float part[kN / 2];
-      fence_regs(hi);
-      fence_regs(lo);
-      wg_fence();
-#pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const uint32_t b =
-            b_s + (j * 8 / PT) * DP * kSwT + (j * 8 % PT) * 4 + c * kN * kSwT;
-        const uint64_t bh = smem_desc<kSwT>(b, 1), bl = smem_desc<kSwT>(b + b_tile, 1);
-        WgmmaTf32RS<kN>::run(part, lo[j], bh, j > 0);
-        WgmmaTf32RS<kN>::run(part, hi[j], bl, 1);
-        WgmmaTf32RS<kN>::run(part, hi[j], bh, 1);
-      }
-      wg_commit();
-      wg_wait_all();
-      fence_regs(part);
-      fence_regs(hi);
-      fence_regs(lo);
-#pragma unroll
-      for (int i = 0; i < kN / 2; ++i) acc[c * kN / 2 + i] += part[i];
-    }
-  }
 };
 
 // dK and dV of 64 keys of one KV head: the block walks every query tile
@@ -1187,9 +1071,9 @@ __global__ void __launch_bounds__(kThreadsTf32, 1)
     float st[kBQ / 2], dp[kBQ / 2];
     mbar_wait(nat_bar, i & 1);
     wg_fence();
-    O::template issue_d<kBQ>(st, kv_s, nat_s, G::kQTile);                    // Sᵀ
-    O::template issue_d<kBQ>(dp, kv_s + 2 * G::kTile, nat_s + 2 * G::kQTile,  // dPᵀ
-                             G::kQTile);
+    O::template issue_d<kBQ>(st, kv_s, G::kTile, nat_s, G::kQTile);                    // Sᵀ
+    O::template issue_d<kBQ>(dp, kv_s + 2 * G::kTile, G::kTile,  // dPᵀ
+                             nat_s + 2 * G::kQTile, G::kQTile);
     wg_commit();
     wg_wait_all();
     fence_regs(st);
@@ -1366,9 +1250,9 @@ __global__ void __launch_bounds__(kThreadsTf32, 1)
     float st[kBK / 2], dp[kBK / 2];
     mbar_wait(nat_bar, j & 1);
     wg_fence();
-    O::template issue_d<kBK>(st, q_s, nat_s, G::kKTile);                     // S
-    O::template issue_d<kBK>(dp, q_s + 2 * G::kTile, nat_s + 2 * G::kKTile,  // dP
-                             G::kKTile);
+    O::template issue_d<kBK>(st, q_s, G::kTile, nat_s, G::kKTile);                     // S
+    O::template issue_d<kBK>(dp, q_s + 2 * G::kTile, G::kTile,  // dP
+                             nat_s + 2 * G::kKTile, G::kKTile);
     wg_commit();
     wg_wait_all();
     fence_regs(st);
@@ -1435,12 +1319,11 @@ template <typename T, int DP>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int kSmem = smem_bytes<DP>();
   static_assert(kSmem <= 232448, "over the block's shared memory");
-  cudaError_t err = cudaFuncSetAttribute(
-      dkdv_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dq_kernel<T, DP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return err;
+  static unsigned long long dkdv_in = 0, dq_in = 0;
+  cudaError_t err;
+  if ((err = opt_in(dkdv_kernel<T, DP>, kSmem, &dkdv_in)) != cudaSuccess ||
+      (err = opt_in(dq_kernel<T, DP>, kSmem, &dq_in)) != cudaSuccess)
+    return err;
   const int64_t rows = (int64_t)a.b * a.sq * a.h;
   const int rows_per_block = kThreads / 32;
   delta_kernel<T><<<(unsigned)((rows + rows_per_block - 1) / rows_per_block),
@@ -1481,19 +1364,9 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
         !encode_map(encode, &v_map, a.v, a.b, a.sk, a.kh, a.d, G::kPanel,
                     G::kBK, G::kSwizzle))
       return cudaErrorInvalidValue;
-    // the shared-memory opt-in, once per device (a bit each, up to 64)
     static unsigned long long opted_in = 0;
-    int dev = 0;
-    err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return err;
-    const unsigned long long bit = 1ull << (dev & 63);
-    if (!(opted_in & bit)) {
-      err = cudaFuncSetAttribute(bwd_bf16_kernel<DP>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 G::kSmem);
-      if (err != cudaSuccess) return err;
-      opted_in |= bit;
-    }
+    if ((err = opt_in(bwd_bf16_kernel<DP>, G::kSmem, &opted_in)) != cudaSuccess)
+      return err;
     const dim3 grid(a.b * a.h, (a.sk + G::kBK - 1) / G::kBK);
     bwd_bf16_kernel<DP><<<grid, kThreads16, G::kSmem, stream>>>(
         q_map, do_map, k_map, v_map, a);
@@ -1501,29 +1374,6 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
     if (err != cudaSuccess) return err;
   }
   finish_kernel<<<264, kThreads, 0, stream>>>(a);
-  return cudaGetLastError();
-}
-
-// the shared-memory opt-in of kernel, once per device (a bit each, up to 64)
-template <typename K>
-cudaError_t opt_in(K kernel, int bytes, unsigned long long* opted_in) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = 1ull << (dev & 63);
-  if (*opted_in & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) *opted_in |= bit;
-  return err;
-}
-
-// x [B, S, heads, d] into its planes (transposed too where tr is given)
-cudaError_t split(const void* x, int b, int seq, int heads, int d,
-                  float* const (&n)[2], float* const* tr, cudaStream_t stream) {
-  const dim3 grid((round8(seq) + 31) / 32, (d + 31) / 32, b * heads);
-  split_kernel<<<grid, 256, 0, stream>>>(static_cast<const float*>(x), seq, heads, d,
-                                         n[0], n[1], tr ? tr[0] : nullptr,
-                                         tr ? tr[1] : nullptr);
   return cudaGetLastError();
 }
 
@@ -1541,10 +1391,15 @@ cudaError_t launch_tf32(const Args& a, cudaStream_t stream) {
   if (a.sk == 0)  // no key: dQ is 0 (dK and dV are empty)
     return cudaMemsetAsync(a.dq, 0, (size_t)a.b * a.sq * a.h * a.d * 4, stream);
   const Tf32Planes t = tf32_planes(a);
-  if ((err = split(a.q, a.b, a.sq, a.h, a.d, t.qn, t.qt, stream)) != cudaSuccess ||
-      (err = split(a.dout, a.b, a.sq, a.h, a.d, t.on, t.ot, stream)) != cudaSuccess ||
-      (err = split(a.k, a.b, a.sk, a.kh, a.d, t.kn, t.kt, stream)) != cudaSuccess ||
-      (err = split(a.v, a.b, a.sk, a.kh, a.d, t.vn, nullptr, stream)) != cudaSuccess)
+  auto split = [&](const void* x, int seq, int heads, float* const (&n)[2],
+                   float* const* tr) {
+    return launch_split(split_kernel, x, a.b, seq, heads, a.d, n[0], n[1],
+                        tr ? tr[0] : nullptr, tr ? tr[1] : nullptr, stream);
+  };
+  if ((err = split(a.q, a.sq, a.h, t.qn, t.qt)) != cudaSuccess ||
+      (err = split(a.dout, a.sq, a.h, t.on, t.ot)) != cudaSuccess ||
+      (err = split(a.k, a.sk, a.kh, t.kn, t.kt)) != cudaSuccess ||
+      (err = split(a.v, a.sk, a.kh, t.vn, nullptr)) != cudaSuccess)
     return err;
 
   const EncodeTiled encode = encode_tiled();

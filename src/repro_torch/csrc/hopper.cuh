@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by flash.cu and flash_bwd.cu:
 // mbarriers, TMA loads (tensor tiles and 1-d bulk copies), wgmma shared-
 // memory descriptors and the wgmma products (bf16, and TF32 with its 3xTF32
-// split), exp2 and bf16 packing on register fragments, and the host-side
-// TMA maps over a bf16 [B, S, heads, D] tensor and a float32 3-d one.
+// split), exp2 and bf16 packing on register fragments, the 3xTF32 hi / lo
+// planes (the pre-pass body) and the products on them (Tf32Ops), and on
+// the host the shared-memory opt-in and the TMA maps over a bf16 [B, S,
+// heads, D] tensor and a float32 3-d one.
 //
 // Tiles live in shared memory in panels whose rows are one swizzle span
 // (32, 64 or 128 bytes: min(DP, 64) bf16 or min(DP, 32) float32 columns),
@@ -417,8 +419,175 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
 }
 
 // ---------------------------------------------------------------------------
-// host: TMA maps
+// 3xTF32: hi / lo planes and the products on them (flash.cu's float32
+// forward, flash_bwd.cu's float32 backward)
 // ---------------------------------------------------------------------------
+
+__host__ __device__ __forceinline__ int round8(int s) { return (s + 7) / 8 * 8; }
+
+// One 32 x 32 tile (block (x, y, z): positions / 32, columns / 32, matrix)
+// of x [B, S, heads, d] float32 into its 3xTF32 planes: where n_hi is
+// given, natural hi / lo [B·heads, S, d]; where t_hi is given, transposed
+// hi / lo [B·heads, d, S8] (S8 = S rounded up to 8), zeros past S.  The
+// transposed planes hold the sequence permuted within each 8: position
+// 8u + k holds element 8u + 2k for k < 4 and 8u + 2k - 7 for k >= 4, the
+// order in which a thread's accumulator columns (2t4, 2t4 + 1) enter a TF32
+// A fragment as k = t4 and t4 + 4 (Tf32Ops::frags).  256 threads.  Each
+// source wraps it in a kernel of its own name, so that a trace tells the
+// forward's pre-pass from the backward's.
+__device__ __forceinline__ void split_planes(const float* x, int seq, int heads, int d,
+                                             float* n_hi, float* n_lo, float* t_hi,
+                                             float* t_lo) {
+  __shared__ float hi_s[32][33], lo_s[32][33];
+  const int mat = blockIdx.z, batch = mat / heads, head = mat % heads;
+  const int s0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  for (int r = ty; r < 32; r += 8) {
+    const int s = s0 + r, c = c0 + tx;
+    const bool in = s < seq && c < d;
+    const float val =
+        in ? x[(((int64_t)batch * seq + s) * heads + head) * d + c] : 0.f;
+    uint32_t hi, lo;
+    split_tf32(val, hi, lo);
+    if (in && n_hi != nullptr) {
+      const int64_t at = ((int64_t)mat * seq + s) * d + c;
+      n_hi[at] = __uint_as_float(hi);
+      n_lo[at] = __uint_as_float(lo);
+    }
+    hi_s[r][tx] = __uint_as_float(hi);
+    lo_s[r][tx] = __uint_as_float(lo);
+  }
+  if (t_hi == nullptr) return;
+  __syncthreads();
+  const int seq8 = round8(seq);
+  for (int r = ty; r < 32; r += 8) {
+    const int c = c0 + r, pos = s0 + tx;
+    if (c >= d || pos >= seq8) continue;
+    const int k = pos & 7;
+    const int src = (pos & ~7) + (k < 4 ? 2 * k : 2 * k - 7) - s0;
+    const int64_t at = ((int64_t)mat * d + c) * seq8 + pos;
+    t_hi[at] = hi_s[src][r];
+    t_lo[at] = lo_s[src][r];
+  }
+}
+
+// a kernel that wraps split_planes
+typedef void (*SplitKernel)(const float*, int, int, int, float*, float*, float*,
+                            float*);
+
+// x [B, S, heads, d] into its natural planes (n_hi, n_lo), its transposed
+// ones (t_hi, t_lo), or both, by `kernel`
+cudaError_t launch_split(SplitKernel kernel, const void* x, int b, int seq, int heads,
+                         int d, float* n_hi, float* n_lo, float* t_hi, float* t_lo,
+                         cudaStream_t stream) {
+  const dim3 grid((round8(seq) + 31) / 32, (d + 31) / 32, b * heads);
+  kernel<<<grid, 256, 0, stream>>>(static_cast<const float*>(x), seq, heads, d, n_hi,
+                                   n_lo, t_hi, t_lo);
+  return cudaGetLastError();
+}
+
+// The 3xTF32 products on wgmma for one warpgroup at padded width DP, on
+// tiles in panels of kP float32 columns (natural planes; one swizzle span a
+// panel row).  Accumulator element 4j + 2rr + e of a 64 x N tile is row
+// (warp·16 + g + 8rr), column 8j + 2t4 + e (g = lane / 4, t4 = lane % 4).
+template <int DP>
+struct Tf32Ops {
+  static constexpr int kP = DP < 32 ? DP : 32;  // floats a natural panel row
+  static constexpr int kSw = kP * 4;            // bytes a natural panel row
+  static constexpr int kM = 64;                 // rows of an A tile (wgmma's M)
+
+  // acc (=)+= A Bᵀ over the head dim: A a natural 64-row tile (hi at a_s,
+  // lo at a_s + a_tile), B a natural tile of N rows (hi at b_s, lo at
+  // b_s + b_tile); both K-major along D (issued, not waited).  The first
+  // product of the first k-step overwrites acc; the small terms go first.
+  template <int N>
+  __device__ __forceinline__ static void issue_d(float (&acc)[N / 2], uint32_t a_s,
+                                                 int a_tile, uint32_t b_s, int b_tile) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) {
+      const int p = kk * 8 / kP, col = (kk * 8 % kP) * 4;
+      const uint32_t a = a_s + p * kM * kSw + col;
+      const uint32_t b = b_s + p * N * kSw + col;
+      const uint64_t ah = smem_desc<kSw>(a, 1), al = smem_desc<kSw>(a + a_tile, 1);
+      const uint64_t bh = smem_desc<kSw>(b, 1), bl = smem_desc<kSw>(b + b_tile, 1);
+      WgmmaTf32SS<N>::run(acc, al, bh, kk > 0);
+      WgmmaTf32SS<N>::run(acc, ah, bl, 1);
+      WgmmaTf32SS<N>::run(acc, ah, bh, 1);
+    }
+  }
+
+  // A fragments (hi, lo) of a 64 x 8J accumulator tile t: k-step j takes
+  // the thread's columns 8j + 2t4 and 8j + 2t4 + 1 of rows g and g + 8 as
+  // k = t4 and t4 + 4, the order the transposed planes hold
+  template <int J>
+  __device__ __forceinline__ static void frags(const float (&t)[4 * J],
+                                               uint32_t (&hi)[J][4],
+                                               uint32_t (&lo)[J][4]) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      split_tf32(t[4 * j], hi[j][0], lo[j][0]);
+      split_tf32(t[4 * j + 2], hi[j][1], lo[j][1]);
+      split_tf32(t[4 * j + 1], hi[j][2], lo[j][2]);
+      split_tf32(t[4 * j + 3], hi[j][3], lo[j][3]);
+    }
+  }
+
+  // acc[64 x DP] += A B, waited: A the fragments (64 rows x 8J of a
+  // sequence), B a transposed tile [DP rows x 8J] (hi at b_s, lo at
+  // b_s + b_tile), K-major along the sequence in panels of PT columns.  The
+  // products of a tile go into a fresh accumulator, 64 columns at a time,
+  // that is then added to acc in float32: the tensor cores' accumulation
+  // rounds toward zero, so summing every tile in them would drift with the
+  // sequence's length (about 1e-4 of dK at 4,096 tokens and 3 heads)
+  template <int J, int PT>
+  __device__ __forceinline__ static void add_s(float (&acc)[DP / 2],
+                                               uint32_t (&hi)[J][4],
+                                               uint32_t (&lo)[J][4],
+                                               uint32_t b_s, int b_tile) {
+    constexpr int kSwT = PT * 4, kN = DP < 64 ? DP : 64;
+#pragma unroll
+    for (int c = 0; c < DP / kN; ++c) {
+      float part[kN / 2];
+      fence_regs(hi);
+      fence_regs(lo);
+      wg_fence();
+#pragma unroll
+      for (int j = 0; j < J; ++j) {
+        const uint32_t b =
+            b_s + (j * 8 / PT) * DP * kSwT + (j * 8 % PT) * 4 + c * kN * kSwT;
+        const uint64_t bh = smem_desc<kSwT>(b, 1), bl = smem_desc<kSwT>(b + b_tile, 1);
+        WgmmaTf32RS<kN>::run(part, lo[j], bh, j > 0);
+        WgmmaTf32RS<kN>::run(part, hi[j], bl, 1);
+        WgmmaTf32RS<kN>::run(part, hi[j], bh, 1);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(part);
+      fence_regs(hi);
+      fence_regs(lo);
+#pragma unroll
+      for (int i = 0; i < kN / 2; ++i) acc[c * kN / 2 + i] += part[i];
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
+// host: the shared-memory opt-in, TMA maps
+// ---------------------------------------------------------------------------
+
+// the dynamic shared-memory opt-in of kernel, once per device (a bit each,
+// up to 64)
+template <typename K>
+cudaError_t opt_in(K kernel, int bytes, unsigned long long* opted_in) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (*opted_in & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) *opted_in |= bit;
+  return err;
+}
 
 // cuTensorMapEncodeTiled, taken from the driver at run time so that the
 // library needs no -lcuda

@@ -4,17 +4,23 @@ its backward, ``csrc/flash_bwd.cu``).
 :func:`flash_attention` runs online-softmax attention over the model's
 ``[B, S, H, D]`` layout through ``flash_attention_bf16`` (Hopper tensor
 cores: ``wgmma`` on a TMA/mbarrier ring of K/V stages, warp-specialised)
-or ``flash_attention_f32`` (scalar FMAs).  Replaces ``flash_kernel_call``
-of ``repro/kernels/flash.py``.
+or ``flash_attention_f32`` (at head dims up to 128 the same shape on
+3xTF32 ``wgmma``: a pre-pass splits Q and K into TF32 hi and lo planes and
+V into transposed ones, in a workspace allocated here; at head dim 256
+scalar FMAs).  Replaces ``flash_kernel_call`` of
+``repro/kernels/flash.py``.
 
-The bf16 kernel's host-side geometry and schedule are mirrored here in
-plain Python so that the CPU tests can hold them against a brute-force
-count of visible (query, key) pairs: :func:`bf16_geometry` (the
-instantiation per head dim), :func:`tensor_map` (the TMA maps),
+The kernels' host-side geometry and schedule are mirrored here in plain
+Python so that the CPU tests can hold them against a brute-force count of
+visible (query, key) pairs: :func:`bf16_geometry` and :func:`f32_geometry`
+(the instantiation per head dim), :func:`fwd_f32_planes` (the float32
+workspace's layout), :func:`tensor_map` (the bf16 TMA maps),
 :func:`block_order` (the block order), :func:`key_tiles` and
 :func:`tile_interior` (which key tiles a block walks and which of them
-need the mask).  :func:`kernel_bf16_geometry` asks the built library for
-its own numbers; ``chip_smoke.py`` holds the two equal.
+need the mask), :func:`tf32_key_order` (the keys' order in a transposed
+3xTF32 plane).  :func:`kernel_bf16_geometry`, :func:`kernel_f32_geometry`
+and :func:`kernel_fwd_f32_workspace` ask the built library for its own
+numbers; ``chip_smoke.py`` holds the two equal.
 
 :func:`flash_backward` runs ``flash_backward_{bf16,f32}`` from the
 forward's row log-sum-exp, which :func:`flash_attention` returns when
@@ -42,7 +48,8 @@ and ``flash_backward_ref``, and ``ops.flash_attention`` /
 ``ops.flash_attention_fn`` check shapes, dtypes and head dims before
 either.  Outputs and scratch are allocated here and the kernels run on the
 current stream without synchronising.  ``launches`` counts the forward's
-launches and the backward's (one a backward).
+launches and the backward's (one a call, its pre-passes included), and
+under ``flash_f32`` the float32 forward's share of ``flash``.
 """
 
 from __future__ import annotations
@@ -63,27 +70,36 @@ __all__ = [
     "bwd_block_order",
     "bwd_geometry",
     "bwd_workspace",
+    "f32_geometry",
     "flash_attention",
     "flash_backward",
+    "fwd_f32_planes",
+    "fwd_f32_workspace",
     "kernel_bf16_geometry",
     "kernel_bwd_geometry",
     "kernel_bwd_workspace",
+    "kernel_f32_geometry",
+    "kernel_fwd_f32_workspace",
     "key_tiles",
     "launches",
     "padded_dim",
     "query_tiles",
     "tensor_map",
+    "tf32_key_order",
     "tf32_planes",
     "tile_interior",
 ]
 
 #: launches since the last reset (chip_smoke.py zeroes and reads); one
-#: backward is one count of ``flash_bwd`` (its three launches together)
-launches = {"flash": 0, "flash_bwd": 0}
+#: backward is one count of ``flash_bwd`` (its three launches together);
+#: ``flash_f32`` counts the float32 forwards among ``flash``'s
+launches = {"flash": 0, "flash_bwd": 0, "flash_f32": 0}
 
 _P, _I32 = ctypes.c_void_p, ctypes.c_int
-# (q, k, v, out, lse, b, sq, sk, h, kh, d, causal, window, kv_len, stream)
-_ARGTYPES = [_P] * 5 + [_I32] * 9 + [_P]
+# (q, k, v, out, lse, b, sq, sk, h, kh, d, causal, window, kv_len, stream);
+# float32 takes its workspace after lse
+_ARGTYPES = {torch.bfloat16: [_P] * 5 + [_I32] * 9 + [_P],
+             torch.float32: [_P] * 6 + [_I32] * 9 + [_P]}
 # (q, k, v, o, dout, lse, work, dq, dk, dv, b, sq, sk, h, kh, d, causal,
 #  window, kv_len, stream)
 _BWD_ARGTYPES = [_P] * 10 + [_I32] * 9 + [_P]
@@ -93,6 +109,9 @@ _SUFFIX = {torch.bfloat16: "bf16", torch.float32: "f32"}
 BF16_ROWS_PER_WARPGROUP = 64
 _SMEM_PER_BLOCK = 232_448  # bytes a block can take on an H100
 _GEOMETRY_KEYS = ("dp", "panel", "swizzle", "bq", "bk", "stages", "smem")
+_F32_GEOMETRY_KEYS = ("dp", "panel", "swizzle", "bq", "bk", "smem", "wgmma")
+# the scalar float32 forward (head dim 256): queries a block, keys a tile
+_SCALAR_FWD_BQ, _SCALAR_FWD_BK = 64, 32
 #: keys per warpgroup of the bf16 backward (wgmma's M); a block holds two
 #: warpgroups' keys
 BWD_KEYS_PER_WARPGROUP = 64
@@ -131,6 +150,68 @@ def bf16_geometry(d: int) -> dict:
     smem = 1024 + bq * dp * 2 + 2 * stages * bk * dp * 2 + (2 * stages + 1) * 8
     return dict(dp=dp, panel=panel, swizzle=panel * 2, bq=bq, bk=bk,
                 stages=stages, smem=smem)
+
+
+def f32_geometry(d: int) -> dict:
+    """The float32 forward's instantiation for head dim ``d``
+    (``Tf32FwdGeometry`` in ``flash.cu``): at ``dp`` ≤ 128 the 3xTF32
+    kernel (``wgmma`` 1), the bf16 kernel's block shape (``bq`` 128 queries,
+    two consumer warpgroups of 64) with natural tiles in panels of ``panel``
+    float32 columns, one ``swizzle`` span wide, key tiles of ``bk`` keys (K
+    hi and lo, Vᵀ hi and lo in panels of ``min(bk, 32)`` keys), ``smem``
+    dynamic shared-memory bytes (1 KiB of alignment slack, both warpgroups'
+    Q hi and lo, the K and Vᵀ tiles, a full and an empty mbarrier for each,
+    one for Q); at ``dp`` 256 the scalar kernel (``wgmma`` 0: 64 queries a
+    block, 32-key tiles)."""
+    dp = padded_dim(d)
+    if dp == 256:
+        smem = ((_SCALAR_FWD_BQ + 2 * _SCALAR_FWD_BK) * (dp + 4)
+                + _SCALAR_FWD_BQ * (_SCALAR_FWD_BK + 1)) * 4
+        return dict(dp=dp, panel=0, swizzle=0, bq=_SCALAR_FWD_BQ, bk=_SCALAR_FWD_BK,
+                    smem=smem, wgmma=0)
+    panel = min(dp, 32)
+    bq = 2 * BF16_ROWS_PER_WARPGROUP
+    # at dp 128 the resident Q of 128 queries, hi and lo, takes 128 KiB
+    bk = 32 if dp >= 128 else 64
+    q_tile, k_tile = BF16_ROWS_PER_WARPGROUP * dp * 4, bk * dp * 4
+    smem = 1024 + 4 * q_tile + 4 * k_tile + 5 * 8
+    return dict(dp=dp, panel=panel, swizzle=panel * 4, bq=bq, bk=bk, smem=smem, wgmma=1)
+
+
+def fwd_f32_planes(b: int, sq: int, sk: int, h: int, kh: int, d: int) -> dict:
+    """The float32 forward's workspace layout at head dims up to 128
+    (``FwdPlanes`` in ``flash.cu``): ``{name: (offset, floats)}`` of each
+    3xTF32 plane, hi and lo, in order: Q and K natural ``[B·heads, S, d]``
+    (``qn``, ``kn``), V transposed ``[B·KH, d, S8]`` (``vt``; S8 is Sk
+    rounded up to 8, the keys permuted within each 8)."""
+    parts = []
+    for name, n in (("qn", b * h * sq * d), ("kn", b * kh * sk * d),
+                    ("vt", b * kh * d * _round8(sk))):
+        parts += [(f"{name}_hi", n), (f"{name}_lo", n)]
+    out, at = {}, 0
+    for name, n in parts:
+        out[name] = (at, n)
+        at += n
+    return out
+
+
+def tf32_key_order(s8: int) -> list:
+    """The key (sequence position) each position of a transposed 3xTF32
+    plane of ``s8`` positions holds (``split_planes`` in ``hopper.cuh``):
+    within each 8, position ``8u + k`` holds key ``8u + 2k`` for k < 4 and
+    ``8u + 2k - 7`` for k ≥ 4, the order in which a thread's accumulator
+    columns (2t4, 2t4 + 1) enter a TF32 A fragment as k = t4 and t4 + 4."""
+    return [pos - pos % 8 + (2 * (pos % 8) if pos % 8 < 4 else 2 * (pos % 8) - 7)
+            for pos in range(s8)]
+
+
+def fwd_f32_workspace(b: int, sq: int, sk: int, h: int, kh: int, d: int) -> int:
+    """Floats of the workspace the float32 forward takes
+    (``flash_f32_workspace``): the planes of :func:`fwd_f32_planes` at head
+    dims up to 128, none at 256."""
+    if padded_dim(d) == 256:
+        return 0
+    return sum(n for _, n in fwd_f32_planes(b, sq, sk, h, kh, d).values())
 
 
 def tensor_map(batch: int, seq: int, heads: int, d: int, rows: int) -> dict:
@@ -329,6 +410,28 @@ def kernel_bwd_workspace(dtype: torch.dtype, b: int, sq: int, sk: int, h: int,
     return out.value
 
 
+def kernel_f32_geometry(d: int) -> dict:
+    """The built library's own float32 forward instantiation for head dim
+    ``d`` (``flash_f32_geometry``; builds the library on first use)."""
+    fn = _build.function("flash", "flash_f32_geometry", [_I32, _P])
+    out = (ctypes.c_int * len(_F32_GEOMETRY_KEYS))()
+    err = fn(d, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"flash_f32_geometry({d}) failed: cudaError_t {err}")
+    return dict(zip(_F32_GEOMETRY_KEYS, out))
+
+
+def kernel_fwd_f32_workspace(b: int, sq: int, sk: int, h: int, kh: int, d: int) -> int:
+    """Floats of the workspace the float32 forward takes, as the library
+    computes them (``flash_f32_workspace``)."""
+    fn = _build.function("flash", "flash_f32_workspace", [_I32] * 6 + [_P])
+    out = ctypes.c_longlong()
+    err = fn(b, sq, sk, h, kh, d, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"flash_f32_workspace failed: cudaError_t {err}")
+    return out.value
+
+
 def kernel_bf16_geometry(d: int) -> dict:
     """The built library's own bf16 instantiation for head dim ``d``
     (``flash_bf16_geometry``; builds the library on first use)."""
@@ -375,16 +478,21 @@ def flash_attention(
            if with_lse else None)
     if out.numel() == 0:
         return (out, lse) if with_lse else out
-    fn = _build.function("flash", f"flash_attention_{_SUFFIX[q.dtype]}", _ARGTYPES)
+    fn = _build.function("flash", f"flash_attention_{_SUFFIX[q.dtype]}",
+                         _ARGTYPES[q.dtype])
     stream = torch.cuda.current_stream(q.get_device()).cuda_stream
-    err = fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        0 if lse is None else lse.data_ptr(),
-        b, sq, sk, h, kh, d, int(causal), window or 0, kv_len, stream,
-    )
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            0 if lse is None else lse.data_ptr()]
+    if q.dtype == torch.float32:  # the 3xTF32 planes, every float written first
+        work = torch.empty(kernel_fwd_f32_workspace(b, sq, sk, h, kh, d),
+                           dtype=torch.float32, device=q.device)
+        ptrs.append(work.data_ptr() if work.numel() else 0)
+    err = fn(*ptrs, b, sq, sk, h, kh, d, int(causal), window or 0, kv_len, stream)
     if err != 0:
         raise RuntimeError(f"flash launch failed: cudaError_t {err}")
     launches["flash"] += 1
+    if q.dtype == torch.float32:
+        launches["flash_f32"] += 1
     return (out, lse) if with_lse else out
 
 

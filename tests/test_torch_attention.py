@@ -6,11 +6,12 @@ Tolerances: float32 paths at 1e-5 (the same float32 arithmetic in another
 summation order; the Pallas kernel runs in interpret mode with 16-wide
 blocks, its plain version takes one dense softmax), bf16 at 4e-2 (the
 reference's own flash tolerance: one bf16 rounding of p and of the output),
-the layers at 1e-6.  The CUDA kernel itself runs only on the card
-(``chip_smoke.py`` phase 2); here its wrapper's refusals and build command
-are checked, and the bf16 kernel's host-side geometry and schedule (its
-Python mirror in ``kernels/flash.py``) are held against brute-force counts
-of the visible (query, key) pairs.
+the layers at 1e-6.  The CUDA kernels themselves run only on the card
+(``chip_smoke.py`` phase 2); here their wrappers' refusals and build
+command are checked, and the kernels' host-side geometry, workspace and
+schedule (the Python mirror in ``kernels/flash.py``) are held against
+brute-force counts of the visible (query, key) pairs and, for the float32
+kernel's transposed V plane, against the register fragments' order.
 """
 
 import dataclasses
@@ -586,3 +587,162 @@ def test_bwd_f32_workspace_covers_the_planes(b, sq, sk, h, kh, d):
     # the bf16 workspace is as it was: rows, the float32 dQ and GQA's dK / dV
     bf16 = PF.bwd_workspace(torch.bfloat16, b, sq, sk, h, kh, d)
     assert bf16 == want["rows"] + b * sq * h * d + (0 if h == kh else 2 * b * sk * kh * d)
+
+
+# -- the float32 forward's 3xTF32 kernel (Hopper: wgmma + TMA) --------------------
+
+@pytest.mark.parametrize("d", range(8, 257, 8))
+def test_f32_geometry_per_width(d):
+    """The float32 forward's instantiation for every head dim: the 3xTF32
+    kernel up to a padded width of 128 (the bf16 kernel's 128-query block
+    of two warpgroups, natural panels of 32 float32 columns on the 128-byte
+    swizzle, 64-byte at width 16, one K and one Vᵀ tile of 64 keys, 32 at
+    width 128, Vᵀ in panels of up to 32 keys), the scalar kernel at 256;
+    its shared memory fits one H100 block and every tile and panel starts
+    on a swizzle repeat."""
+    g = PF.f32_geometry(d)
+    dp = PF.padded_dim(d)
+    assert g["dp"] == dp and g["smem"] <= 232_448
+    if dp == 256:
+        assert g["wgmma"] == 0 and (g["bq"], g["bk"]) == (64, 32)
+        assert g["smem"] == ((64 + 2 * 32) * (256 + 4) + 64 * (32 + 1)) * 4
+        return
+    assert g["wgmma"] == 1 and g["bq"] == 2 * PF.BF16_ROWS_PER_WARPGROUP == 128
+    assert g["panel"] == min(dp, 32) and g["swizzle"] == 4 * g["panel"]
+    assert g["swizzle"] in (64, 128) and dp % g["panel"] == 0
+    assert g["bk"] == (32 if dp == 128 else 64)
+    q_tile, k_tile = PF.BF16_ROWS_PER_WARPGROUP * dp * 4, g["bk"] * dp * 4
+    panel_v = min(g["bk"], 32)
+    assert g["bk"] % panel_v == 0
+    # tiles one after another from a 1 KiB-aligned base stay on the 1 KiB
+    # repeat; a natural panel's rows and a Vᵀ panel's DP rows on their own
+    for nbytes in (q_tile, k_tile):
+        assert nbytes % 1024 == 0
+    for nbytes, span in ((PF.BF16_ROWS_PER_WARPGROUP * g["swizzle"], g["swizzle"]),
+                         (g["bk"] * g["swizzle"], g["swizzle"]),
+                         (dp * panel_v * 4, panel_v * 4)):
+        assert span in (64, 128) and nbytes % (8 * span) == 0
+    assert g["smem"] == 1024 + 4 * q_tile + 4 * k_tile + 5 * 8
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kh,d", [(1, 4096, 4096, 9, 3, 64), (2, 1000, 3001, 8, 2, 40),
+                                           (1, 4096, 1500, 16, 16, 64), (1, 300, 301, 2, 2, 8),
+                                           (1, 333, 333, 2, 2, 256)])
+def test_fwd_f32_workspace_covers_the_planes(b, sq, sk, h, kh, d):
+    """The float32 forward's workspace holds the 3xTF32 hi and lo planes of
+    Q and K (natural) and V (transposed, the keys padded to 8), one after
+    another: no overlap, each 16-byte aligned with TMA-legal strides, and
+    its size covers them all (none at head dim 256, the scalar kernel)."""
+    lay = PF.fwd_f32_planes(b, sq, sk, h, kh, d)
+    s8 = -(-sk // 8) * 8
+    want = {}
+    for name, n in (("qn", b * h * sq * d), ("kn", b * kh * sk * d), ("vt", b * kh * d * s8)):
+        want[f"{name}_hi"] = want[f"{name}_lo"] = n
+    assert {k: n for k, (_, n) in lay.items()} == want
+    at = 0
+    for name, (off, n) in lay.items():  # in order, back to back
+        assert off == at and off * 4 % 16 == 0, name
+        at += n
+    assert PF.fwd_f32_workspace(b, sq, sk, h, kh, d) == (0 if d > 128 else at)
+    # TMA strides (bytes) of the natural rows, the transposed rows and the matrices
+    for stride in (4 * d, 4 * sq * d, 4 * sk * d, 4 * s8, 4 * s8 * d):
+        assert stride % 16 == 0
+
+
+@pytest.mark.parametrize("s8", [8, 64, 1504])
+def test_tf32_key_order_matches_the_register_fragments(s8):
+    """The transposed V plane permutes the keys within each 8 so that one
+    k-step of O += P·V, with P's accumulator fragments as the register A
+    operand (``Tf32Ops::frags``: a thread's columns 2t4, 2t4 + 1 of rows g,
+    g + 8 as k = t4, t4 + 4) and B read K-major from the plane, is P·V."""
+    order = PF.tf32_key_order(s8)
+    for u in range(0, s8, 8):
+        assert sorted(order[u:u + 8]) == list(range(u, u + 8))
+    rng = np.random.default_rng(s8)
+    p, v = rng.standard_normal((64, s8)), rng.standard_normal((s8, 16))
+    plane = v[order].T  # [D, S8]: position 8u + k holds key order[8u + k]
+    got = np.zeros((64, 16))
+    for u in range(0, s8, 8):  # a k-step of 8 keys
+        a = np.zeros((64, 8))  # the A operand as every thread's fragments fill it
+        for t4 in range(4):
+            a[:, t4] = p[:, u + 2 * t4]          # frags' k = t4: column 2t4
+            a[:, t4 + 4] = p[:, u + 2 * t4 + 1]  # k = t4 + 4: column 2t4 + 1
+        got += a @ plane[:, u:u + 8].T
+    np.testing.assert_allclose(got, p @ v, rtol=1e-12, atol=1e-12)
+
+
+# smollm-135m's head layout cut to size: GQA 3:1 at head dim 64, causal, a
+# window, and a ragged non-causal kv_len
+SMOLLM_LIKE = [
+    (1, 64, 64, 3, 1, 64, True, None, 64),
+    (2, 48, 48, 3, 1, 64, True, 16, 48),
+    (1, 40, 72, 3, 1, 64, False, None, 53),
+]
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kh,d,causal,window,kv_len", SMOLLM_LIKE)
+def test_f32_plain_path_matches_pallas_at_smollm_shapes(b, sq, sk, h, kh, d, causal, window,
+                                                        kv_len):
+    """The float32 forward's plain path (what ``ops.flash_attention`` runs on
+    a CPU tensor, and what phase 2 holds the 3xTF32 kernel to) against
+    ``flash_kernel_call`` itself in interpret mode, K and V repeated per
+    query head and zero-padded to its 16-wide blocks."""
+    rng = np.random.default_rng(sq * 13 + sk)
+    q, k, v = _randn(rng, (b, sq, h, d)), _randn(rng, (b, sk, kh, d)), _randn(rng, (b, sk, kh, d))
+    rep = lambda x: np.repeat(x, h // kh, axis=2).transpose(0, 2, 1, 3).reshape(b * h, -1, d)  # noqa: E731
+    pad = lambda x: np.pad(x, ((0, 0), (0, -x.shape[1] % 16), (0, 0)))  # noqa: E731
+    want = flash_kernel_call(
+        *(jnp.asarray(pad(x)) for x in (q.transpose(0, 2, 1, 3).reshape(b * h, sq, d),
+                                        rep(k), rep(v))),
+        causal=causal, window=window, kv_len=kv_len, bq=16, bk=16, interpret=True,
+    )[:, :sq]
+    kw = dict(causal=causal, window=window, kv_len=kv_len)
+    got = POPS.flash_attention(*map(torch.from_numpy, (q, k, v)), **kw)
+    got = got.numpy().transpose(0, 2, 1, 3).reshape(b * h, sq, d)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arm", sorted(_variants_tool().ARMS))
+def test_f32_variant_tool_arms_apply_to_the_checkout(arm):
+    """Each named arm of the float32 forward's design ablation edits text
+    that the checkout's ``flash.cu`` holds exactly once (the final arm is
+    the source itself), so every arm still builds from today's source."""
+    tool = _variants_tool()
+    base = (_build.CSRC / "flash.cu").read_text()
+    got = tool.variant_sources([arm])[arm]
+    if not tool.ARMS[arm]:
+        assert got == base
+        return
+    for sub in tool.ARMS[arm].split("@@"):
+        assert base.count(sub.split("=>")[0]) == 1, (arm, sub)
+    assert got != base
+
+
+def test_f32_variant_tool_builds_another_commit_against_its_own_header(tmp_path):
+    """A ``name:path`` variant is built with its own directory ahead of
+    ``csrc`` on the include path, so an older ``flash.cu`` finds the
+    ``hopper.cuh`` of its commit; the tool's float32 bound is
+    ``chip_smoke.py``'s: at head dim 64 (whisper-medium's cross attention)
+    3 x the operations at TF32's rate, the scalar one at float32's beside
+    it, and at head dim 256 the scalar one alone."""
+    tool = _variants_tool()
+    cs = tool.cs
+    old = tmp_path / "flash.cu"
+    old.write_text("int x;")
+    assert tool.source_dirs([f"parent:{old}", "final", "two=a=>b"]) == {"parent": tmp_path}
+    for d, tf32 in ((64, True), (256, False)):
+        nbytes, flops = cs.flash_work(1, 4096, 1500, 16, 16, d, False, None, 4)
+        assert flops == 4 * d * 16 * 4096 * 1500
+        mem = nbytes / cs.HBM_BYTES_PER_S * 1e3
+        scalar = max(mem, flops / cs.FP32_FLOPS * 1e3)
+        bnd = tool.bounds_ms(1, 4096, 1500, 16, 16, d, False, None, torch.float32)
+        assert bnd == cs.flash_bound(nbytes, flops, torch.float32, tf32)
+        if tf32:
+            assert bnd["bound_ms"] == pytest.approx(max(mem, 3 * flops / cs.TF32_FLOPS * 1e3))
+            assert bnd["scalar_bound_ms"] == pytest.approx(scalar)
+        else:
+            assert bnd["bound_ms"] == pytest.approx(scalar) and "scalar_bound_ms" not in bnd
+    log = ("ptxas info    : Function properties for _ZN12_GLOBAL__N_117flash_tf32_kernelILi64EEEv\n"
+           "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+           "ptxas info    : Used 168 registers, used 1 barriers\n")
+    assert tool.ptxas_report(log, "flash_tf32_kernel") == [(64, 168, 0, 0)]

@@ -332,7 +332,7 @@ def test_cpu_tensors_take_the_plain_version():
     ops.flash_attention_fn(qkv, qkv, qkv).sum().backward()  # the backward's plain version
     assert set(ops.launch_counts()) == {
         "segment_view", "segment_view1", "segment_reduce", "moments",
-        "gram", "segment_gram", "multi_segment_gram", "flash", "flash_bwd",
+        "gram", "segment_gram", "multi_segment_gram", "flash", "flash_bwd", "flash_f32",
     }
     assert all(v == 0 for v in ops.launch_counts().values())
     assert ops.fast_device_grouping("cuda") and not ops.fast_device_grouping("cpu")
